@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+All of ``csrc/*.cu`` go through one ``nvcc`` call for ``sm_90a`` into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds). The library lands in ``_build/`` inside the package (listed
+in ``.gitignore``), named by a hash of the sources and flags, so an edit to
+a source rebuilds it and an unchanged tree reuses it.
+
+Each C function takes raw device pointers, sizes and the CUDA stream, and
+returns the ``cudaGetLastError()`` code of its launch; ``check`` raises on a
+non-zero code. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # x, n, w1, m1, o1, w2t, m2, o2, inv_sx, out, stream
+    "amc_conv_stage_int8_v7": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_float, _P, _P],
+    # h, n, w3t, m3, o3, w4, s4, b4, out, stream
+    "amc_dense_argmax_int8": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                              _P, _P],
+}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.isfile(nvcc):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the CUDA kernels are built on the GPU machine")
+    return nvcc
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libamc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(force: bool = False) -> dict:
+    """Compile the kernels if the library for these sources is missing.
+    Returns the library path, the build seconds (0 when reused) and the
+    compiler's report (registers and shared memory per kernel)."""
+    out = library_path()
+    if os.path.isfile(out) and not force:
+        return {"path": out, "seconds": 0.0, "log": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build on first use and load, with argument types declared."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.amc_error_string.argtypes = [ctypes.c_int]
+    lib.amc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    if code != 0:
+        msg = lib.amc_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{name} failed to launch: CUDA error {code} ({msg})")

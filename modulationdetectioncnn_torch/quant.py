@@ -1,0 +1,121 @@
+"""The int8 deployment artifact and the weight layouts the kernels read.
+
+``QuantizedModel`` holds the same 13 arrays as the JAX package's
+``train/quant.py::QuantizedModel`` (NumPy, the JAX package's layouts). The
+committed artifact is ``assets/rml11_int8.npz``, exported from the Orbax tree
+``artifacts/ckpt_rml11_int8`` by ``scripts/export_int8_npz.py``.
+
+``int8_weights_from_numpy`` carries a model across: it turns those arrays
+into device tensors in the layouts the CUDA kernels and their plain versions
+read (``Int8Weights``). Integer requantize constants are unchanged: the
+fixed-point spec is ``clip((acc + offset) >> shift, 0, 127)``.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, fields
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from modulationdetectioncnn_torch.device import resolve_device
+
+DEFAULT_ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "assets", "rml11_int8.npz")
+
+
+@dataclass
+class QuantizedModel:
+    """All arrays are NumPy, in the JAX package's layouts."""
+
+    s_x: np.ndarray          # () f32 input scale
+    w1p: np.ndarray          # (3, C1) int8 conv1 taps
+    m1: np.ndarray           # (2*C1,) int32 requantize shift
+    o1: np.ndarray           # (2*C1,) int32 offset (bias + rounding term)
+    w2p: np.ndarray          # (2*C1, 3*C2) int8, [h*C1+cin, k*C2+co]
+    m2: np.ndarray           # (C2,) int32
+    o2: np.ndarray           # (C2,) int32
+    w3: np.ndarray           # (T2*C2, D) int8, rows in t*C2+c order
+    m3: np.ndarray           # (D,) int32
+    o3: np.ndarray           # (D,) int32
+    w4: np.ndarray           # (D, NC) int8
+    s4: np.ndarray           # (NC,) f32 dequant scale
+    b4: np.ndarray           # (NC,) f32
+
+    def tree(self) -> dict[str, np.ndarray]:
+        return {f.name: np.asarray(getattr(self, f.name)) for f in fields(self)}
+
+    @classmethod
+    def from_tree(cls, t: Mapping[str, Any]) -> "QuantizedModel":
+        return cls(**{f.name: np.asarray(t[f.name]) for f in fields(cls)})
+
+    @classmethod
+    def from_npz(cls, path: str) -> "QuantizedModel":
+        with np.load(path) as z:
+            return cls.from_tree({k: z[k] for k in z.files})
+
+
+@dataclass(frozen=True)
+class Int8Weights:
+    """Device tensors in kernel layouts (see ``int8_weights_from_numpy``)."""
+
+    inv_sx: float            # float32(1 / float64(float32(s_x))), exact f32
+    w1: torch.Tensor         # (3, C1) int8
+    m1: torch.Tensor         # (2*C1,) int32
+    o1: torch.Tensor         # (2*C1,) int32
+    w2t: torch.Tensor        # (C2, 3*2*C1) int8, [co, k*2*C1 + j]
+    m2: torch.Tensor         # (C2,) int32
+    o2: torch.Tensor         # (C2,) int32
+    w3t: torch.Tensor        # (D, T2*C2) int8, dense1 transposed
+    m3: torch.Tensor         # (D,) int32
+    o3: torch.Tensor         # (D,) int32
+    w4: torch.Tensor         # (D, NC) int8
+    s4: torch.Tensor         # (NC,) f32
+    b4: torch.Tensor         # (NC,) f32
+
+    @property
+    def device(self) -> torch.device:
+        return self.w1.device
+
+
+def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
+                            device: str | torch.device = "cuda") -> Int8Weights:
+    """Carry a model's arrays (NumPy, JAX-package layouts) to the port.
+
+    The only re-layouts are transposes that make each kernel's reduction
+    axis contiguous: conv2's tap-packed (2*C1, 3*C2) becomes (C2, 3*2*C1),
+    so output channel co reads the 3 consecutive stacked conv1 rows t..t+2
+    as one contiguous K = 3*2*C1 vector; dense1 (T2*C2, D) becomes
+    (D, T2*C2).
+    """
+    dev = resolve_device(device)
+    qm = tree if isinstance(tree, QuantizedModel) else QuantizedModel.from_tree(tree)
+    c2 = qm.m2.shape[0]
+    k1 = qm.w2p.shape[0]                       # 2*C1
+    w2t = (np.asarray(qm.w2p, np.int8).reshape(k1, 3, c2)
+           .transpose(2, 1, 0).reshape(c2, 3 * k1))
+    inv_sx = float(np.float32(1.0 / np.float64(np.float32(qm.s_x))))
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(dev)
+
+    return Int8Weights(
+        inv_sx=inv_sx,
+        w1=t(qm.w1p, np.int8), m1=t(qm.m1, np.int32), o1=t(qm.o1, np.int32),
+        w2t=t(w2t, np.int8), m2=t(qm.m2, np.int32), o2=t(qm.o2, np.int32),
+        w3t=t(np.asarray(qm.w3).T, np.int8),
+        m3=t(qm.m3, np.int32), o3=t(qm.o3, np.int32),
+        w4=t(qm.w4, np.int8), s4=t(qm.s4, np.float32), b4=t(qm.b4, np.float32),
+    )
+
+
+def load_int8(path: str | None = None,
+              device: str | torch.device = "cuda") -> Int8Weights:
+    """Read an ``.npz`` int8 artifact (default: the committed one)."""
+    path = path or DEFAULT_ARTIFACT
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"int8 artifact {path!r} not found (an .npz written by "
+            "scripts/export_int8_npz.py)")
+    return int8_weights_from_numpy(QuantizedModel.from_npz(path), device)

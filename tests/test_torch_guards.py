@@ -1,0 +1,171 @@
+"""Guards for what breaks the port only on the GPU machine, caught here.
+
+- No JAX: the port and chip_smoke.py import neither ``jax`` nor the JAX
+  package, checked in a subprocess where both are blocked and by a scan of
+  every import statement.
+- Device: entry points default to cuda and raise without a card instead of
+  running on the CPU; chip_smoke.py exits non-zero here and prints no result.
+- Build: kernels are built with nvcc for sm_90a into a plain-C library, never
+  through torch.utils.cpp_extension, and nothing builds at import time.
+"""
+import ast
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "modulationdetectioncnn_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax",
+             "modulationdetectioncnn_tpu")
+
+
+def _port_files():
+    return sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)) + [
+        os.path.join(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import_statement(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None          # any import of these now raises
+sys.path.insert(0, {repo!r})
+import runpy
+import numpy as np
+from modulationdetectioncnn_torch.config import StreamConfig
+from modulationdetectioncnn_torch.dsp import framer, pipeline
+from modulationdetectioncnn_torch.ops import infer
+from modulationdetectioncnn_torch.quant import load_int8
+import modulationdetectioncnn_torch.cli, modulationdetectioncnn_torch.__main__
+
+sc = StreamConfig(num_subbands=8, block_len=8 * 128 * 2)
+r = np.random.default_rng(0)
+x = (r.standard_normal(sc.block_len * 2) + 1j * r.standard_normal(sc.block_len * 2))
+labels = pipeline.classify_stream_blocked(
+    framer.to_planes(x.astype(np.complex64)),
+    infer.make_int8_predict(load_int8(device="cpu")), sc)
+assert tuple(labels.shape) == (8, 4), labels.shape
+runpy.run_path({smoke!r}, run_name="chip_smoke_module")   # module level only
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    code = BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO,
+                              smoke=os.path.join(REPO, "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the entry points would run on it")
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.device import resolve_device
+    from modulationdetectioncnn_torch.dsp import pipeline
+    from modulationdetectioncnn_torch.quant import QuantizedModel, load_int8
+    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, int8_weights_from_numpy
+
+    for call in (lambda: resolve_device(),
+                 lambda: load_int8(),
+                 lambda: int8_weights_from_numpy(QuantizedModel.from_npz(DEFAULT_ARTIFACT)),
+                 lambda: pipeline.run_stream_demo(AmcConfig())):
+        with pytest.raises(RuntimeError, match="device=cpu"):
+            call()
+
+
+def test_cli_without_cuda_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "-m", "modulationdetectioncnn_torch", "stream"],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode != 0
+    assert "device=cpu" in proc.stderr
+    assert "top-label" not in proc.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])
+def test_chip_smoke_fails_without_card_or_checkout(tmp_path, alone):
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("a CUDA device is present")
+    script = os.path.join(REPO, "chip_smoke.py")
+    if alone:
+        with open(script) as f:
+            (tmp_path / "chip_smoke.py").write_text(f.read())
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    else:
+        cwd = REPO
+    proc = subprocess.run([sys.executable, script], capture_output=True, text=True,
+                          timeout=300, cwd=cwd)
+    assert proc.returncode != 0
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            assert json.loads(line).get("ok") is not True
+
+
+def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
+    from modulationdetectioncnn_torch.ops import _build
+
+    with open(_build.__file__) as f:
+        src = f.read()
+    assert "nvcc" in src and "arch=compute_90a,code=sm_90a" in src
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    for banned in ("cpp_extension", "ninja", "triton"):
+        assert banned not in src
+    sources = _build._sources()
+    assert [os.path.basename(s) for s in sources] == [
+        "conv_stage_int8.cu", "dense_argmax_int8.cu"]
+    for s in sources:
+        with open(s) as f:
+            cu = f.read()
+        assert "torch/extension.h" not in cu and 'extern "C"' in cu
+        assert "Replaces: modulationdetectioncnn_tpu/ops/infer.py::" in cu
+
+
+def test_library_path_tracks_sources(tmp_path, monkeypatch):
+    """The library is named by a hash of the sources: an edit rebuilds."""
+    from modulationdetectioncnn_torch.ops import _build
+
+    for s in _build._sources():
+        (tmp_path / os.path.basename(s)).write_bytes(open(s, "rb").read())
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    before = _build.library_path()
+    assert os.path.dirname(before) == _build.BUILD_DIR
+    with open(tmp_path / "conv_stage_int8.cu", "a") as f:
+        f.write("\n// edit\n")
+    assert _build.library_path() != before
+
+
+def test_cuda_wrappers_reject_what_the_kernel_does_not_take():
+    """Checks that run before any launch: wrong device type, shape, dtype."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    qw = load_int8(device="cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        infer.conv_stage_int8_v7(torch.zeros((1, 2, 128), device="meta"), qw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        infer.dense_argmax_int8(torch.zeros((1, 9920), dtype=torch.int8,
+                                            device="meta"), qw)

@@ -1,0 +1,187 @@
+"""The port's int8 path against the JAX package, on the CPU.
+
+Inputs come from numpy seeds and go through both packages. The JAX side runs
+its Pallas kernels in interpret mode, as tests/test_ops_infer.py does, and
+its NumPy golden chain; the port's wrappers take their plain versions on
+CPU tensors. The integer chain is held bit-exact: the conv map and the
+labels must be equal, with no tolerance.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modulationdetectioncnn_torch.ops import infer as tinfer
+from modulationdetectioncnn_torch.ops.requant import quantize_input, requantize
+from modulationdetectioncnn_torch.quant import (
+    DEFAULT_ARTIFACT,
+    QuantizedModel as TorchQM,
+    int8_weights_from_numpy,
+    load_int8,
+)
+from modulationdetectioncnn_tpu.golden import quant as gq
+from modulationdetectioncnn_tpu.models import VTCNN2
+from modulationdetectioncnn_tpu.ops import infer as jinfer
+from modulationdetectioncnn_tpu.ops.cnn_kernels import requantize as jrequantize
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def qm():
+    """The JAX tests' random-init VT-CNN2, quantized by train/quant.py."""
+    from modulationdetectioncnn_tpu.train.quant import quantize
+
+    model = VTCNN2(dtype=jnp.float32)
+    params = jax.tree.map(
+        np.asarray, model.init(jax.random.key(0), jnp.zeros((1, 2, 128))))
+    calib = np.random.default_rng(8).standard_normal((64, 2, 128)).astype(np.float32)
+    return quantize(model, params, calib)
+
+
+@pytest.fixture(scope="module")
+def qw(qm):
+    return int8_weights_from_numpy(qm.tree(), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return np.random.default_rng(7).standard_normal((16, 2, 128)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_requantize_matches_jax_exactly(seed):
+    """Negative sums, shift boundaries and both clip edges."""
+    r = np.random.default_rng(seed)
+    shift = r.integers(0, 20, 64).astype(np.int32)
+    offset = r.integers(-(1 << 20), 1 << 20, 64).astype(np.int32)
+    acc = r.integers(-(1 << 26), 1 << 26, (32, 64)).astype(np.int32)
+    # exact multiples of 2**shift, one below, and values landing on 0/127/128
+    acc[0] = (1 << shift) - offset
+    acc[1] = (1 << shift) - offset - 1
+    acc[2] = 127 * (1 << shift) - offset
+    acc[3] = 128 * (1 << shift) - offset
+    acc[4] = -offset
+    acc[5] = -offset - 1
+    want = np.asarray(jrequantize(jnp.asarray(acc), jnp.asarray(shift),
+                                  jnp.asarray(offset), relu=True))
+    got = requantize(torch.from_numpy(acc), torch.from_numpy(shift),
+                     torch.from_numpy(offset)).numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert {0, 127} <= set(np.unique(got).tolist())
+
+
+def test_quantize_input_matches_golden(qm):
+    """Round half to even on the f32 product with the f32 reciprocal,
+    including exact .5 ties and the clip."""
+    x = np.random.default_rng(3).standard_normal((8, 2, 128)).astype(np.float32) * 2
+    x[0, 0, :8] = (np.arange(8) + 0.5).astype(np.float32) * np.float32(qm.s_x)
+    x[0, 1, :2] = (1e3, -1e3)
+    inv = float(np.float32(1.0 / np.float64(np.float32(qm.s_x))))
+    got = quantize_input(torch.from_numpy(x), inv).numpy()
+    np.testing.assert_array_equal(got, gq.quantize_input(x, qm.s_x))
+
+
+def test_weight_layouts(qm, qw):
+    """The carried-across layouts are transposes of the JAX package's."""
+    c2, k1 = qm.m2.shape[0], qm.w2p.shape[0]
+    w2t = qw.w2t.numpy()
+    for k in range(3):
+        np.testing.assert_array_equal(
+            w2t[:, k * k1:(k + 1) * k1], qm.w2p[:, k * c2:(k + 1) * c2].T)
+    np.testing.assert_array_equal(qw.w3t.numpy(), qm.w3.T)
+    assert qw.inv_sx == float(np.float32(1.0 / np.float64(np.float32(qm.s_x))))
+
+
+def test_conv_stage_matches_pallas_v7_and_golden(qm, qw, frames):
+    want_pallas = np.asarray(
+        jinfer.make_conv_stage(qm, "v7", block_b=8, chunk=4, interpret=True)(
+            jnp.asarray(frames)))[:, :124, :80]
+    a1 = gq.conv1_int8(gq.quantize_input(frames, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    want_golden = gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2)
+    got = tinfer.make_conv_stage(qw, "v7")(torch.from_numpy(frames)).numpy()
+    assert got.shape == (16, 124, 80) and got.dtype == np.int8
+    np.testing.assert_array_equal(want_pallas, want_golden)
+    np.testing.assert_array_equal(got, want_golden)
+    assert 0 < (got > 0).mean() < 1  # a live map, not all clipped
+
+
+@pytest.mark.parametrize("n", [16, 5])
+def test_labels_match_pallas_v7_and_golden(qm, qw, frames, n):
+    """Full and ragged batches: labels equal the Pallas v7 classifier's and
+    the golden chain's."""
+    x = frames[:n]
+    want_pallas = np.asarray(jinfer.make_int8_predict(qm, "v7", interpret=True)(
+        jnp.asarray(x)))
+    want_golden = gq.int8_predict(qm, x)
+    got = tinfer.make_int8_predict(qw, "v7")(torch.from_numpy(x)).numpy()
+    assert got.shape == (n,) and got.dtype == np.int32
+    np.testing.assert_array_equal(want_pallas, want_golden)
+    np.testing.assert_array_equal(got, want_golden)
+
+
+def test_dense_stage_ties_go_to_lowest_index(qm, frames):
+    """With dense2 zeroed the logits are the biases; a tie between classes 3
+    and 7 goes to 3, as the reference's masked argmax and golden give."""
+    tree = qm.tree()
+    tree["w4"] = np.zeros_like(tree["w4"])
+    tree["b4"] = np.zeros_like(tree["b4"])
+    tree["b4"][[3, 7]] = 1.0
+    tied = int8_weights_from_numpy(tree, device="cpu")
+    got = tinfer.make_int8_predict(tied)(torch.from_numpy(frames)).numpy()
+    np.testing.assert_array_equal(got, 3)
+    np.testing.assert_array_equal(
+        gq.int8_predict(TorchQM.from_tree(tree), frames), got)
+
+
+def test_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
+    tinfer.reset_launch_counts()
+    x = torch.from_numpy(frames)
+    conv = tinfer.conv_stage_int8_v7(x, qw)
+    np.testing.assert_array_equal(
+        conv.numpy(), tinfer.conv_stage_int8_v7_plain(x, qw).numpy())
+    labels = tinfer.dense_argmax_int8(conv, qw)
+    np.testing.assert_array_equal(
+        labels.numpy(), tinfer.dense_argmax_int8_plain(conv, qw).numpy())
+    assert tinfer.conv_stage_int8_v7.launches == 0
+    assert tinfer.dense_argmax_int8.launches == 0
+
+
+@pytest.mark.parametrize("version", ["v3", "v10", "bf16"])
+def test_unported_versions_raise(qw, version):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tinfer.make_int8_predict(qw, version)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tinfer.make_conv_stage(qw, version)
+
+
+def test_committed_npz_equals_orbax_artifact():
+    """The committed .npz holds the Orbax artifact's 13 arrays unchanged."""
+    from modulationdetectioncnn_tpu.utils.checkpoint import load_tree
+
+    tree = load_tree(os.path.join(REPO, "artifacts", "ckpt_rml11_int8"))
+    npz = TorchQM.from_npz(DEFAULT_ARTIFACT).tree()
+    assert set(npz) == set(tree)
+    for k, v in tree.items():
+        v = np.asarray(v)
+        assert npz[k].dtype == v.dtype and npz[k].shape == v.shape, k
+        np.testing.assert_array_equal(npz[k], v, err_msg=k)
+
+
+def test_full_width_artifact_labels_match_golden():
+    """The deployed model, 256 frames of the synthetic RML-style data:
+    labels equal the golden int8 chain exactly."""
+    from modulationdetectioncnn_tpu.data.synthetic import make_dataset
+    from modulationdetectioncnn_tpu.config import DataConfig
+
+    x, _, _ = make_dataset(DataConfig(), snrs=[0, 10, 18],
+                           frames_per_class_per_snr=8, seed=5)
+    x = x[:256]
+    qm_np = TorchQM.from_npz(DEFAULT_ARTIFACT)
+    got = tinfer.make_int8_predict(load_int8(device="cpu"))(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), gq.int8_predict(qm_np, x))
+    assert len(np.unique(got.numpy())) > 3

@@ -1,0 +1,118 @@
+"""The port's stream path as a whole, on the CPU.
+
+- Streamed (overlap-save blocks) labels equal whole-stream labels within the
+  port, as tests/test_streaming.py holds for the JAX package.
+- The port's ``classify_stream_blocked`` against the JAX one on a short
+  demo-style signal through the deployed int8 artifact (the JAX side runs
+  its Pallas v7 kernels in interpret mode).
+- The demo itself and the CLI, at full width, with ``device=cpu``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from modulationdetectioncnn_torch import cli
+from modulationdetectioncnn_torch.config import AmcConfig, RML_CLASSES, StreamConfig
+from modulationdetectioncnn_torch.dsp import framer as tfr
+from modulationdetectioncnn_torch.dsp import pipeline as tpipe
+from modulationdetectioncnn_torch.ops import infer as tinfer
+from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel, load_int8
+from modulationdetectioncnn_tpu.config import StreamConfig as JStreamConfig
+from modulationdetectioncnn_tpu.dsp import framer as jfr
+from modulationdetectioncnn_tpu.dsp import pipeline as jpipe
+from modulationdetectioncnn_tpu.ops import infer as jinfer
+
+
+def _wideband(t_len: int, seed: int = 3) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    n = np.arange(t_len)
+    x = (np.exp(2j * np.pi * 0.13 * n) + 0.5 * np.exp(2j * np.pi * 0.31 * n + 0.7j)
+         + 0.3 * (r.standard_normal(t_len) + 1j * r.standard_normal(t_len)))
+    return x.astype(np.complex64)
+
+
+@pytest.fixture(scope="module")
+def artifact_predict():
+    return tinfer.make_int8_predict(load_int8(device="cpu"))
+
+
+@pytest.mark.parametrize("hop", [128, 32])
+def test_streamed_equals_batch_labels(artifact_predict, hop):
+    sc = StreamConfig(num_subbands=8, taps_per_branch=8, frame_hop=hop,
+                      block_len=8 * 128 * 2)
+    t_len = sc.block_len * 3 + sc.block_len // 2  # ragged tail
+    x = tfr.to_planes(_wideband(t_len))
+    batch = tpipe.classify_stream(x, artifact_predict, sc).numpy()
+    streamed = tpipe.classify_stream_blocked(x, artifact_predict, sc).numpy()
+    assert streamed.shape == batch.shape == (8, tpipe.total_frames(sc, t_len))
+    np.testing.assert_array_equal(streamed, batch)
+
+
+@pytest.mark.parametrize("kw", [{}, {"frame_hop": 32}, {"frame_hop": 64, "taps_per_branch": 4}])
+def test_plan_matches_jax(kw):
+    sc, jsc = StreamConfig(**kw), JStreamConfig(**kw)
+    plan, jplan = tpipe.plan_frontend(sc), jpipe.plan_frontend(jsc)
+    for f in ("m", "frame_len", "hop", "halo_in", "n_hist_sub", "n_lead_frames"):
+        assert getattr(plan, f) == getattr(jplan, f), f
+    for t_len in (0, 100, 5000, 131072):
+        assert tpipe.total_frames(sc, t_len) == jpipe.total_frames(jsc, t_len)
+    assert tpipe.check_block_alignment(sc, sc.block_len) == \
+        jpipe.check_block_alignment(jsc, jsc.block_len)
+
+
+def test_blocked_stream_matches_jax_on_demo_style_signal(artifact_predict):
+    """Demo-style signal (the demo's generator, block_len cut to 8192 so the
+    JAX side's interpret-mode kernels stay quick), deployed int8 model. The
+    occupied subbands must agree exactly; overall >= 99 %: the remaining
+    differences are near-ties in the CFO spectrum's argmax on noise-only
+    frames, where the two libraries' matmuls round differently."""
+    cfg = dataclasses.replace(AmcConfig(device="cpu"),
+                              stream=StreamConfig(block_len=8192))
+    wide, occupied = tpipe.make_demo_signal(cfg)
+    sc = cfg.stream
+    got = tpipe.classify_stream_blocked(tfr.to_planes(wide), artifact_predict, sc).numpy()
+    qm = jinfer_qm()
+    jpredict = jinfer.make_int8_predict(qm, "v7", interpret=True)
+    want = np.asarray(jpipe.classify_stream_blocked(
+        jfr.to_planes(wide), jpredict, JStreamConfig(block_len=8192)))
+    assert got.shape == want.shape == (16, 16)
+    occ = sorted(occupied)
+    np.testing.assert_array_equal(got[occ], want[occ])
+    assert (got == want).mean() >= 0.99
+    for k, mod in occupied.items():
+        assert RML_CLASSES[np.bincount(got[k]).argmax()] == mod
+
+
+def jinfer_qm():
+    """The committed artifact as the JAX package's QuantizedModel."""
+    from modulationdetectioncnn_tpu.train.quant import QuantizedModel as JQM
+
+    return JQM.from_tree(QuantizedModel.from_npz(DEFAULT_ARTIFACT).tree())
+
+
+def test_stream_demo_cli_on_cpu(capsys):
+    """``python -m modulationdetectioncnn_torch stream device=cpu``: the full
+    demo (16 subbands x 64 frames) labels subbands 1/5/11 BPSK/QPSK/GFSK."""
+    assert cli.main(["stream", "device=cpu"]) == 0
+    out = capsys.readouterr().out
+    rows = {int(ln.split()[0].rstrip("*")): ln.split()[-1].strip("()")
+            for ln in out.splitlines() if ln.startswith("  ") and "*" in ln}
+    assert rows == {1: "BPSK", 5: "QPSK", 11: "GFSK"}
+    assert "classified 1024 frames (131072 wideband samples)" in out
+
+
+def test_cli_rejects_bad_input():
+    with pytest.raises(SystemExit, match="unknown command"):
+        cli.main(["train"])
+    with pytest.raises(SystemExit, match="bad override"):
+        cli.main(["stream", "stream.nosuchfield=3"])
+    assert cli.main(["--help"]) == 0
+
+
+def test_make_predictor_missing_artifact_raises(tmp_path):
+    cfg = AmcConfig(device="cpu")
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, int8_artifact=str(tmp_path / "missing.npz")))
+    with pytest.raises(FileNotFoundError, match="missing.npz"):
+        tpipe._make_predictor(cfg)
