@@ -1,13 +1,23 @@
 """CLI of the port: ``python -m modulationdetectioncnn_torch <cmd> [key=value ...]``.
 
-Commands ported so far: ``stream`` (the streaming demo through the int8
-CUDA kernels). Overrides use the JAX package's names, plus ``device=``:
+Commands ported so far:
+
+- ``stream``: the streaming demo through the int8 CUDA kernels;
+- ``bench``: the port's benchmark (``bench.py``: one JSON contract line on
+  stdout, calibration and the stream chain's rate on stderr).
+
+Overrides use the JAX package's names, plus ``device=``:
 
     python -m modulationdetectioncnn_torch stream
     python -m modulationdetectioncnn_torch stream device=cpu
+    python -m modulationdetectioncnn_torch stream eval.int8_kernel=v10
     python -m modulationdetectioncnn_torch stream eval.int8_artifact=model.npz
+    python -m modulationdetectioncnn_torch bench
+    python -m modulationdetectioncnn_torch bench stream
+    python -m modulationdetectioncnn_torch bench pallas_int8_v9
+    python -m modulationdetectioncnn_torch bench device=cpu bench.batch_size=64
 
-The other commands of the JAX package (train, eval, quantize, qat, bench,
+The other commands of the JAX package (train, eval, quantize, qat,
 scaling) are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
@@ -16,7 +26,7 @@ import sys
 
 from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
 
-COMMANDS = ("stream",)
+COMMANDS = ("stream", "bench")
 
 
 def cmd_stream(cfg: AmcConfig):
@@ -33,6 +43,10 @@ def main(argv: list[str] | None = None) -> int:
     cmd, *overrides = argv
     if cmd not in COMMANDS:
         raise SystemExit(f"unknown command {cmd!r}; use {'/'.join(COMMANDS)}")
+    if cmd == "bench":
+        from modulationdetectioncnn_torch import bench
+
+        return bench.main(overrides)
     try:
         cfg = apply_overrides(AmcConfig(), overrides)
     except (KeyError, ValueError, TypeError) as e:

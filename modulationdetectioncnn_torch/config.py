@@ -2,9 +2,9 @@
 
 The port's own copy of the fields of ``modulationdetectioncnn_tpu/config.py``
 that its ported paths read, with the same names and defaults, so that an
-override such as ``stream.num_subbands=8`` means the same thing to both
-packages. Fields of paths not ported yet (training, bench, mesh) are absent;
-``DataConfig`` is built by the demo itself, as in the JAX package.
+override such as ``stream.num_subbands=8`` or ``bench.backend=pallas_int8_v10``
+means the same thing to both packages. Fields of paths not ported yet
+(training, mesh, the resampler) are absent.
 """
 from __future__ import annotations
 
@@ -39,12 +39,32 @@ class ChannelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The fields ``data/synthetic.py::generate_frames`` reads."""
+    """The fields ``data/synthetic.py::generate_frames`` reads; the bench
+    reads ``frame_len`` (the classifier's input length)."""
     frame_len: int = 128
     sps: int = 8                      # samples per symbol
     rrc_beta: float = 0.35            # RRC excess bandwidth
     rrc_span: int = 8                 # RRC filter span in symbols
     channel: ChannelConfig = field(default_factory=ChannelConfig)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """VT-CNN2-family conv-conv-dense topology."""
+    num_classes: int = 11
+    conv1_filters: int = 256
+    conv2_filters: int = 80
+    dense_units: int = 256
+    dropout_rate: float = 0.5
+    # Compute dtype for activations; params stay fp32.
+    dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class QuantConfig:
+    """Post-training int8 quantization (the field the bench's PTQ reads;
+    the quantize command's ``calib_frames`` comes with that command)."""
+    act_percentile: float = 99.99     # calibration clip percentile
 
 
 @dataclass(frozen=True)
@@ -64,12 +84,39 @@ class StreamConfig:
 class EvalConfig:
     # .npz int8 artifact; None = the committed assets/rml11_int8.npz.
     int8_artifact: str | None = None
+    # Which int8 classifier the stream path runs (ops/infer.py
+    # make_int8_predict): "v7", "v9" or "v10".
+    int8_kernel: str = "v7"
+
+
+@dataclass(frozen=True)
+class BenchConfig:
+    batch_size: int = 4096
+    warmup_iters: int = 5
+    timed_iters: int = 20
+    # Measured code path (bench.py BACKENDS).
+    backend: str = "pallas_int8_v7"
+    # 'cnn' = classifier only (frames in device memory); 'stream' = the full
+    # DSP chain (channelize + normalize + frame + classify) on wideband I/Q.
+    mode: str = "cnn"
+    # In cnn mode, also measure the stream chain and print its JSON line to
+    # stderr.
+    stream_extra: bool = True
+    # Per-session calibration: every candidate is measured and the fastest
+    # becomes the headline, with all medians on stderr.
+    calibrate: bool = True
+    calibration_candidates: Tuple[str, ...] = (
+        "pallas_int8_v7", "pallas_int8_v10")
 
 
 @dataclass(frozen=True)
 class AmcConfig:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    quant: QuantConfig = field(default_factory=QuantConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    bench: BenchConfig = field(default_factory=BenchConfig)
     device: str = "cuda"              # "cpu" runs the plain PyTorch versions
 
 
@@ -92,6 +139,8 @@ def _parse_like(current: Any, value: str) -> Any:
         return int(value)
     if isinstance(current, float):
         return float(value)
+    if isinstance(current, tuple):
+        return tuple(v.strip() for v in value.split(","))
     if current is None or isinstance(current, str):
         return None if value.lower() == "none" else value
     raise TypeError(f"cannot parse override for field of type {type(current)}")

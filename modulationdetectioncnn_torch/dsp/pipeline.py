@@ -175,13 +175,14 @@ def make_demo_signal(cfg: AmcConfig) -> tuple[np.ndarray, dict[int, str]]:
 
 def _make_predictor(cfg: AmcConfig) -> Predictor:
     """The product stream classifier: the int8 artifact (default: the
-    committed ``assets/rml11_int8.npz``) through the v7 kernels. There is no
-    float fallback: a missing artifact raises."""
+    committed ``assets/rml11_int8.npz``) through the kernels that
+    ``eval.int8_kernel`` names (default v7). There is no float fallback: a
+    missing artifact raises."""
     from modulationdetectioncnn_torch.ops.infer import make_int8_predict
     from modulationdetectioncnn_torch.quant import load_int8
 
     qw = load_int8(cfg.eval.int8_artifact, cfg.device)
-    return make_int8_predict(qw, "v7")
+    return make_int8_predict(qw, cfg.eval.int8_kernel)
 
 
 def _sync(dev: torch.device) -> None:

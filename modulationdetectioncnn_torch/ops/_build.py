@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-All of ``csrc/*.cu`` go through one ``nvcc`` call for ``sm_90a`` into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds). The library lands in ``_build/`` inside the package (listed
-in ``.gitignore``), named by a hash of the sources and flags, so an edit to
-a source rebuilds it and an unchanged tree reuses it.
+Each of ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
+into one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds). The library lands in ``_build/`` inside the package
+(listed in ``.gitignore``), named by a hash of the sources and flags, so an
+edit to a source rebuilds it and an unchanged tree reuses it.
 
 Each C function takes raw device pointers, sizes and the CUDA stream, and
 returns the ``cudaGetLastError()`` code of its launch; ``check`` raises on a
@@ -25,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -35,6 +36,11 @@ _SIGNATURES = {
     # h, n, w3t, m3, o3, w4, s4, b4, out, stream
     "amc_dense_argmax_int8": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
                               _P, _P],
+    # x, n, w1f, w2l, m2, o2, inv_sx, out, stream
+    "amc_conv_stage_int8_v9": [_P, ctypes.c_longlong, _P, _P, _P, _P,
+                               ctypes.c_float, _P, _P],
+    "amc_conv_stage_int8_v10": [_P, ctypes.c_longlong, _P, _P, _P, _P,
+                                ctypes.c_float, _P, _P],
 }
 
 
@@ -66,17 +72,35 @@ def build(force: bool = False) -> dict:
     out = library_path()
     if os.path.isfile(out) and not force:
         return {"path": out, "seconds": 0.0, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    obj_dir = f"{tmp}.obj"
+    os.makedirs(obj_dir, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    return {"path": out, "seconds": time.perf_counter() - t0, "log": "".join(log)}
 
 
 @functools.lru_cache(maxsize=None)

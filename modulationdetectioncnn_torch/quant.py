@@ -8,10 +8,15 @@ committed artifact is ``assets/rml11_int8.npz``, exported from the Orbax tree
 ``int8_weights_from_numpy`` carries a model across: it turns those arrays
 into device tensors in the layouts the CUDA kernels and their plain versions
 read (``Int8Weights``). Integer requantize constants are unchanged: the
-fixed-point spec is ``clip((acc + offset) >> shift, 0, 127)``.
+fixed-point spec is ``clip((acc + offset) >> shift, 0, 127)``. The v9/v10
+conv stage also reads conv1 with its requantize folded into bf16 weights
+(``fold_conv1_weights``). That fold is built, and its exactness contract
+checked, only when a v9/v10 path first asks for it (``Int8Weights.w1f``):
+a model that v7 runs exactly but the fold cannot carry still runs on v7.
 """
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass, fields
 from typing import Any, Mapping
@@ -65,6 +70,7 @@ class Int8Weights:
     m1: torch.Tensor         # (2*C1,) int32
     o1: torch.Tensor         # (2*C1,) int32
     w2t: torch.Tensor        # (C2, 3*2*C1) int8, [co, k*2*C1 + j]
+    w2l: torch.Tensor        # (2*C1, 3*C2) int8 taps on N, [j, k*C2 + co]
     m2: torch.Tensor         # (C2,) int32
     o2: torch.Tensor         # (C2,) int32
     w3t: torch.Tensor        # (D, T2*C2) int8, dense1 transposed
@@ -78,6 +84,53 @@ class Int8Weights:
     def device(self) -> torch.device:
         return self.w1.device
 
+    @functools.cached_property
+    def w1f(self) -> torch.Tensor:
+        """(16, 2*C1) bf16 folded conv1 (``fold_conv1_weights``), padded
+        with zero rows to K=16 for the bf16 ``mma.sync.m16n8k16``. Built on
+        first use; raises ``ValueError`` if the model breaks the fold's
+        contract."""
+        w = np.zeros((16, self.m1.shape[0]), np.float32)
+        w[:8] = fold_conv1_weights(*(t.cpu().numpy() for t in (self.w1, self.m1, self.o1)))
+        return torch.from_numpy(w).to(self.device, torch.bfloat16)
+
+
+def fold_conv1_weights(w1p: np.ndarray, m1: np.ndarray, o1: np.ndarray) -> np.ndarray:
+    """conv1 with its requantize folded in: (8, 2C) float32, bf16-exact.
+
+    Row 2k+h holds ``w1p[k, c] * 2**-shift1[h*C+c]`` in columns h*C..h*C+C-1,
+    row 6 holds ``o1 * 2**-shift1`` (the bias lane, fed 1.0), row 7 is zero
+    (the port of ``expand_conv1_weights_v9f``). Under the quantizer's
+    fixed-point contract every product and partial sum of a row of
+    ``[xq_I(t), xq_Q(t), xq_I(t+1), xq_Q(t+1), xq_I(t+2), xq_Q(t+2), 1, 0]``
+    with this matrix is an integer multiple of ``2**-shift1``, less than
+    2**24 such units in magnitude, so a float32 sum in any order is exact and
+    ``clip(sum, 0, 127)`` truncated to int8 equals
+    ``clip((acc + o1) >> shift1, 0, 127)``. Raises ``ValueError`` when a
+    model breaks that contract."""
+    w1p = np.asarray(w1p, np.float64)
+    sh1 = np.asarray(m1)
+    o1 = np.asarray(o1, np.float64)
+    if not np.issubdtype(sh1.dtype, np.integer):
+        raise ValueError("the folded conv1 needs integer requantize shifts "
+                         "(the fixed-point quantize() contract)")
+    m1 = 2.0 ** (-sh1.astype(np.float64))
+    c = w1p.shape[1]
+    w = np.zeros((8, 2 * c), np.float32)
+    for k in range(3):
+        for h in range(2):
+            w[2 * k + h, h * c:(h + 1) * c] = w1p[k] * m1[h * c:(h + 1) * c]
+    w[6, :] = (o1 * m1).astype(np.float32)
+    wb = torch.from_numpy(w).to(torch.bfloat16).to(torch.float32).numpy()
+    if not np.array_equal(wb, w):
+        raise ValueError("folded conv1 weights are not bf16-exact: the model "
+                         "breaks the quantize() contract (8-bit-significand "
+                         "offsets)")
+    if not np.all(3 * 127 * 127 + np.abs(o1) < 2 ** 24):
+        raise ValueError("conv1 |acc| + |offset| can reach 2**24: the folded "
+                         "bf16 conv1 is not exact for this model")
+    return w
+
 
 def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
                             device: str | torch.device = "cuda") -> Int8Weights:
@@ -87,10 +140,19 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
     axis contiguous: conv2's tap-packed (2*C1, 3*C2) becomes (C2, 3*2*C1),
     so output channel co reads the 3 consecutive stacked conv1 rows t..t+2
     as one contiguous K = 3*2*C1 vector; dense1 (T2*C2, D) becomes
-    (D, T2*C2).
+    (D, T2*C2). The v9/v10 conv stage reads the folded conv1
+    (``Int8Weights.w1f``, built on first use) and conv2 in the taps-on-N
+    layout of the JAX package's ``pack_conv2_weights_lane256`` without its
+    lane padding, which is ``w2p`` itself. Every kernel reads the shifts as
+    integers, so a model with float requantize multipliers (the golden
+    spec's legacy form) raises ``ValueError``.
     """
     dev = resolve_device(device)
     qm = tree if isinstance(tree, QuantizedModel) else QuantizedModel.from_tree(tree)
+    for k in ("m1", "m2", "m3"):
+        if not np.issubdtype(np.asarray(getattr(qm, k)).dtype, np.integer):
+            raise ValueError(f"{k}: the port's kernels need integer requantize "
+                             "shifts (the fixed-point quantize() contract)")
     c2 = qm.m2.shape[0]
     k1 = qm.w2p.shape[0]                       # 2*C1
     w2t = (np.asarray(qm.w2p, np.int8).reshape(k1, 3, c2)
@@ -104,6 +166,7 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
         inv_sx=inv_sx,
         w1=t(qm.w1p, np.int8), m1=t(qm.m1, np.int32), o1=t(qm.o1, np.int32),
         w2t=t(w2t, np.int8), m2=t(qm.m2, np.int32), o2=t(qm.o2, np.int32),
+        w2l=t(qm.w2p, np.int8),
         w3t=t(np.asarray(qm.w3).T, np.int8),
         m3=t(qm.m3, np.int32), o3=t(qm.o3, np.int32),
         w4=t(qm.w4, np.int8), s4=t(qm.s4, np.float32), b4=t(qm.b4, np.float32),

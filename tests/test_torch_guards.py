@@ -136,7 +136,7 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert banned not in src
     sources = _build._sources()
     assert [os.path.basename(s) for s in sources] == [
-        "conv_stage_int8.cu", "dense_argmax_int8.cu"]
+        "conv_stage_int8.cu", "conv_stage_int8_v10.cu", "dense_argmax_int8.cu"]
     for s in sources:
         with open(s) as f:
             cu = f.read()
@@ -169,3 +169,80 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         infer.dense_argmax_int8(torch.zeros((1, 9920), dtype=torch.int8,
                                             device="meta"), qw)
+
+
+BENCH_BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from modulationdetectioncnn_torch import bench
+from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+import modulationdetectioncnn_torch.models, modulationdetectioncnn_torch.train.quant
+import modulationdetectioncnn_torch.utils.timing, modulationdetectioncnn_torch.utils.profiler
+cfg = apply_overrides(AmcConfig(), ["device=cpu", "bench.batch_size=8",
+                                    "bench.warmup_iters=1", "bench.timed_iters=2"])
+for backend in ("pallas_int8_v9", "pallas_int8_v10"):
+    assert bench.run(cfg, quiet=True, backend=backend)["value"] > 0
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_bench_runs_with_jax_blocked():
+    """Model, PTQ, the v9/v10 classifiers, timing and the bench run with
+    every JAX module blocked."""
+    code = BENCH_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+
+
+def test_bench_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the bench would run on it")
+    from modulationdetectioncnn_torch import bench
+    from modulationdetectioncnn_torch.config import AmcConfig
+
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        bench.run(AmcConfig())
+    proc = subprocess.run([sys.executable, "-m", "modulationdetectioncnn_torch", "bench"],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode != 0
+    assert "device=cpu" in proc.stderr
+    assert not any(line.startswith("{") for line in proc.stdout.splitlines())
+
+
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "{log}"
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo built > "$out"
+"""
+
+
+def test_build_compiles_each_source_in_its_own_nvcc_then_links(tmp_path, monkeypatch):
+    """One nvcc -c per source of csrc/ (the new v9/v10 source included),
+    then one nvcc -shared over the objects; the objects are removed."""
+    from modulationdetectioncnn_torch.ops import _build
+
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    res = _build.build()
+    assert os.path.isfile(res["path"]) and res["path"] == _build.library_path()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert sorted(c.split()[-1] for c in compiles) == _build._sources()
+    assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert len(calls) == len(compiles) + 1 and calls[-1].startswith("-shared")
+    assert sorted(os.listdir(tmp_path / "build")) == [os.path.basename(res["path"])]
+    assert _build.build()["seconds"] == 0.0          # reused, not rebuilt
+    assert len(log.read_text().splitlines()) == len(calls)

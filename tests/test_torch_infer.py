@@ -151,7 +151,7 @@ def test_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
     assert tinfer.dense_argmax_int8.launches == 0
 
 
-@pytest.mark.parametrize("version", ["v3", "v10", "bf16"])
+@pytest.mark.parametrize("version", ["v3", "v5", "bf16"])
 def test_unported_versions_raise(qw, version):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tinfer.make_int8_predict(qw, version)
@@ -185,3 +185,79 @@ def test_full_width_artifact_labels_match_golden():
     got = tinfer.make_int8_predict(load_int8(device="cpu"))(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), gq.int8_predict(qm_np, x))
     assert len(np.unique(got.numpy())) > 3
+
+
+# ------------------------------------------------------------- v9 / v10
+
+
+@pytest.mark.parametrize("version", ["v9", "v10"])
+def test_folded_conv_stage_matches_pallas_and_golden(qm, qw, frames, version):
+    """The whole valid conv map of the folded plain version (float32 conv1
+    product of bf16-exact values, int8 conv2 with the shift-add) equals the
+    Pallas v9/v10 kernel's in interpret mode and golden's integer chain,
+    bit for bit."""
+    want_pallas = np.asarray(
+        jinfer.make_conv_stage(qm, version, block_b=8, chunk=4, interpret=True)(
+            jnp.asarray(frames)))[:, :124, :80]
+    a1 = gq.conv1_int8(gq.quantize_input(frames, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    want_golden = gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2)
+    got = tinfer.make_conv_stage(qw, version)(torch.from_numpy(frames)).numpy()
+    assert got.shape == (16, 124, 80) and got.dtype == np.int8
+    np.testing.assert_array_equal(want_pallas, want_golden)
+    np.testing.assert_array_equal(got, want_golden)
+    assert 0 < (got > 0).mean() < 1
+
+
+def test_folded_conv1_equals_integer_conv1(qm, qw, frames):
+    """The fold itself: clip of the float32 product, truncated, equals the
+    integer requantize of golden conv1 on every activation."""
+    got = tinfer.conv1_folded_plain(torch.from_numpy(frames), qw).numpy()
+    want = gq.conv1_int8(gq.quantize_input(frames, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).any() and (got > 0).any()
+
+
+@pytest.mark.parametrize("version", ["v9", "v10"])
+@pytest.mark.parametrize("n", [16, 5])
+def test_folded_labels_match_pallas_and_golden(qm, qw, frames, version, n):
+    """Full and ragged batches: labels equal the Pallas v9/v10 classifier's
+    (interpret mode) and golden's."""
+    x = frames[:n]
+    want_pallas = np.asarray(jinfer.make_int8_predict(qm, version, interpret=True)(
+        jnp.asarray(x)))
+    want_golden = gq.int8_predict(qm, x)
+    got = tinfer.make_int8_predict(qw, version)(torch.from_numpy(x)).numpy()
+    assert got.shape == (n,) and got.dtype == np.int32
+    np.testing.assert_array_equal(want_pallas, want_golden)
+    np.testing.assert_array_equal(got, want_golden)
+
+
+@pytest.mark.parametrize("version", ["v9", "v10"])
+def test_folded_path_on_the_committed_artifact(version):
+    """The deployed model on 256 frames of synthetic RML-style data: the
+    folded conv map equals v7's (the integer spec) and the labels equal
+    golden's."""
+    from modulationdetectioncnn_tpu.config import DataConfig
+    from modulationdetectioncnn_tpu.data.synthetic import make_dataset
+
+    x, _, _ = make_dataset(DataConfig(), snrs=[0, 10, 18],
+                           frames_per_class_per_snr=8, seed=5)
+    x = torch.from_numpy(x[:256])
+    art = load_int8(device="cpu")
+    np.testing.assert_array_equal(
+        tinfer.make_conv_stage(art, version)(x).numpy(),
+        tinfer.conv_stage_int8_v7_plain(x, art).numpy())
+    got = tinfer.make_int8_predict(art, version)(x).numpy()
+    np.testing.assert_array_equal(
+        got, gq.int8_predict(TorchQM.from_npz(DEFAULT_ARTIFACT), x.numpy()))
+
+
+def test_folded_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
+    tinfer.reset_launch_counts()
+    x = torch.from_numpy(frames)
+    want = tinfer.conv_stage_int8_folded_plain(x, qw).numpy()
+    for stage in (tinfer.conv_stage_int8_v9, tinfer.conv_stage_int8_v10):
+        np.testing.assert_array_equal(stage(x, qw).numpy(), want)
+    assert tinfer.launch_counts() == {
+        "conv_stage_int8_v7": 0, "conv_stage_int8_v9": 0,
+        "conv_stage_int8_v10": 0, "dense_argmax_int8": 0}

@@ -116,3 +116,27 @@ def test_make_predictor_missing_artifact_raises(tmp_path):
         cfg.eval, int8_artifact=str(tmp_path / "missing.npz")))
     with pytest.raises(FileNotFoundError, match="missing.npz"):
         tpipe._make_predictor(cfg)
+
+
+@pytest.mark.parametrize("kernel", ["v9", "v10"])
+def test_stream_eval_int8_kernel_selects_the_classifier(kernel, monkeypatch):
+    """``stream eval.int8_kernel=v10`` (or v9) parses and runs that
+    classifier: the demo's labels equal the default v7 path's."""
+    from modulationdetectioncnn_torch.config import apply_overrides
+
+    cfg = AmcConfig(device="cpu")
+    picked = apply_overrides(cfg, [f"eval.int8_kernel={kernel}"])
+    assert picked == dataclasses.replace(
+        cfg, eval=dataclasses.replace(cfg.eval, int8_kernel=kernel))
+    want = tpipe.run_stream_demo(cfg)
+    seen = []
+    real = tinfer.make_int8_predict
+
+    def spy(qw, version="v7"):
+        seen.append(version)
+        return real(qw, version)
+
+    monkeypatch.setattr(tinfer, "make_int8_predict", spy)
+    np.testing.assert_array_equal(tpipe.run_stream_demo(picked), want)
+    assert cli.main(["stream", "device=cpu", f"eval.int8_kernel={kernel}"]) == 0
+    assert seen == [kernel, kernel]
