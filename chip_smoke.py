@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ``stream`` and ``bench`` paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's ``stream``, ``bench``, ``eval`` and ``quantize``
+paths on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -8,40 +8,54 @@ Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
 Phases, each printing JSON lines (``"phase": ...``):
 
-1. device  -- the card's name and power limit (nvidia-smi), printed raw too.
-2. build   -- compiles ``modulationdetectioncnn_torch/csrc/*.cu`` with nvcc
-              for sm_90a (one nvcc per source, in parallel, then one link)
-              and loads the library; build seconds and ptxas's report.
-3. kernels -- each of the four kernels against its plain PyTorch version on
-              the card, for the committed int8 artifact, for seeded
-              random weights and for the bench's own PTQ weights, on 8192
-              seeded frames, on the stream demo's 1024 frames, at B=1, on
-              a ragged 37-frame slice and on the bench's 4096 frames: 0
-              mismatching int8 activations over the whole (B, 124, 80)
-              map and 0 mismatching labels, and v7, v9 and v10 giving the
-              same labels. Times at B=4096 (CUDA events around runs of
-              back-to-back launches, median of 5 runs),
-              the plain version's, one torch call on the kernel's largest
-              product as a yardstick, and the least time the card could
-              take (bound).
-4. stream  -- ``run_stream_demo`` on cuda with the default StreamConfig and
-              the committed artifact, once with the default v7 classifier
-              and once with ``eval.int8_kernel=v10``, launch counters zeroed
-              just before each: subbands 1/5/11 must read BPSK/QPSK/GFSK,
-              streamed labels must equal whole-stream labels, the path's
-              kernels must have launched, and the labels must agree with
-              the CPU plain path.
-5. bench   -- the port's bench (``modulationdetectioncnn_torch.bench``) at
-              its defaults: cnn mode at B=4096 with calibration over v7 and
-              v10 and the stream_extra line; then stream mode; then the v9
-              backend named explicitly. Counters zeroed before each run.
-              Its stdout and stderr lines are printed as they came; the
-              contract keys, ``fallback`` false, the winner among the
-              candidates, every kernel of each run launched, and no
-              ``stream_extra_error`` are required.
-6. profile -- torch.profiler over 10 iterations of the v10 classifier and
-              of the stream chain at B=4096: device time by kernel and the
-              device's busy share (reported, not checked).
+1. device   -- the card's name and power limit (nvidia-smi), printed raw too.
+2. build    -- compiles ``modulationdetectioncnn_torch/csrc/*.cu`` with nvcc
+               for sm_90a (one nvcc per source, in parallel, then one link)
+               and loads the library; build seconds and ptxas's report.
+3. kernels  -- each of the seven kernels against its plain PyTorch version
+               on the card, for five weight sets (the committed int8
+               artifact, seeded random weights, the bench's own PTQ
+               weights, a narrow model padded to the kernels' widths, and
+               a model the v9/v10 fold refuses, which runs on v7, v5, v6
+               and v4 only), on 8192 seeded frames, on the stream demo's
+               1024 frames, at B=1, on a ragged 37-frame slice and on the
+               bench's 4096 frames: 0 mismatching int8 activations over
+               the whole valid map and 0 mismatching labels, and every
+               version giving the same labels. Times at B=4096 (CUDA
+               events around runs of back-to-back launches, median of 5
+               runs), the plain version's, one torch call on the kernel's
+               largest product as a yardstick, and the least time the card
+               could take (bound).
+4. stream   -- ``run_stream_demo`` on cuda with the default StreamConfig and
+               the committed artifact, once with the default v7 classifier
+               and once with ``eval.int8_kernel=v10``, launch counters zeroed
+               just before each: subbands 1/5/11 must read BPSK/QPSK/GFSK,
+               streamed labels must equal whole-stream labels, the path's
+               kernels must have launched, and the labels must agree with
+               the CPU plain path.
+5. bench    -- the port's bench (``modulationdetectioncnn_torch.bench``) at
+               its defaults: cnn mode at B=4096 with calibration over v7 and
+               v10 and the stream_extra line; then stream mode; then the v9
+               backend named explicitly. Counters zeroed before each run.
+               Its stdout and stderr lines are printed as they came; the
+               contract keys, ``fallback`` false, the winner among the
+               candidates, every kernel of each run launched, and no
+               ``stream_extra_error`` are required.
+6. eval     -- ``eval eval.backend=int8`` with each of v5, v6, v4, v7 and v10
+               on 3520 frames (16 per class at 20 SNRs), counters zeroed
+               before each: the version's conv kernel and the dense kernel
+               launched and nothing else, the labels that run returned equal
+               to the plain chain's, and results equal across versions (run
+               through ``cli.cmd_eval``, which returns the labels; the
+               command line runs the same function); then ``eval.backend=flax``
+               and ``golden`` on the exported float checkpoint (880 frames),
+               with their label agreement.
+7. quantize -- ``quantize`` of the exported float checkpoint into a
+               temporary directory: agreement_vs_float, and per array the
+               elements that differ from the committed artifact (reported).
+8. profile  -- torch.profiler over 10 iterations of the v10 classifier and
+               of the stream chain at B=4096: device time by kernel and the
+               device's busy share (reported, not checked).
 
 Then one ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before the
@@ -57,6 +71,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,13 +89,27 @@ TPU_KERNELS = {
     "dense_argmax_int8": "modulationdetectioncnn_tpu/ops/infer.py:631",
     "conv_stage_int8_v10": "modulationdetectioncnn_tpu/ops/infer.py:1247",
     "conv_stage_int8_v9": "modulationdetectioncnn_tpu/ops/infer.py:1103",
+    "conv_stage_int8_v5": "modulationdetectioncnn_tpu/ops/infer.py:1515",
+    "conv_stage_int8_v6": "modulationdetectioncnn_tpu/ops/infer.py:906",
+    "conv_stage_int8_v4": "modulationdetectioncnn_tpu/ops/infer.py:780",
 }
+_CSRC = "modulationdetectioncnn_torch/csrc/"
 SOURCES = {
-    "conv_stage_int8_v7": "modulationdetectioncnn_torch/csrc/conv_stage_int8.cu",
-    "dense_argmax_int8": "modulationdetectioncnn_torch/csrc/dense_argmax_int8.cu",
-    "conv_stage_int8_v10": "modulationdetectioncnn_torch/csrc/conv_stage_int8_v10.cu",
-    "conv_stage_int8_v9": "modulationdetectioncnn_torch/csrc/conv_stage_int8_v10.cu",
+    "conv_stage_int8_v7": _CSRC + "conv_stage_int8.cu",
+    "dense_argmax_int8": _CSRC + "dense_argmax_int8.cu",
+    "conv_stage_int8_v10": _CSRC + "conv_stage_int8_v10.cu",
+    "conv_stage_int8_v9": _CSRC + "conv_stage_int8_v10.cu",
+    "conv_stage_int8_v5": _CSRC + "conv_stage_int8_v5.cu",
+    "conv_stage_int8_v6": _CSRC + "conv_stage_int8_v6.cu",
+    "conv_stage_int8_v4": _CSRC + "conv_stage_int8_v6.cu",
 }
+CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4")
+INTEGER_VERSIONS = ("v7", "v5", "v6", "v4")     # no bf16 fold
+EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10")
+EVAL_PATH = ("v5", "v6", "v4")                  # this slice's kernels
+# The eval phase's dataset: 16 frames per class at each of the 20 SNRs.
+EVAL_DATA = ("data.frames_per_class_per_snr=16",)
+FLOAT_CKPT = os.path.join(REPO, "modulationdetectioncnn_torch", "assets", "ckpt_rml11_r5")
 CONTRACT_KEYS = {"metric", "value", "unit", "vs_baseline", "backend", "fallback"}
 
 
@@ -163,11 +192,58 @@ def random_weights(art, rng: np.random.Generator):
     return int8_weights_from_numpy(tree, "cuda")
 
 
+def narrow_weights():
+    """A narrow model (conv1 32, conv2 16, dense 32, 2 classes; a seeded
+    torch VT-CNN2 and the port's PTQ), which the carry pads to the
+    kernels' widths."""
+    from modulationdetectioncnn_torch.config import ModelConfig
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+    from modulationdetectioncnn_torch.train.quant import quantize
+
+    model = VTCNN2.from_config(
+        ModelConfig(num_classes=2, conv1_filters=32, conv2_filters=16, dense_units=32),
+        generator=torch.Generator().manual_seed(SEED))
+    calib = np.random.default_rng(SEED + 1).standard_normal((256, 2, 128)).astype(np.float32)
+    return int8_weights_from_numpy(quantize(model, calib), "cuda")
+
+
+def fold_refused_weights(art):
+    """The artifact with one conv1 offset that is not bf16-exact: v7 and the
+    integer tensor-core stages (v4, v5, v6) run it, the v9/v10 fold
+    refuses it."""
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+
+    tree = art.tree()
+    tree["o1"] = tree["o1"].copy()
+    tree["o1"][5] = 257
+    return int8_weights_from_numpy(tree, "cuda")
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
+
+
+def conv_pairs(x: torch.Tensor, qw, versions) -> dict:
+    """{kernel name: (its wrapper's valid map, its plain version's valid
+    map)} on the same inputs (frames, or their tap planes for v4/v6)."""
+    from modulationdetectioncnn_torch.ops import infer
+
+    planes = infer.tap_planes(x, qw.inv_sx)
+    plain = {"v7": lambda: infer.conv_stage_int8_v7_plain(x, qw),
+             "v9": lambda: infer.conv_stage_int8_folded_plain(x, qw),
+             "v5": lambda: infer.conv_stage_int8_v5_plain(x, qw),
+             "v6": lambda: infer.conv_stage_int8_planes_plain(planes, qw)}
+    plain["v10"], plain["v4"] = plain["v9"], plain["v6"]
+    out = {}
+    for v in versions:
+        stage = getattr(infer, f"conv_stage_int8_{v}")
+        got = stage(planes if v in ("v6", "v4") else x, qw)
+        out[stage.__name__] = (got, plain[v]()[..., :qw.c2])
+    return out
 
 
 def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
@@ -181,7 +257,16 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # The bench's own PTQ weights and frames, as its int8 backends get them.
     bench_qw, bench_x = bench.make_int8_weights(AmcConfig(), BATCH)
     weights = {"artifact": load_int8(device="cuda"),
-               "seeded": random_weights(art_np, rng), "bench_ptq": bench_qw}
+               "seeded": random_weights(art_np, rng), "bench_ptq": bench_qw,
+               "narrow_c32_c16_d32_nc2": narrow_weights(),
+               "fold_refused": fold_refused_weights(art_np)}
+    refused = weights["fold_refused"]
+    try:
+        refused.w1f
+    except ValueError as e:
+        emit({"phase": "kernels.fold_refused", "error": str(e)})
+    else:
+        raise CheckFailed("the fold accepted the fold_refused weights")
     x_seed = torch.from_numpy(
         (0.7 * rng.standard_normal((N_CHECK, 2, 128))).astype(np.float32)).cuda()
     # Ragged batches and a slice that starts inside the tensor too.
@@ -189,51 +274,52 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               "seeded_b1": x_seed[:1], "seeded_b37_at3": x_seed[3:40],
               f"bench_frames_b{BATCH}": bench_x}
 
-    checks, stats = [], {n: {"mismatches": 0, "max_abs_err": 0} for n in TPU_KERNELS}
+    checks, stats = [], {n: {"mismatches": 0, "max_abs_err": 0, "checked": 0}
+                         for n in TPU_KERNELS}
     for wname, qw in weights.items():
+        versions = CONV_VERSIONS if wname != "fold_refused" else INTEGER_VERSIONS
         for xname, x in inputs.items():
-            conv_p = infer.conv_stage_int8_v7_plain(x, qw)
-            folded_p = infer.conv_stage_int8_folded_plain(x, qw)
-            lab_p = infer.dense_argmax_int8_plain(conv_p, qw)
-            convs = {"conv_stage_int8_v7": infer.conv_stage_int8_v7(x, qw),
-                     "conv_stage_int8_v9": infer.conv_stage_int8_v9(x, qw),
-                     "conv_stage_int8_v10": infer.conv_stage_int8_v10(x, qw)}
-            labels = {k: infer.dense_argmax_int8(v, qw) for k, v in convs.items()}
-            lab_k = infer.dense_argmax_int8(conv_p, qw)
+            conv_full = infer.conv_stage_int8_v7_plain(x, qw)   # carried width
+            lab_p = infer.dense_argmax_int8_plain(conv_full, qw)
+            pairs = conv_pairs(x, qw, versions)
+            pairs["dense_argmax_int8"] = (infer.dense_argmax_int8(conv_full, qw), lab_p)
+            labels = {v: infer.make_int8_predict(qw, v)(x) for v in versions}
             torch.cuda.synchronize()
-            pairs = {"conv_stage_int8_v7": (convs["conv_stage_int8_v7"], conv_p),
-                     "conv_stage_int8_v9": (convs["conv_stage_int8_v9"], folded_p),
-                     "conv_stage_int8_v10": (convs["conv_stage_int8_v10"], folded_p),
-                     "dense_argmax_int8": (lab_k, lab_p)}
             for kname, (got, want) in pairs.items():
                 mism, err = compare(kname, got, want)
                 stats[kname]["mismatches"] += mism
+                stats[kname]["checked"] += 1
                 stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], err)
                 checks.append({"kernel": kname, "weights": wname, "input": xname,
                                "n": int(x.shape[0]), "mismatches": mism})
             # Each classifier's labels (its conv kernel, then the dense
-            # kernel) against the plain chain, and v7 == v9 == v10.
-            label_mism = {k: compare(k, v, lab_p)[0] for k, v in labels.items()}
-            plain_mism = compare("folded_plain", folded_p, conv_p)[0]
+            # kernel) against the plain chain, every version equal, and
+            # every plain version's map equal to the integer spec's.
+            label_mism = {v: compare(v, lab, lab_p)[0] for v, lab in labels.items()}
+            plain_mism = {k: compare(k, want, conv_full[..., :qw.c2])[0]
+                          for k, (_, want) in pairs.items() if k != "dense_argmax_int8"}
             checks.append({"weights": wname, "input": xname,
                            "label_mismatches_vs_plain": label_mism,
-                           "folded_plain_vs_integer_plain": plain_mism,
-                           "conv_live_fraction": round(float((conv_p > 0).float().mean()), 4),
+                           "plain_maps_vs_integer_spec": plain_mism,
+                           "conv_live_fraction": round(float((conv_full > 0).float().mean()), 4),
                            "label_classes": int(torch.unique(lab_p).numel())})
-            require(all(m == 0 for m in label_mism.values()) and plain_mism == 0,
+            require(all(m == 0 for m in label_mism.values())
+                    and all(m == 0 for m in plain_mism.values()),
                     f"{wname}/{xname}: labels differ {label_mism}, "
-                    f"folded plain vs integer plain {plain_mism}")
+                    f"plain maps vs the integer spec {plain_mism}")
     for c in checks:
         emit({"phase": "kernels.check", **c})
     for kname, s in stats.items():
         require(s["mismatches"] == 0, f"{kname}: {s['mismatches']} mismatches vs plain")
+        require(s["checked"] > 0, f"{kname}: never checked")
 
     # Timing at B=4096 with the artifact's weights.
     qw = weights["artifact"]
     b = BATCH
     x = x_seed[:b]
+    planes = infer.tap_planes(x, qw.inv_sx)
     a1 = infer.conv1_int8_plain(x, qw)
-    a1f = infer.conv1_folded_plain(x, qw).reshape(-1, 512)      # (B*126, 512)
+    a1f = a1.reshape(-1, 512)                                    # (B*126, 512)
     conv = infer.conv_stage_int8_v7_plain(x, qw)
     im2col = torch.cat([a1[:, k:k + 124] for k in range(3)], dim=-1).reshape(-1, 1536)
     w2l_cm = qw.w2l.t().contiguous().t()                        # column-major
@@ -242,16 +328,24 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    # v7, v9 and v10 compute one function (the same map from the same
-    # model), so they share one bound: the function's int8 operations (conv1
-    # 126*512*3 and conv2 124*80*1536 MACs per frame, not the folded
-    # form's padded lanes) and its bytes (frames in, map out, v7's weights).
-    conv_work = (2 * b * (126 * 512 * 3 + 124 * 80 * 1536),
-                 b * 2 * 128 * 4 + b * 124 * 80
-                 + nbytes(qw.w1, qw.m1, qw.o1, qw.w2t, qw.m2, qw.o2))
+    # The six conv stages compute one function (the same map from the same
+    # model), so they share one count of operations: the function's int8
+    # MACs (conv1 126*512*3 and conv2 124*80*1536 per frame, not the folded
+    # form's padded lanes). Bytes: each input read once (frames, or v4/v6's
+    # tap planes), the map written once, the weights the stage reads.
+    conv_ops = 2 * b * (126 * 512 * 3 + 124 * 80 * 1536)
+    conv_out = b * 124 * 80
+    frames_in, planes_in = nbytes(x), nbytes(planes)
+    w_v7 = nbytes(qw.w1, qw.m1, qw.o1, qw.w2t, qw.m2, qw.o2)
+    w_int = nbytes(qw.w1e, qw.m1, qw.o1, qw.w2l, qw.m2, qw.o2)
+    w_fold = nbytes(qw.w1f, qw.w2l, qw.m2, qw.o2)
     work = {  # name: (int8 ops, bytes)
-        "conv_stage_int8_v7": conv_work, "conv_stage_int8_v9": conv_work,
-        "conv_stage_int8_v10": conv_work,
+        "conv_stage_int8_v7": (conv_ops, frames_in + conv_out + w_v7),
+        "conv_stage_int8_v9": (conv_ops, frames_in + conv_out + w_fold),
+        "conv_stage_int8_v10": (conv_ops, frames_in + conv_out + w_fold),
+        "conv_stage_int8_v5": (conv_ops, frames_in + conv_out + w_int),
+        "conv_stage_int8_v6": (conv_ops, planes_in + conv_out + w_int),
+        "conv_stage_int8_v4": (conv_ops, planes_in + conv_out + w_int),
         "dense_argmax_int8": (2 * b * (9920 * 256 + 256 * 11),
                               b * 9920 + b * 4 + nbytes(qw.w3t, qw.m3, qw.o3, qw.w4,
                                                         qw.s4, qw.b4)),
@@ -263,6 +357,8 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         t_bytes = nb / bw_peak * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
+    lane_packed = (lambda: torch._int_mm(a1f, w2l_cm),
+                   "torch._int_mm, conv2 lane-packed (B*126, 512) x (512, 240)")
     plans = (
         ("conv_stage_int8_v7", infer.conv_stage_int8_v7, infer.conv_stage_int8_v7_plain,
          lambda: torch._int_mm(im2col, qw.w2t.T), "torch._int_mm, conv2 im2col "
@@ -271,11 +367,15 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
          lambda: torch._int_mm(h, qw.w3t.T), "torch._int_mm, dense1 (B, 9920) x "
          "(9920, 256)", h),
         ("conv_stage_int8_v10", infer.conv_stage_int8_v10,
-         infer.conv_stage_int8_folded_plain, lambda: torch._int_mm(a1f, w2l_cm),
-         "torch._int_mm, conv2 lane-packed (B*126, 512) x (512, 240)", x),
+         infer.conv_stage_int8_folded_plain, *lane_packed, x),
         ("conv_stage_int8_v9", infer.conv_stage_int8_v9,
-         infer.conv_stage_int8_folded_plain, lambda: torch._int_mm(a1f, w2l_cm),
-         "torch._int_mm, conv2 lane-packed (B*126, 512) x (512, 240)", x),
+         infer.conv_stage_int8_folded_plain, *lane_packed, x),
+        ("conv_stage_int8_v5", infer.conv_stage_int8_v5,
+         infer.conv_stage_int8_v5_plain, *lane_packed, x),
+        ("conv_stage_int8_v6", infer.conv_stage_int8_v6,
+         infer.conv_stage_int8_planes_plain, *lane_packed, planes),
+        ("conv_stage_int8_v4", infer.conv_stage_int8_v4,
+         infer.conv_stage_int8_planes_plain, *lane_packed, planes),
     )
     rows = []
     for kname, kernel, plain, lib, lib_what, arg in plans:
@@ -292,7 +392,9 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                      "bound_by": by, "library_ms": library_ms,
                      "library_call": lib_what, "batch": b,
                      "int8_ops": int8_ops, "bytes": nb})
-    emit({"phase": "kernels", "timed": rows})
+    prologue_ms = time_ms(lambda: infer.tap_planes(x, qw.inv_sx), iters=20)
+    emit({"phase": "kernels", "timed": rows,
+          "tap_planes_prologue_ms": prologue_ms})
     return rows
 
 
@@ -458,6 +560,101 @@ def phase_profile() -> None:
                                 for e in top}})
 
 
+def phase_eval(tmp: str) -> dict[str, int]:
+    """``eval`` on the card, through ``cli.cmd_eval`` (what ``python -m
+    modulationdetectioncnn_torch eval`` runs on the parsed overrides): the
+    int8 backend with each of v5, v6, v4, v7 and v10 on a small dataset (16
+    frames per class at all 20 SNRs), counters zeroed just before each run
+    and read just after; the labels that run returns must be identical
+    across versions and equal to the plain chain's. Then the flax and golden
+    backends on the exported float checkpoint, with their label agreement.
+    Returns the launch counts of the v5/v6/v4 runs."""
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    def run_eval(overrides: list[str]) -> tuple[dict, np.ndarray, dict, float]:
+        cfg = apply_overrides(AmcConfig(), overrides)
+        out = io.StringIO()
+        infer.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result, labels = cli.cmd_eval(cfg)
+        wall = time.perf_counter() - t0
+        counts = infer.launch_counts()
+        with open(cfg.eval.results_path) as f:
+            require(json.load(f) == result, f"eval {overrides}: results file differs")
+        require(json.loads(out.getvalue().strip().splitlines()[-1]) == result["headline"],
+                f"eval {overrides}: printed headline differs")
+        return result, labels, counts, wall
+
+    base = [*EVAL_DATA, f"eval.results_path={tmp}/eval.json"]
+    x = cli._build_dataset(apply_overrides(AmcConfig(), base))[0]
+    qw = load_int8(device="cuda")
+    xt = torch.from_numpy(x).cuda()
+    want = torch.cat([infer.dense_argmax_int8_plain(infer.conv_stage_int8_v7_plain(
+        xt[i:i + 1024], qw), qw) for i in range(0, len(x), 1024)]).cpu().numpy()
+    launches, results = {}, {}
+    for v in EVAL_VERSIONS:
+        results[v], labels, counts, wall = run_eval(
+            ["eval.backend=int8", f"eval.int8_kernel={v}", *base])
+        mism = int((labels != want).sum())
+        emit({"phase": "eval", "backend": "int8", "int8_kernel": v, "frames": len(x),
+              "wall_s": wall, "launches": counts, "headline": results[v]["headline"],
+              "overall_accuracy": results[v]["overall_accuracy"],
+              "label_mismatches_vs_plain": mism})
+        kname = f"conv_stage_int8_{v}"
+        require(len(labels) == len(x) and counts[kname] > 0 and counts["dense_argmax_int8"] > 0
+                and sum(counts.values()) == counts[kname] + counts["dense_argmax_int8"],
+                f"eval {v}: {len(labels)} labels, launches {counts}")
+        require(mism == 0, f"eval {v}: {mism} labels differ from the plain chain")
+        require(results[v] == results[EVAL_VERSIONS[0]], f"eval {v}: results differ from v5's")
+        if v in EVAL_PATH:
+            launches[kname] = counts[kname]
+
+    # The float backends on a quarter of the frames, in one batch: the
+    # golden forward is float64 NumPy on the host.
+    base = [*base, "data.frames_per_class_per_snr=4", "eval.batch_size=1024"]
+    float_labels = {}
+    for backend in ("flax", "golden"):
+        res, float_labels[backend], _, wall = run_eval(
+            [f"eval.backend={backend}", f"train.checkpoint_dir={FLOAT_CKPT}", *base])
+        emit({"phase": "eval", "backend": backend, "frames": len(float_labels[backend]),
+              "wall_s": wall, "headline": res["headline"],
+              "overall_accuracy": res["overall_accuracy"]})
+    agree = float((float_labels["flax"] == float_labels["golden"]).mean())
+    emit({"phase": "eval", "frames": len(float_labels["flax"]),
+          "flax_vs_golden_label_agreement": agree})
+    return launches
+
+
+def phase_quantize(tmp: str) -> None:
+    """``quantize`` of the exported float checkpoint on the card, written
+    to a temporary directory: its agreement_vs_float, and for each array
+    how many elements differ from the committed artifact (reported, not
+    checked: the activation percentiles come from a bf16 forward, and the
+    artifact's ran on a TPU)."""
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel
+
+    cfg = apply_overrides(AmcConfig(), [f"train.checkpoint_dir={FLOAT_CKPT}"])
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        out_dir, agree = cli.cmd_quantize(cfg, out_dir=os.path.join(tmp, "ckpt_int8"))
+    wall = time.perf_counter() - t0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    got = QuantizedModel.from_npz(os.path.join(out_dir, "int8.npz")).tree()
+    ref = QuantizedModel.from_npz(DEFAULT_ARTIFACT).tree()
+    differ = {k: int(np.sum(np.asarray(got[k]) != np.asarray(v))) for k, v in ref.items()}
+    emit({"phase": "quantize", "wall_s": wall, "printed": line,
+          "agreement_vs_float": agree, "elements_differing_from_artifact": differ,
+          "s_x": float(got["s_x"]), "artifact_s_x": float(ref["s_x"])})
+    require(set(line) == {"int8_artifact", "agreement_vs_float"}, f"quantize printed {line}")
+
+
 def demo_frames() -> torch.Tensor:
     """The frames the stream path hands the classifier (1024 on cuda)."""
     from modulationdetectioncnn_torch.config import AmcConfig
@@ -490,13 +687,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     try:
-        dev = phase_device()
-        phase_build()
-        rows = phase_kernels(dev, demo_frames())
-        launches = phase_stream("v7")           # the stream path: v7 + dense
-        phase_stream("v10")
-        launches.update(phase_bench())          # the bench path: v9, v10
-        phase_profile()
+        with tempfile.TemporaryDirectory() as tmp:
+            dev = phase_device()
+            phase_build()
+            rows = phase_kernels(dev, demo_frames())
+            launches = phase_stream("v7")           # the stream path: v7 + dense
+            phase_stream("v10")
+            launches.update(phase_bench())          # the bench path: v9, v10
+            launches.update(phase_eval(tmp))        # the eval path: v5, v6, v4
+            phase_quantize(tmp)
+            phase_profile()
         for row in rows:
             row["launches"] = launches[row["name"]]
     except CheckFailed as e:

@@ -14,12 +14,14 @@ roofline against the H100's data-sheet peaks, and, in cnn mode, the
     python -m modulationdetectioncnn_torch.bench device=cpu bench.batch_size=64
 
 Backends keep the JAX package's names, so an override means the same in
-both packages: ``pallas_int8_v7``, ``pallas_int8_v9`` and ``pallas_int8_v10``
-name the port's CUDA counterparts of those Pallas classifiers, and
-``xla_bf16`` the torch VT-CNN2 in bf16 (cuBLAS/cuDNN, no kernel of the
-port). Weights are random (a ``torch.Generator`` seeded 0) and, for the int8
-backends, quantized by the port's PTQ on 256 seeded frames: throughput does
-not depend on weight values.
+both packages: ``pallas_int8_v4`` .. ``pallas_int8_v10`` name the port's
+CUDA counterparts of those Pallas classifiers, ``xla_int8`` the int8 chain
+from library ops (``ops/infer_xla.py``: ``torch._int_mm``, no kernel of the
+port) and ``xla_bf16`` the torch VT-CNN2 in bf16 (cuBLAS/cuDNN). As in the
+JAX package, ``pallas_int8_v5`` is accepted by name but left out of
+``BACKENDS``. Weights are random (a ``torch.Generator`` seeded 0) and, for
+the int8 backends, quantized by the port's PTQ on 256 seeded frames:
+throughput does not depend on weight values.
 
 A backend named on the command line is measured as asked: calibration runs
 only when none is named. There is no retry and no fallback: a backend or a
@@ -40,8 +42,11 @@ from modulationdetectioncnn_torch.device import resolve_device
 TARGET_SAMPLES_PER_SEC = 1.0e9  # vs_baseline = value / 1 GS/s
 
 INT8_BACKENDS = {"pallas_int8_v7": "v7", "pallas_int8_v9": "v9",
-                 "pallas_int8_v10": "v10"}
-BACKENDS = (*INT8_BACKENDS, "xla_bf16")
+                 "pallas_int8_v10": "v10", "pallas_int8_v6": "v6",
+                 "pallas_int8_v4": "v4", "pallas_int8_v5": "v5"}
+# The JAX package's list: v5 is accepted by name but not listed.
+BACKENDS = ("pallas_int8_v10", "pallas_int8_v7", "pallas_int8_v9",
+            "pallas_int8_v6", "pallas_int8_v4", "xla_bf16", "xla_int8")
 
 
 def device_name(dev: torch.device) -> str:
@@ -80,10 +85,10 @@ def make_classifier(cfg: AmcConfig, backend: str, batch: int):
     """(classifier, (input batch,)) for a named backend, on ``cfg.device``."""
     from modulationdetectioncnn_torch.ops.infer import make_int8_predict
 
-    if backend not in BACKENDS:
+    if backend not in BACKENDS and backend not in INT8_BACKENDS:
         raise NotImplementedError(
             f"bench backend {backend!r} is not ported yet (ROADMAP.md, "
-            f"Queue 2); ported: {', '.join(BACKENDS)}")
+            f"Queue 2); ported: {', '.join(BACKENDS)}, pallas_int8_v5")
     if backend == "xla_bf16":
         x, _, model = _frames_and_model(cfg, batch)
 
@@ -92,6 +97,10 @@ def make_classifier(cfg: AmcConfig, backend: str, batch: int):
 
         return classify, (x,)
     qw, x = make_int8_weights(cfg, batch)
+    if backend == "xla_int8":
+        from modulationdetectioncnn_torch.ops.infer_xla import make_int8_predict_xla
+
+        return make_int8_predict_xla(qw), (x,)
     return make_int8_predict(qw, INT8_BACKENDS[backend]), (x,)
 
 

@@ -2,31 +2,161 @@
 
 Commands ported so far:
 
+- ``eval``: sweep the configured dataset (with ``eval.test_split=0.2``, its
+  held-out test part) with ``eval.backend`` (``flax``,
+  the torch float model restored from ``train.checkpoint_dir``; ``golden``,
+  the NumPy float forward of the same parameters; ``int8``, the CUDA
+  kernels that ``eval.int8_kernel`` names on ``eval.int8_artifact``, default
+  the committed artifact), write ``eval.results_path`` and print the
+  per-SNR curve and the headline JSON;
+- ``quantize``: post-training int8 quantization of the checkpoint in
+  ``train.checkpoint_dir``, written to ``<checkpoint_dir>_int8``, with the
+  int8-vs-float agreement printed as JSON;
 - ``stream``: the streaming demo through the int8 CUDA kernels;
 - ``bench``: the port's benchmark (``bench.py``: one JSON contract line on
   stdout, calibration and the stream chain's rate on stderr).
 
 Overrides use the JAX package's names, plus ``device=``:
 
+    python -m modulationdetectioncnn_torch eval eval.backend=int8 eval.int8_kernel=v5
+    python -m modulationdetectioncnn_torch eval \\
+        train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5
+    python -m modulationdetectioncnn_torch eval eval.backend=int8 eval.int8_kernel=v5 \\
+        data.frames_per_class_per_snr=4000 eval.test_split=0.2  # the artifacts' split
+    python -m modulationdetectioncnn_torch quantize \\
+        train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5
     python -m modulationdetectioncnn_torch stream
-    python -m modulationdetectioncnn_torch stream device=cpu
-    python -m modulationdetectioncnn_torch stream eval.int8_kernel=v10
-    python -m modulationdetectioncnn_torch stream eval.int8_artifact=model.npz
+    python -m modulationdetectioncnn_torch stream device=cpu eval.int8_kernel=v10
     python -m modulationdetectioncnn_torch bench
-    python -m modulationdetectioncnn_torch bench stream
     python -m modulationdetectioncnn_torch bench pallas_int8_v9
     python -m modulationdetectioncnn_torch bench device=cpu bench.batch_size=64
 
-The other commands of the JAX package (train, eval, quantize, qat,
-scaling) are not ported yet (ROADMAP.md).
+Every command runs on the card unless ``device=cpu`` is given. The other
+commands of the JAX package (train, qat, scaling) are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
+import json
 import sys
 
-from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+import numpy as np
+import torch
 
-COMMANDS = ("stream", "bench")
+from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+from modulationdetectioncnn_torch.device import resolve_device
+
+COMMANDS = ("eval", "quantize", "stream", "bench")
+EVAL_BACKENDS = ("flax", "golden", "int8")
+
+
+def _build_dataset(cfg: AmcConfig):
+    from modulationdetectioncnn_torch.data.radioml import load_dataset
+
+    return load_dataset(cfg.data)
+
+
+def load_float_model(cfg: AmcConfig):
+    """The float VT-CNN2 of ``train.checkpoint_dir``'s newest step, in eval
+    mode on ``cfg.device``."""
+    from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+    if not cfg.train.checkpoint_dir:
+        raise SystemExit("this command requires train.checkpoint_dir=<dir>")
+    restored = restore_model(cfg.train.checkpoint_dir, cfg.model,
+                             cfg.data.frame_len, resolve_device(cfg.device))
+    if restored is None:
+        raise SystemExit(f"no checkpoint found in {cfg.train.checkpoint_dir}")
+    model, step = restored
+    print(f"restored checkpoint step {step}", file=sys.stderr)
+    return model
+
+
+def _float_labels(model, xb: np.ndarray) -> np.ndarray:
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        return model(torch.from_numpy(xb).to(dev)).argmax(-1).cpu().numpy()
+
+
+def make_predict_fn(cfg: AmcConfig, model=None):
+    """The (B, 2, T) float32 -> (B,) labels predictor of ``eval.backend``
+    (NumPy in, NumPy out), as the harness calls it."""
+    backend = cfg.eval.backend
+    if backend == "flax":
+        return lambda xb: _float_labels(model, xb)
+    if backend == "golden":
+        from modulationdetectioncnn_torch.golden import cnn as gcnn
+        from modulationdetectioncnn_torch.models.vtcnn2 import flax_params
+
+        p = flax_params(model)
+        return lambda xb: gcnn.vtcnn2_predict(p, xb)
+    if backend == "int8":
+        from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+        from modulationdetectioncnn_torch.quant import load_int8
+
+        classify = make_int8_predict(load_int8(cfg.eval.int8_artifact, cfg.device),
+                                     cfg.eval.int8_kernel)
+        return lambda xb: classify(torch.from_numpy(xb)).cpu().numpy()
+    raise SystemExit(f"unknown eval.backend {backend!r}; use {'/'.join(EVAL_BACKENDS)}")
+
+
+def cmd_eval(cfg: AmcConfig) -> tuple[dict, np.ndarray]:
+    """Sweep the configured dataset, or with ``eval.test_split`` its held-out
+    test part; write and print the results. Returns the results dict and
+    the predicted labels, in the order of the frames swept."""
+    from modulationdetectioncnn_torch.data.synthetic import train_test_split
+    from modulationdetectioncnn_torch.eval import harness
+
+    resolve_device(cfg.device)
+    if cfg.eval.backend not in EVAL_BACKENDS:
+        raise SystemExit(f"unknown eval.backend {cfg.eval.backend!r}; "
+                         f"use {'/'.join(EVAL_BACKENDS)}")
+    model = load_float_model(cfg) if cfg.eval.backend != "int8" else None
+    predict = make_predict_fn(cfg, model)
+    x, y, s, classes = _build_dataset(cfg)
+    if cfg.eval.test_split:
+        _, (x, y, s) = train_test_split(x, y, s, test_frac=cfg.eval.test_split)
+    pred = harness.predict_all(predict, x, cfg.eval.batch_size)
+    result = harness.score(pred, y, s, classes)
+    harness.save_results(result, cfg.eval.results_path)
+    print(harness.format_curve(result))
+    print(json.dumps(result["headline"]))
+    return result, pred
+
+
+def calibration_frames(cfg: AmcConfig) -> np.ndarray:
+    """``quantize``'s calibration set: ``calib_frames // (classes * 3)``
+    frames per class at 0, 10 and 18 dB, seed ``data.seed + 99``."""
+    from modulationdetectioncnn_torch.data import synthetic
+
+    x, _, _ = synthetic.make_dataset(
+        cfg.data,
+        frames_per_class_per_snr=max(1, cfg.quant.calib_frames // (len(cfg.data.classes) * 3)),
+        snrs=[0, 10, 18], seed=cfg.data.seed + 99)
+    return x
+
+
+def cmd_quantize(cfg: AmcConfig, out_dir: str | None = None) -> tuple[str, float]:
+    """PTQ: checkpoint -> int8 artifact (``<out_dir>/int8.npz``, default
+    ``<checkpoint_dir>_int8``) and the int8-vs-float label agreement on the
+    first 1024 calibration frames, the int8 side through the kernels of
+    ``eval.int8_kernel``."""
+    from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+    from modulationdetectioncnn_torch.train.quant import quantize
+
+    dev = resolve_device(cfg.device)
+    model = load_float_model(cfg)
+    calib_x = calibration_frames(cfg)
+    qm = quantize(model, calib_x, cfg.quant.act_percentile)
+    out_dir = out_dir or (cfg.train.checkpoint_dir.rstrip("/") + "_int8")
+    qm.save(out_dir)
+    xs = calib_x[:1024]
+    classify = make_int8_predict(int8_weights_from_numpy(qm, dev), cfg.eval.int8_kernel)
+    pred_q = classify(torch.from_numpy(xs)).cpu().numpy()
+    agree = float((pred_q == _float_labels(model, xs)).mean())
+    print(json.dumps({"int8_artifact": out_dir, "agreement_vs_float": agree}))
+    return out_dir, agree
 
 
 def cmd_stream(cfg: AmcConfig):
@@ -51,7 +181,7 @@ def main(argv: list[str] | None = None) -> int:
         cfg = apply_overrides(AmcConfig(), overrides)
     except (KeyError, ValueError, TypeError) as e:
         raise SystemExit(f"bad override: {e}") from e
-    cmd_stream(cfg)
+    {"eval": cmd_eval, "quantize": cmd_quantize, "stream": cmd_stream}[cmd](cfg)
     return 0
 
 

@@ -4,7 +4,7 @@ The port's own copy of the fields of ``modulationdetectioncnn_tpu/config.py``
 that its ported paths read, with the same names and defaults, so that an
 override such as ``stream.num_subbands=8`` or ``bench.backend=pallas_int8_v10``
 means the same thing to both packages. Fields of paths not ported yet
-(training, mesh, the resampler) are absent.
+(training beyond ``train.checkpoint_dir``, mesh, the resampler) are absent.
 """
 from __future__ import annotations
 
@@ -39,13 +39,22 @@ class ChannelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The fields ``data/synthetic.py::generate_frames`` reads; the bench
-    reads ``frame_len`` (the classifier's input length)."""
+    """The dataset: ``data/synthetic.py::make_dataset`` (or a RadioML pickle,
+    ``data/radioml.py``); the bench reads ``frame_len`` (the classifier's
+    input length)."""
+    classes: Tuple[str, ...] = RML_CLASSES
     frame_len: int = 128
     sps: int = 8                      # samples per symbol
     rrc_beta: float = 0.35            # RRC excess bandwidth
     rrc_span: int = 8                 # RRC filter span in symbols
+    frames_per_class_per_snr: int = 1000
+    snr_db_min: int = -20
+    snr_db_max: int = 18
+    snr_db_step: int = 2
+    seed: int = 0
     channel: ChannelConfig = field(default_factory=ChannelConfig)
+    # Optional path to a real RML2016.10a.pkl; synthetic data when None.
+    radioml_pickle: str | None = None
 
 
 @dataclass(frozen=True)
@@ -61,10 +70,17 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Only the checkpoint directory so far (``eval``, ``quantize`` and the
+    stream predictor restore from it); training is not ported yet."""
+    checkpoint_dir: str | None = None
+
+
+@dataclass(frozen=True)
 class QuantConfig:
-    """Post-training int8 quantization (the field the bench's PTQ reads;
-    the quantize command's ``calib_frames`` comes with that command)."""
+    """Post-training int8 quantization (``quantize`` and the bench's PTQ)."""
     act_percentile: float = 99.99     # calibration clip percentile
+    calib_frames: int = 4096
 
 
 @dataclass(frozen=True)
@@ -82,11 +98,21 @@ class StreamConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    # .npz int8 artifact; None = the committed assets/rml11_int8.npz.
+    # 'flax' (the torch float model, under the JAX package's name), 'int8'
+    # (the CUDA kernels) or 'golden' (the NumPy float forward).
+    backend: str = "flax"
+    results_path: str = "results.json"
+    # int8 artifact: an .npz, or a directory written by ``quantize``; None =
+    # the committed assets/rml11_int8.npz.
     int8_artifact: str | None = None
-    # Which int8 classifier the stream path runs (ops/infer.py
-    # make_int8_predict): "v7", "v9" or "v10".
+    # Which int8 classifier eval and the stream path run (ops/infer.py
+    # make_int8_predict): "v4", "v5", "v6", "v7", "v9" or "v10".
     int8_kernel: str = "v7"
+    batch_size: int = 2048
+    # 0 sweeps the whole dataset; f > 0 only the held-out part of
+    # train_test_split(..., test_frac=f), the split the JAX package's
+    # accuracy artifacts were made on (its scripts/train_eval_full.py).
+    test_split: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -113,6 +139,7 @@ class BenchConfig:
 class AmcConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)

@@ -33,54 +33,31 @@
 //
 // Design (simple and right first; wgmma, TMA and warp specialisation are
 // later work): one persistent block of 8 warps per SM keeps conv2's weight
-// in shared memory, transposed to [n = k*80 + co][j] (240 x 528 bytes,
-// 123.75 KB) so a B fragment is one 32-bit load, for all the frames it
-// walks; the (130, 512) int8 a1 tile (rows 128, 129 zero) never leaves
-// shared memory. The JAX kernel's lane-roll shift-add over z = a1 . w2l is
-// done here in the accumulator instead: tap k's products read A rows t+k,
-// so s[t, co] accumulates in one int32 fragment and the (128, 240) int32 z
-// is never stored (it would not fit beside the weight). Conv2 is
-// int8 mma.sync.m16n8k32; each warp owns 32 rows x 40 channels (2 x 5
-// fragments). Padded 528-byte rows put the 8 rows of a fragment load on
-// distinct banks. Only wgmma reaches Hopper's full int8 rate; with
-// mma.sync fed by 32-bit shared loads this kernel stays well above the
-// bound.
+// in shared memory for all the frames it walks; the (130, 512) int8 a1 tile
+// (rows 128, 129 zero) never leaves shared memory. conv1 is the folded
+// bf16 product; conv2, with its shift-add in the accumulator, and rq2 are
+// the arithmetic of conv_stage_int8_mma.cuh's conv2_rq2_store, written out
+// in this kernel's body: called from the header, nvcc schedules this
+// kernel otherwise (fewer registers) and the bench's cnn rate with v10
+// read lower beyond the run-to-run spread (PERF.md). The widths, the
+// helpers and the launch come from the header. Only wgmma reaches Hopper's
+// full int8 rate; with mma.sync fed by 32-bit shared loads this kernel
+// stays well above the bound.
 // v10 (PREFETCH) copies the next frame's input into a second buffer with
 // cp.async while the current frame's products run, as the TPU kernel's
 // 2-deep pipelining overlapped the next chunk's input; v9 loads each frame
 // in turn.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "conv_stage_int8_mma.cuh"
 
 namespace {
 
-constexpr int T = 128;              // frame length
-constexpr int T2 = T - 4;           // conv2 output rows
-constexpr int K1 = 512;             // stacked conv1 channels, h*256 + c
-constexpr int C2 = 80;              // conv2 channels
-constexpr int N2 = 3 * C2;          // conv2 columns, taps on N: k*80 + co
-constexpr int THREADS = 256;        // 8 warps
-constexpr int STRIDE = K1 + 16;     // padded smem row, bytes (132 words)
-constexpr int A1_ROWS = T + 2;      // tap k of row t reads row t+k
-constexpr int W2S_BYTES = N2 * STRIDE;
-constexpr int A1S_BYTES = A1_ROWS * STRIDE;
-constexpr int W1S_BYTES = K1 * 8 * 2;       // [n][8] bf16
+constexpr int W1F_BYTES = K1 * 8 * 2;       // [n][8] bf16
 constexpr int XS_BYTES = 2 * 2 * T * 4;     // two frames of f32
-constexpr int SMEM_BYTES = W2S_BYTES + A1S_BYTES + W1S_BYTES + XS_BYTES;
-constexpr int MT = 2;               // conv2 fragments per warp: rows (x16)
-constexpr int NT = 5;               //                           channels (x8)
-
-static_assert(T == 8 * 16, "conv1: one 16-row m-tile per warp");
-static_assert(4 * MT * 16 == T && 2 * NT * 8 == C2, "conv2 warp tiling");
-static_assert(W2S_BYTES % 16 == 0 && A1S_BYTES % 16 == 0 && W1S_BYTES % 16 == 0,
-              "smem regions 16-byte aligned");
+constexpr int SMEM_BYTES = W2S_BYTES + A1S_BYTES + W1F_BYTES + XS_BYTES;
+static_assert(W1F_BYTES % 16 == 0, "smem regions 16-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "fits the 227 KB a block may have");
-
-__device__ __forceinline__ int requant(int acc, int offset, int shift) {
-  int v = (acc + offset) >> shift;  // arithmetic shift on signed int32
-  return min(max(v, 0), 127);
-}
 
 // xq of one sample, as exact bf16 bits: rint of a separately rounded
 // multiply (round half to even, as the reference's jnp.round).
@@ -110,24 +87,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
         "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem_src) : "memory");
-}
-
 template <bool PREFETCH>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_stage_folded_kernel(const float* __restrict__ x, long long n,
@@ -140,7 +99,7 @@ conv_stage_folded_kernel(const float* __restrict__ x, long long n,
   int8_t* w2s = reinterpret_cast<int8_t*>(smem);
   int8_t* a1s = reinterpret_cast<int8_t*>(smem + W2S_BYTES);
   uint32_t* w1s = reinterpret_cast<uint32_t*>(smem + W2S_BYTES + A1S_BYTES);
-  float* xs = reinterpret_cast<float*>(smem + W2S_BYTES + A1S_BYTES + W1S_BYTES);
+  float* xs = reinterpret_cast<float*>(smem + W2S_BYTES + A1S_BYTES + W1F_BYTES);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
 
@@ -174,7 +133,7 @@ conv_stage_folded_kernel(const float* __restrict__ x, long long n,
   int buf = 0;
   if (PREFETCH && f < n && tid < 2 * T / 4)
     cp_async16(xs + 4 * tid, x + f * 2 * T + 4 * tid);
-  if (PREFETCH) asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (PREFETCH) cp_async_commit();
   __syncthreads();
 
   for (; f < n; f += gridDim.x) {
@@ -185,8 +144,8 @@ conv_stage_folded_kernel(const float* __restrict__ x, long long n,
       const long long fn = f + gridDim.x;
       if (fn < n && tid < 2 * T / 4)
         cp_async16(xs + (buf ^ 1) * 2 * T + 4 * tid, x + fn * 2 * T + 4 * tid);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
       xc[tid] = x[f * 2 * T + tid];  // THREADS == 2 * T
     }
@@ -269,33 +228,18 @@ conv_stage_folded_kernel(const float* __restrict__ x, long long n,
     // The next frame's first __syncthreads keeps its conv1 from
     // overwriting a1s while this frame's conv2 still reads it.
   }
-  if (PREFETCH) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (PREFETCH) cp_async_wait<0>();
 }
 
 template <bool PREFETCH>
 int launch(const void* x, long long n, const void* w1f, const void* w2l,
            const void* m2, const void* o2, float inv_sx, void* out,
            void* stream) {
-  auto kernel = conv_stage_folded_kernel<PREFETCH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                      SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  long long blocks = static_cast<long long>(sms) * per_sm;
-  if (blocks > n) blocks = n;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
-           static_cast<cudaStream_t>(stream)>>>(
+  return launch_persistent(
+      conv_stage_folded_kernel<PREFETCH>, SMEM_BYTES, n, stream,
       static_cast<const float*>(x), n, static_cast<const __nv_bfloat16*>(w1f),
       static_cast<const int8_t*>(w2l), static_cast<const int*>(m2),
       static_cast<const int*>(o2), inv_sx, static_cast<int8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 """Synthetic RadioML-2016.10a-style IQ frames (NumPy + SciPy).
 
-The port's own copy of ``generate_frames`` and its helpers from the JAX
+The port's own copy of ``generate_frames``, ``make_dataset`` and
+``train_test_split``, with their helpers, from the JAX
 package's ``data/synthetic.py`` (which is NumPy-only, but the port imports
 nothing of that package): the 11 modulation classes, 2x128 complex frames at
 8 samples/symbol, RRC pulse shaping (beta=0.35) and the channel impairments
@@ -277,3 +278,52 @@ def generate_frames(
         raise ValueError(f"unknown modulation {modulation!r}")
     x = _apply_channel(rng, x, cfg.frame_len, ch)
     return x.astype(np.complex64)
+
+
+def complex_to_iq(x: np.ndarray) -> np.ndarray:
+    """(N, T) complex -> (N, 2, T) float32, I on row 0, Q on row 1 (the
+    classifier's 2x128 input layout)."""
+    return np.stack([x.real, x.imag], axis=1).astype(np.float32)
+
+
+def make_dataset(
+    cfg: DataConfig,
+    snrs: list[int] | None = None,
+    classes: tuple[str, ...] | None = None,
+    frames_per_class_per_snr: int | None = None,
+    seed: int | None = None,
+):
+    """Full synthetic RadioML-style dataset.
+
+    Returns ``(x, y, snr)`` with x float32 (N, 2, frame_len), y int32 labels
+    indexing ``classes``, snr int32 per-frame SNR in dB, shuffled. Every
+    draw comes from one ``default_rng(seed)`` in class, then SNR order, so
+    the same config gives the JAX package's frames."""
+    classes = classes or cfg.classes
+    snrs = (snrs if snrs is not None
+            else list(range(cfg.snr_db_min, cfg.snr_db_max + 1, cfg.snr_db_step)))
+    n_per = frames_per_class_per_snr or cfg.frames_per_class_per_snr
+    rng = np.random.default_rng(cfg.seed if seed is None else seed)
+    xs, ys, ss = [], [], []
+    for ci, cls in enumerate(classes):
+        for snr in snrs:
+            fr = generate_frames(rng, cls, n_per, float(snr), cfg)
+            xs.append(complex_to_iq(fr))
+            ys.append(np.full(n_per, ci, dtype=np.int32))
+            ss.append(np.full(n_per, snr, dtype=np.int32))
+    x = np.concatenate(xs, axis=0)
+    y = np.concatenate(ys, axis=0)
+    s = np.concatenate(ss, axis=0)
+    perm = rng.permutation(len(x))
+    return x[perm], y[perm], s[perm]
+
+
+def train_test_split(x, y, s, test_frac: float = 0.2, seed: int = 1):
+    """``((x, y, s) train, (x, y, s) test)``: a seeded permutation, its
+    first ``int(n * test_frac)`` frames held out."""
+    rng = np.random.default_rng(seed)
+    n = len(x)
+    perm = rng.permutation(n)
+    n_test = int(n * test_frac)
+    te, tr = perm[:n_test], perm[n_test:]
+    return (x[tr], y[tr], s[tr]), (x[te], y[te], s[te])

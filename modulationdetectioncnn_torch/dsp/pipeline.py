@@ -10,11 +10,14 @@ whole stream at once (``classify_stream_blocked`` == ``classify_stream``).
 ``plan_frontend`` composes that halo through the channelizer (its FIR
 history) and the framer (overlapping frames' reach).
 
-Not ported yet: the rational resampler in front of the channelizer, timing
+The classifier is the int8 artifact through the CUDA kernels, or the float
+model of a checkpoint that has no artifact yet (``_make_predictor``). Not
+ported yet: the rational resampler in front of the channelizer, timing
 correction and the time-sharded path (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -173,15 +176,58 @@ def make_demo_signal(cfg: AmcConfig) -> tuple[np.ndarray, dict[int, str]]:
     return wide.astype(np.complex64), occupied
 
 
+FLOAT_FALLBACK_WARNING = (
+    "WARNING: no int8 artifact (eval.int8_artifact or <checkpoint_dir>_int8) "
+    "-- streaming with the FLOAT torch forward, not the int8 kernels; run "
+    "`quantize` to deploy.")
+
+
+def int8_artifact_for(cfg: AmcConfig) -> str | None:
+    """The int8 artifact the stream path deploys: ``eval.int8_artifact``
+    when given, else ``<train.checkpoint_dir>_int8`` when it exists (what
+    ``quantize`` writes), else None."""
+    if cfg.eval.int8_artifact:
+        return cfg.eval.int8_artifact
+    if cfg.train.checkpoint_dir:
+        cand = cfg.train.checkpoint_dir.rstrip("/") + "_int8"
+        if os.path.isdir(cand):
+            return cand
+    return None
+
+
 def _make_predictor(cfg: AmcConfig) -> Predictor:
-    """The product stream classifier: the int8 artifact (default: the
-    committed ``assets/rml11_int8.npz``) through the kernels that
-    ``eval.int8_kernel`` names (default v7). There is no float fallback: a
-    missing artifact raises."""
+    """The product stream classifier, chosen as the JAX package chooses it:
+
+    1. the int8 artifact ``eval.int8_artifact``, else
+       ``<train.checkpoint_dir>_int8`` when it exists, through the kernels
+       that ``eval.int8_kernel`` names (default v7);
+    2. else, with ``train.checkpoint_dir`` set, the float model restored
+       from it, with the JAX package's warning;
+    3. else the committed int8 artifact (``assets/rml11_int8.npz``).
+
+    A named artifact or checkpoint that is missing raises."""
     from modulationdetectioncnn_torch.ops.infer import make_int8_predict
     from modulationdetectioncnn_torch.quant import load_int8
 
-    qw = load_int8(cfg.eval.int8_artifact, cfg.device)
+    art = int8_artifact_for(cfg)
+    if art is None and cfg.train.checkpoint_dir:
+        from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+        print(FLOAT_FALLBACK_WARNING, flush=True)
+        dev = resolve_device(cfg.device)
+        restored = restore_model(cfg.train.checkpoint_dir, cfg.model,
+                                 cfg.data.frame_len, dev)
+        if restored is None:
+            raise FileNotFoundError(
+                f"no checkpoint found in {cfg.train.checkpoint_dir!r}")
+        model = restored[0]
+
+        @torch.no_grad()
+        def predict(x: torch.Tensor) -> torch.Tensor:
+            return model(x.to(dev)).argmax(-1).to(torch.int32)
+
+        return predict
+    qw = load_int8(art, cfg.device)
     return make_int8_predict(qw, cfg.eval.int8_kernel)
 
 

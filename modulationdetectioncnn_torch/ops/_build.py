@@ -4,8 +4,9 @@ Each of ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects
 into one shared library with a plain C interface (no PyTorch headers, so the
 build takes seconds). The library lands in ``_build/`` inside the package
-(listed in ``.gitignore``), named by a hash of the sources and flags, so an
-edit to a source rebuilds it and an unchanged tree reuses it.
+(listed in ``.gitignore``), named by a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds
+it and an unchanged tree reuses it.
 
 Each C function takes raw device pointers, sizes and the CUDA stream, and
 returns the ``cudaGetLastError()`` code of its launch; ``check`` raises on a
@@ -41,6 +42,14 @@ _SIGNATURES = {
                                ctypes.c_float, _P, _P],
     "amc_conv_stage_int8_v10": [_P, ctypes.c_longlong, _P, _P, _P, _P,
                                 ctypes.c_float, _P, _P],
+    # x, n, w1e, m1, o1, w2l, m2, o2, inv_sx, out, stream
+    "amc_conv_stage_int8_v5": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_float, _P, _P],
+    # xp, n, w1e, m1, o1, w2l, m2, o2, out, stream
+    "amc_conv_stage_int8_v6": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
+    "amc_conv_stage_int8_v4": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
 }
 
 
@@ -56,9 +65,13 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

@@ -1,14 +1,25 @@
-"""int8 VT-CNN2 inference: the fused stages and the v7, v9 and v10 classifiers.
+"""int8 VT-CNN2 inference: the fused stages and the v4-v10 classifiers.
 
-Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py``'s v7, v9 and v10
-paths. The three classifiers share the dense stage and differ in the conv
-stage: v7 runs conv1 on integers, v9 and v10 run conv1 as a bf16 product
-against requantize-folded weights (``quant.fold_conv1_weights``) and conv2
-on int8 tensor cores; v10 also prefetches the next frame while the current
-one's products run. Each stage has three pieces in this module:
+Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py``'s v4, v5, v6,
+v7, v9 and v10 paths. The classifiers share the dense stage and differ in
+the conv stage, which all compute one function (the integer spec of
+``golden/quant.py``) from different inputs and with different conv1
+arithmetic:
 
-- the wrapper (``conv_stage_int8_v7``, ``conv_stage_int8_v9``,
-  ``conv_stage_int8_v10``, ``dense_argmax_int8``): on a CUDA
+- v7: frames in, conv1 on integers (``__dp4a``);
+- v9, v10: frames in, conv1 as a bf16 product against requantize-folded
+  weights (``quant.fold_conv1_weights``), conv2 on int8 tensor cores; v10
+  also prefetches the next frame while the current one's products run;
+- v5: frames in, quantize and the tap planes in the kernel, conv1 as an
+  int8 tensor-core product, then integer rq1 and v10's conv2;
+- v4, v6: (B, 8, T) int8 tap planes in (quantize and ``tap_planes`` in
+  plain torch first, as the JAX package did them in XLA), then v5's body;
+  v6 also prefetches the next frame's planes.
+
+v4, v5 and v6 need no fold, so a model that the fold refuses still gets a
+tensor-core path. Each stage has three pieces in this module:
+
+- the wrapper (``conv_stage_int8_v*``, ``dense_argmax_int8``): on a CUDA
   tensor it launches the hand-written kernel of ``csrc/`` and counts the
   launch in its ``launches`` attribute, or raises; on a CPU tensor it runs
   the plain version. There is no fallback from one to the other.
@@ -20,9 +31,12 @@ one's products run. Each stage has three pieces in this module:
   it replaces, its bound on the H100 and what its design does about it.
 
 Shapes are the JAX package's public ones: frames (B, 2, 128) f32 in,
-labels (B,) int32 out. The conv map is the compact (B, 124, 80) int8; the
+labels (B,) int32 out. The conv map is the compact (B, 124, C2) int8; the
 TPU kernel's (B, 128, 128) layout padding is not reproduced. The kernels
-take any B: a ragged batch needs no padding.
+are compiled for the full-width model; a narrower one runs padded to it
+(``quant.pad_to_kernel_widths``), and the conv-stage wrappers return the
+model's own ``[:, :, :c2]`` map. The kernels take any B: a ragged batch
+needs no padding.
 """
 from __future__ import annotations
 
@@ -33,11 +47,8 @@ import torch
 
 from modulationdetectioncnn_torch.ops import _build
 from modulationdetectioncnn_torch.ops.requant import quantize_input, requantize
-from modulationdetectioncnn_torch.quant import Int8Weights
-
-# The widths the CUDA kernels are compiled for (the full-width VT-CNN2).
-FRAME_LEN, C1, C2, DENSE, N_CLASSES = 128, 256, 80, 256, 11
-T2 = FRAME_LEN - 4
+from modulationdetectioncnn_torch.quant import (
+    C1, C2, DENSE, FRAME_LEN, N_CLASSES, T2, Int8Weights)
 
 
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -59,72 +70,51 @@ def conv1_int8_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     return requantize(acc1, qw.m1, qw.o1)
 
 
-def conv_stage_int8_v7_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """(B, 2, T) f32 -> (B, T-4, C2) int8: quantize -> conv1 -> rq1 ->
-    conv2 -> rq2, the integer spec of golden/quant.py."""
-    a1 = conv1_int8_plain(x, qw)                                # (B, t1, 2C)
+def _conv2_plain(a1: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """Stacked conv1 activations (B, t1, 2C) int8 -> (B, t1-2, C2) int8:
+    conv2 over the three rows t..t+2, then rq2."""
     k1, t2 = a1.shape[-1], a1.shape[1] - 2
     acc2 = sum(_exact_matmul(a1[:, k:k + t2], qw.w2t[:, k * k1:(k + 1) * k1].T)
                for k in range(3))
     return requantize(acc2, qw.m2, qw.o2)
 
 
-# The weights each CUDA entry point reads.
-_KERNEL_WEIGHTS = {
-    "conv_stage_int8_v7": ("w1", "m1", "o1", "w2t", "m2", "o2"),
-    "conv_stage_int8_v9": ("w1f", "w2l", "m2", "o2"),
-    "conv_stage_int8_v10": ("w1f", "w2l", "m2", "o2"),
-    "dense_argmax_int8": ("w3t", "m3", "o3", "w4", "s4", "b4"),
-}
+def conv_stage_int8_v7_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """(B, 2, T) f32 -> (B, T-4, C2) int8: quantize -> conv1 -> rq1 ->
+    conv2 -> rq2, the integer spec of golden/quant.py. C2 is the carried
+    width (the kernels' for a padded model)."""
+    return _conv2_plain(conv1_int8_plain(x, qw), qw)
 
 
-def _check_cuda_args(name: str, tensors: dict, qw: Int8Weights) -> None:
-    dev = next(iter(tensors.values())).device
-    keys = _KERNEL_WEIGHTS[name]
-    for key, t in {**tensors, **{k: getattr(qw, k) for k in keys}}.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} is on {t.device}, input on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name}: {key} must be 4-byte aligned")
-    want = {"w1": (3, C1), "w2t": (C2, 6 * C1), "w1f": (16, 2 * C1),
-            "w2l": (2 * C1, 3 * C2), "w3t": (DENSE, T2 * C2),
-            "w4": (DENSE, N_CLASSES)}
-    for key, shape in want.items():
-        if key in keys and tuple(getattr(qw, key).shape) != shape:
-            raise ValueError(f"{name}: the CUDA kernel is built for {key} "
-                             f"{shape}, got {tuple(getattr(qw, key).shape)}")
+def tap_planes(x: torch.Tensor, inv_sx: float) -> torch.Tensor:
+    """The v4/v6 prologue, (B, 2, T) f32 -> (B, 8, T) int8 tap planes:
+    quantize, then plane 3h+k holds ``xq[:, h, k:k+T-2]`` followed by two
+    zeros; planes 6 and 7 are zero (the JAX package's quantize +
+    ``expand_tap_planes``, which it ran in XLA). Plain torch ops."""
+    xq = quantize_input(x, inv_sx)
+    b, _, t = xq.shape
+    planes = torch.zeros((b, 8, t), dtype=torch.int8, device=x.device)
+    for h in range(2):
+        for k in range(3):
+            planes[:, 3 * h + k, :t - k] = xq[:, h, k:]
+    planes[:, :6, t - 2:] = 0
+    return planes
 
 
-def conv_stage_int8_v7(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """Fused conv stage, (B, 2, 128) f32 -> (B, 124, 80) int8. Launches
-    ``csrc/conv_stage_int8.cu`` on a CUDA tensor; plain version on the CPU."""
-    if x.device.type == "cpu":
-        return conv_stage_int8_v7_plain(x, qw)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_stage_int8_v7: unsupported device {x.device}")
-    if x.dtype != torch.float32 or tuple(x.shape[1:]) != (2, FRAME_LEN):
-        raise ValueError(f"conv_stage_int8_v7: expected (B, 2, {FRAME_LEN}) "
-                         f"float32, got {tuple(x.shape)} {x.dtype}")
-    b = x.shape[0]
-    out = torch.empty((b, T2, C2), dtype=torch.int8, device=x.device)
-    if b == 0:
-        return out
-    _check_cuda_args("conv_stage_int8_v7", {"x": x}, qw)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        code = lib.amc_conv_stage_int8_v7(
-            x.data_ptr(), b, qw.w1.data_ptr(), qw.m1.data_ptr(),
-            qw.o1.data_ptr(), qw.w2t.data_ptr(), qw.m2.data_ptr(),
-            qw.o2.data_ptr(), qw.inv_sx, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "conv_stage_int8_v7", code)
-    conv_stage_int8_v7.launches += 1
-    return out
+def conv_stage_int8_planes_plain(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """The plain version of the v4/v6 conv stages, (B, 8, T) int8 tap
+    planes -> (B, T-4, C2) int8: conv1 as one (m, 8) x (8, 2C) integer
+    product of the planes against ``w1e``, rq1, then conv2 and rq2."""
+    t1 = xp.shape[-1] - 2
+    acc1 = _exact_matmul(xp.transpose(1, 2)[:, :t1], qw.w1e)   # (B, t1, 2C)
+    return _conv2_plain(requantize(acc1, qw.m1, qw.o1), qw)
 
 
-conv_stage_int8_v7.launches = 0
+def conv_stage_int8_v5_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """The plain version of the v5 conv stage, (B, 2, T) f32 -> (B, T-4, C2)
+    int8: the tap planes the kernel builds from the quantized frame, then
+    v4's arithmetic."""
+    return conv_stage_int8_planes_plain(tap_planes(x, qw.inv_sx), qw)
 
 
 def conv1_folded_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
@@ -153,60 +143,6 @@ def conv_stage_int8_folded_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tens
     return requantize(s, qw.m2, qw.o2)
 
 
-def _launch_folded(wrapper, x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """Argument checks and launch of the v9/v10 CUDA entry point named after
-    ``wrapper`` (``csrc/conv_stage_int8_v10.cu``), counted on ``wrapper``;
-    returns the (B, 124, 80) int8 map."""
-    name = wrapper.__name__
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.float32 or tuple(x.shape[1:]) != (2, FRAME_LEN):
-        raise ValueError(f"{name}: expected (B, 2, {FRAME_LEN}) float32, "
-                         f"got {tuple(x.shape)} {x.dtype}")
-    b = x.shape[0]
-    out = torch.empty((b, T2, C2), dtype=torch.int8, device=x.device)
-    if b == 0:
-        return out
-    _check_cuda_args(name, {"x": x}, qw)
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned (cp.async)")
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        code = getattr(lib, f"amc_{name}")(
-            x.data_ptr(), b, qw.w1f.data_ptr(), qw.w2l.data_ptr(),
-            qw.m2.data_ptr(), qw.o2.data_ptr(), qw.inv_sx, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, name, code)
-    wrapper.launches += 1
-    return out
-
-
-def conv_stage_int8_v9(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v9 conv stage, (B, 2, 128) f32 -> (B, 124, 80) int8: folded bf16
-    conv1 and int8 conv2 on the tensor cores, frame by frame. Launches
-    ``csrc/conv_stage_int8_v10.cu``'s v9 entry on a CUDA tensor; plain
-    version on the CPU."""
-    if x.device.type == "cpu":
-        return conv_stage_int8_folded_plain(x, qw)
-    return _launch_folded(conv_stage_int8_v9, x, qw)
-
-
-conv_stage_int8_v9.launches = 0
-
-
-def conv_stage_int8_v10(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v10 conv stage: v9's arithmetic, with the next frame's input
-    prefetched (``cp.async``) while the current frame's products run.
-    Launches ``csrc/conv_stage_int8_v10.cu``'s v10 entry on a CUDA tensor;
-    plain version on the CPU."""
-    if x.device.type == "cpu":
-        return conv_stage_int8_folded_plain(x, qw)
-    return _launch_folded(conv_stage_int8_v10, x, qw)
-
-
-conv_stage_int8_v10.launches = 0
-
-
 # ------------------------------------------------------- dense + argmax
 
 
@@ -224,39 +160,139 @@ def dense_argmax_int8_plain(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     return idx.min(dim=-1).values.to(torch.int32)
 
 
-def dense_argmax_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """Fused dense stage, (B, 124, 80) or (B, 9920) int8 -> (B,) int32.
-    Launches ``csrc/dense_argmax_int8.cu`` on a CUDA tensor; plain version
-    on the CPU."""
-    if h.device.type == "cpu":
-        return dense_argmax_int8_plain(h, qw)
-    if h.device.type != "cuda":
-        raise ValueError(f"dense_argmax_int8: unsupported device {h.device}")
-    b = h.shape[0]
-    if h.dtype != torch.int8 or math.prod(h.shape[1:]) != T2 * C2:
-        raise ValueError(f"dense_argmax_int8: expected (B, {T2 * C2}) int8, "
-                         f"got {tuple(h.shape)} {h.dtype}")
-    out = torch.empty((b,), dtype=torch.int32, device=h.device)
+# ------------------------------------------------------ kernel launches
+
+_FRAMES, _PLANES, _MAP = "frames", "planes", "map"
+# Per C entry point: the weights it reads, in its argument order, and its
+# input: (B, 2, 128) f32 frames (the entry also takes inv_sx), (B, 8, 128)
+# int8 tap planes, or the (B, 124, 80) int8 conv map.
+_ENTRIES = {
+    "conv_stage_int8_v7": (("w1", "m1", "o1", "w2t", "m2", "o2"), _FRAMES),
+    "conv_stage_int8_v9": (("w1f", "w2l", "m2", "o2"), _FRAMES),
+    "conv_stage_int8_v10": (("w1f", "w2l", "m2", "o2"), _FRAMES),
+    "conv_stage_int8_v5": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _FRAMES),
+    "conv_stage_int8_v6": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _PLANES),
+    "conv_stage_int8_v4": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _PLANES),
+    "dense_argmax_int8": (("w3t", "m3", "o3", "w4", "s4", "b4"), _MAP),
+}
+# The shapes the kernels are compiled for.
+_WEIGHT_SHAPES = {"w1": (3, C1), "w1e": (8, 2 * C1), "w2t": (C2, 6 * C1),
+                  "w1f": (16, 2 * C1), "w2l": (2 * C1, 3 * C2),
+                  "w3t": (DENSE, T2 * C2), "w4": (DENSE, N_CLASSES)}
+_INPUTS = {_FRAMES: ((2, FRAME_LEN), torch.float32),
+           _PLANES: ((8, FRAME_LEN), torch.int8),
+           _MAP: ((T2 * C2,), torch.int8)}
+
+
+def _launch(wrapper, inp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """Check the arguments, launch the CUDA entry point named after
+    ``wrapper`` on the current stream, count the launch on ``wrapper``;
+    returns the (B, 124, 80) int8 map or the (B,) int32 labels."""
+    name = wrapper.__name__
+    keys, kind = _ENTRIES[name]
+    weights = {k: getattr(qw, k) for k in keys}
+    for key, t in weights.items():
+        want = _WEIGHT_SHAPES.get(key)
+        if want and tuple(t.shape) != want:
+            raise ValueError(f"{name}: the CUDA kernel is built for {key} "
+                             f"{want}, got {tuple(t.shape)}; a model wider "
+                             "than the kernels' widths runs on the CPU only")
+    shape, dtype = _INPUTS[kind]
+    b = inp.shape[0]
+    if kind == _MAP and inp.dim() > 1:
+        inp = inp.reshape(b, -1)
+    if inp.dtype != dtype or tuple(inp.shape[1:]) != shape:
+        raise ValueError(f"{name}: expected (B, {', '.join(map(str, shape))}) "
+                         f"{dtype}, got {tuple(inp.shape)} {inp.dtype}")
+    if inp.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {inp.device}")
+    if kind == _MAP:
+        out = torch.empty((b,), dtype=torch.int32, device=inp.device)
+    else:
+        out = torch.empty((b, T2, C2), dtype=torch.int8, device=inp.device)
     if b == 0:
         return out
-    h = h.reshape(b, T2 * C2)
-    _check_cuda_args("dense_argmax_int8", {"h": h}, qw)
+    for key, t in {"input": inp, **weights}.items():
+        if t.device != inp.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, input on {inp.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % (16 if key == "input" else 4):
+            raise ValueError(f"{name}: {key} is misaligned")
     lib = _build.load_library()
-    with torch.cuda.device(h.device):
-        code = lib.amc_dense_argmax_int8(
-            h.data_ptr(), b, qw.w3t.data_ptr(), qw.m3.data_ptr(),
-            qw.o3.data_ptr(), qw.w4.data_ptr(), qw.s4.data_ptr(),
-            qw.b4.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "dense_argmax_int8", code)
-    dense_argmax_int8.launches += 1
+    args = [inp.data_ptr(), b, *(t.data_ptr() for t in weights.values())]
+    if kind == _FRAMES:
+        args.append(qw.inv_sx)
+    with torch.cuda.device(inp.device):
+        code = getattr(lib, f"amc_{name}")(
+            *args, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, name, code)
+    wrapper.launches += 1
     return out
 
 
-dense_argmax_int8.launches = 0
+def _run(wrapper, plain, inp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """``plain`` on a CPU tensor, ``wrapper``'s kernel on a CUDA one."""
+    if inp.device.type == "cpu":
+        return plain(inp, qw)
+    return _launch(wrapper, inp, qw)
+
+
+def conv_stage_int8_v7(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """Fused conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8. Launches
+    ``csrc/conv_stage_int8.cu`` on a CUDA tensor; plain version on the CPU."""
+    return _run(conv_stage_int8_v7, conv_stage_int8_v7_plain, x, qw)[..., :qw.c2]
+
+
+def conv_stage_int8_v9(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v9 conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8: folded bf16
+    conv1 and int8 conv2 on the tensor cores, frame by frame. Launches
+    ``csrc/conv_stage_int8_v10.cu``'s v9 entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(conv_stage_int8_v9, conv_stage_int8_folded_plain, x, qw)[..., :qw.c2]
+
+
+def conv_stage_int8_v10(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v10 conv stage: v9's arithmetic, with the next frame's input
+    prefetched (``cp.async``) while the current frame's products run.
+    Launches ``csrc/conv_stage_int8_v10.cu``'s v10 entry on a CUDA tensor;
+    plain version on the CPU."""
+    return _run(conv_stage_int8_v10, conv_stage_int8_folded_plain, x, qw)[..., :qw.c2]
+
+
+def conv_stage_int8_v5(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v5 conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8: quantize and
+    tap planes in the kernel, conv1 and conv2 on the int8 tensor cores.
+    Launches ``csrc/conv_stage_int8_v5.cu`` on a CUDA tensor; plain version
+    on the CPU."""
+    return _run(conv_stage_int8_v5, conv_stage_int8_v5_plain, x, qw)[..., :qw.c2]
+
+
+def conv_stage_int8_v6(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v6 conv stage, (B, 8, 128) int8 tap planes (``tap_planes``) ->
+    (B, 124, c2) int8: conv1 and conv2 on the int8 tensor cores, the next
+    frame's planes prefetched (``cp.async``). Launches
+    ``csrc/conv_stage_int8_v6.cu``'s v6 entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(conv_stage_int8_v6, conv_stage_int8_planes_plain, xp, qw)[..., :qw.c2]
+
+
+def conv_stage_int8_v4(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v4 conv stage: v6 without the prefetch. Launches
+    ``csrc/conv_stage_int8_v6.cu``'s v4 entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(conv_stage_int8_v4, conv_stage_int8_planes_plain, xp, qw)[..., :qw.c2]
+
+
+def dense_argmax_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """Fused dense stage, the carried-width (B, 124, 80) or (B, 9920) int8
+    map -> (B,) int32. Launches ``csrc/dense_argmax_int8.cu`` on a CUDA
+    tensor; plain version on the CPU."""
+    return _run(dense_argmax_int8, dense_argmax_int8_plain, h, qw)
 
 
 KERNEL_WRAPPERS = (conv_stage_int8_v7, conv_stage_int8_v9, conv_stage_int8_v10,
+                   conv_stage_int8_v5, conv_stage_int8_v6, conv_stage_int8_v4,
                    dense_argmax_int8)
 
 
@@ -265,66 +301,75 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+reset_launch_counts()
+
+
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
 # ------------------------------------------------------------ classifiers
 
-CONV_STAGES = {"v7": conv_stage_int8_v7, "v9": conv_stage_int8_v9,
-               "v10": conv_stage_int8_v10}
+
+def _frames(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    return x
+
+
+def _planes(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    return tap_planes(x, qw.inv_sx)
+
+
+# version: (wrapper, its plain version, the prologue that makes its input)
+CONV_STAGES = {
+    "v7": (conv_stage_int8_v7, conv_stage_int8_v7_plain, _frames),
+    "v9": (conv_stage_int8_v9, conv_stage_int8_folded_plain, _frames),
+    "v10": (conv_stage_int8_v10, conv_stage_int8_folded_plain, _frames),
+    "v5": (conv_stage_int8_v5, conv_stage_int8_v5_plain, _frames),
+    "v6": (conv_stage_int8_v6, conv_stage_int8_planes_plain, _planes),
+    "v4": (conv_stage_int8_v4, conv_stage_int8_planes_plain, _planes),
+}
 
 
 def _conv_stage_fn(version: str, qw: Int8Weights):
-    """The conv stage of ``version``. For v9/v10 this also builds the
-    folded conv1, so a model that breaks the fold's contract raises
-    ``ValueError`` here rather than at its first batch."""
+    """(B, 2, T) f32 -> the carried-width (B, T-4, C2) map of ``version``
+    (prologue, then its kernel or plain version). For v9/v10 this also
+    builds the folded conv1, so a model that breaks the fold's contract
+    raises ``ValueError`` here rather than at its first batch."""
     if version not in CONV_STAGES:
         raise NotImplementedError(
             f"int8 kernel version {version!r} is not ported yet "
             f"(ROADMAP.md, Queue 2); use one of {'/'.join(CONV_STAGES)}")
-    if version != "v7":
+    if version in ("v9", "v10"):
         qw.w1f
-    return CONV_STAGES[version]
+    wrapper, plain, prologue = CONV_STAGES[version]
+
+    def stage(x: torch.Tensor) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device=qw.device, dtype=torch.float32)
+        return _run(wrapper, plain, prologue(x.contiguous(), qw), qw)
+
+    return stage
 
 
-def _make_classifier(qw: Int8Weights, version: str):
+def make_int8_predict(qw: Int8Weights, version: str = "v7") -> Callable[[torch.Tensor], torch.Tensor]:
+    """Version-selectable int8 label predictor, (B, 2, T) f32 -> (B,) int32
+    labels on the weights' device: the conv stage of ``version`` (v4, v5,
+    v6, v7, v9 or v10), then the dense stage. Bit-exact against
+    golden/quant.py."""
     stage = _conv_stage_fn(version, qw)
 
     def classify(x: torch.Tensor) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=qw.device, dtype=torch.float32)
-        return dense_argmax_int8(stage(x.contiguous(), qw), qw)
+        return dense_argmax_int8(stage(x), qw)
 
     return classify
 
 
-def make_int8_classifier_v7(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
-    """(B, 2, T) f32 -> (B,) int32 labels on the weights' device, through
-    the two fused stages. Bit-exact against golden/quant.py."""
-    return _make_classifier(qw, "v7")
-
-
-def make_int8_classifier_v9(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
-    """As v7, with the v9 conv stage (folded conv1, tensor-core conv2)."""
-    return _make_classifier(qw, "v9")
-
-
-def make_int8_classifier_v10(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
-    """As v9, with the v10 conv stage (input prefetch across frames)."""
-    return _make_classifier(qw, "v10")
-
-
-def make_conv_stage(qw: Int8Weights, version: str = "v7"):
-    """The conv stage alone: (B, 2, T) f32 -> (B, T-4, C2) int8."""
+def make_conv_stage(qw: Int8Weights, version: str = "v10"):
+    """The conv stage alone: (B, 2, T) f32 -> the model's (B, T-4, c2) int8
+    map, through ``version``'s prologue and kernel (default v10, as in the
+    JAX package)."""
     stage = _conv_stage_fn(version, qw)
 
     def conv_stage(x: torch.Tensor) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=qw.device, dtype=torch.float32)
-        return stage(x.contiguous(), qw)
+        return stage(x)[..., :qw.c2]
 
     return conv_stage
-
-
-def make_int8_predict(qw: Int8Weights, version: str = "v7"):
-    """Version-selectable int8 label predictor: v7, v9 or v10."""
-    return _make_classifier(qw, version)

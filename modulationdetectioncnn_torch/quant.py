@@ -13,6 +13,13 @@ conv stage also reads conv1 with its requantize folded into bf16 weights
 (``fold_conv1_weights``). That fold is built, and its exactness contract
 checked, only when a v9/v10 path first asks for it (``Int8Weights.w1f``):
 a model that v7 runs exactly but the fold cannot carry still runs on v7.
+
+The kernels are compiled for the full-width VT-CNN2 (``FRAME_LEN``, ``C1``,
+``C2``, ``DENSE``, ``N_CLASSES``). A narrower model is zero-padded to those widths at carry time
+(``pad_to_kernel_widths``), as the TPU kernels padded to 128 lanes: every
+padded channel, unit or class computes an exact zero or can never win the
+argmax, so the padded model gives the unpadded one's map and labels. The
+conv-stage wrappers return the model's own ``[:, :, :c2]`` map.
 """
 from __future__ import annotations
 
@@ -28,6 +35,13 @@ from modulationdetectioncnn_torch.device import resolve_device
 
 DEFAULT_ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "assets", "rml11_int8.npz")
+# The file an artifact directory (what ``quantize`` writes) holds.
+ARTIFACT_FILE = "int8.npz"
+
+# The widths the CUDA kernels are compiled for (the full-width VT-CNN2):
+# frame length T, conv1 filters, conv2 filters, dense units, classes.
+FRAME_LEN, C1, C2, DENSE, N_CLASSES = 128, 256, 80, 256, 11
+T2 = FRAME_LEN - 4
 
 
 @dataclass
@@ -60,13 +74,30 @@ class QuantizedModel:
         with np.load(path) as z:
             return cls.from_tree({k: z[k] for k in z.files})
 
+    def save(self, directory: str) -> str:
+        """Write the artifact as ``<directory>/int8.npz`` (what
+        ``load_int8(directory)`` reads); returns the file's path."""
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, ARTIFACT_FILE)
+        np.savez(path, **self.tree())
+        return path
+
+    def widths(self) -> tuple[int, int, int, int, int]:
+        """(frame length, conv1 filters, conv2 filters, dense units,
+        classes) of the model."""
+        c2 = self.m2.shape[0]
+        return (self.w3.shape[0] // c2 + 4, self.w1p.shape[1], c2,
+                self.m3.shape[0], self.b4.shape[0])
+
 
 @dataclass(frozen=True)
 class Int8Weights:
     """Device tensors in kernel layouts (see ``int8_weights_from_numpy``)."""
 
     inv_sx: float            # float32(1 / float64(float32(s_x))), exact f32
+    c2: int                  # the model's own conv2 filters (<= m2's length)
     w1: torch.Tensor         # (3, C1) int8
+    w1e: torch.Tensor        # (8, 2*C1) int8 tap-plane conv1, [3h+k, h*C1+c]
     m1: torch.Tensor         # (2*C1,) int32
     o1: torch.Tensor         # (2*C1,) int32
     w2t: torch.Tensor        # (C2, 3*2*C1) int8, [co, k*2*C1 + j]
@@ -132,6 +163,53 @@ def fold_conv1_weights(w1p: np.ndarray, m1: np.ndarray, o1: np.ndarray) -> np.nd
     return w
 
 
+def pad_to_kernel_widths(qm: QuantizedModel) -> QuantizedModel:
+    """Zero-pad a model no wider than the kernels' widths up to them.
+
+    conv1 and conv2 output channels get zero weights, offset 0 and shift 0,
+    so they requantize to exactly 0, and conv2 reads the padded conv1
+    channels through zero weights; dense1 gets zero rows for the padded
+    conv2 channels (rows stay in the t*C2+c order) and zero columns for the
+    padded units; padded classes get ``s4 = 0`` and ``b4 = -inf``, a logit
+    of -inf that the argmax never picks. The padded conv1 still meets the
+    v9/v10 fold's contract. A model wider than the kernels, or with another
+    frame length, is returned unchanged: the CUDA wrappers refuse it and
+    the plain versions run it on the CPU."""
+    t, c1, c2, d, nc = qm.widths()
+    if (t != FRAME_LEN or c1 > C1 or c2 > C2 or d > DENSE or nc > N_CLASSES
+            or (c1, c2, d, nc) == (C1, C2, DENSE, N_CLASSES)):
+        return qm
+
+    def pad(a, shape, value=0):
+        out = np.full(shape, value, dtype=np.asarray(a).dtype)
+        out[tuple(slice(0, n) for n in np.shape(a))] = a
+        return out
+
+    return QuantizedModel(
+        s_x=qm.s_x, w1p=pad(qm.w1p, (3, C1)),
+        m1=pad(np.reshape(qm.m1, (2, c1)), (2, C1)).reshape(-1),
+        o1=pad(np.reshape(qm.o1, (2, c1)), (2, C1)).reshape(-1),
+        w2p=pad(np.reshape(qm.w2p, (2, c1, 3, c2)), (2, C1, 3, C2)).reshape(2 * C1, 3 * C2),
+        m2=pad(qm.m2, (C2,)), o2=pad(qm.o2, (C2,)),
+        w3=pad(np.reshape(qm.w3, (T2, c2, d)), (T2, C2, DENSE)).reshape(T2 * C2, DENSE),
+        m3=pad(qm.m3, (DENSE,)), o3=pad(qm.o3, (DENSE,)),
+        w4=pad(qm.w4, (DENSE, N_CLASSES)), s4=pad(qm.s4, (N_CLASSES,)),
+        b4=pad(qm.b4, (N_CLASSES,), -np.inf))
+
+
+def expand_conv1_weights(w1p: np.ndarray) -> np.ndarray:
+    """(3, C) tap weights -> (8, 2C) tap-plane conv1, ``w[3h+k, h*C+c] =
+    w1p[k, c]``, rows 6 and 7 zero (the JAX package's
+    ``expand_conv1_weights``): row j multiplies tap plane j."""
+    w1p = np.asarray(w1p)
+    c = w1p.shape[1]
+    w = np.zeros((8, 2 * c), dtype=w1p.dtype)
+    for h in range(2):
+        for k in range(3):
+            w[h * 3 + k, h * c:(h + 1) * c] = w1p[k]
+    return w
+
+
 def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
                             device: str | torch.device = "cuda") -> Int8Weights:
     """Carry a model's arrays (NumPy, JAX-package layouts) to the port.
@@ -143,9 +221,12 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
     (D, T2*C2). The v9/v10 conv stage reads the folded conv1
     (``Int8Weights.w1f``, built on first use) and conv2 in the taps-on-N
     layout of the JAX package's ``pack_conv2_weights_lane256`` without its
-    lane padding, which is ``w2p`` itself. Every kernel reads the shifts as
-    integers, so a model with float requantize multipliers (the golden
-    spec's legacy form) raises ``ValueError``.
+    lane padding, which is ``w2p`` itself. The v4/v5/v6 conv stages read
+    conv1 in the tap-plane layout (``expand_conv1_weights``). Every kernel
+    reads the shifts as integers, so a model with float requantize
+    multipliers (the golden spec's legacy form) raises ``ValueError``. A
+    model narrower than the kernels is padded to their widths first
+    (``pad_to_kernel_widths``).
     """
     dev = resolve_device(device)
     qm = tree if isinstance(tree, QuantizedModel) else QuantizedModel.from_tree(tree)
@@ -153,6 +234,8 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
         if not np.issubdtype(np.asarray(getattr(qm, k)).dtype, np.integer):
             raise ValueError(f"{k}: the port's kernels need integer requantize "
                              "shifts (the fixed-point quantize() contract)")
+    valid_c2 = qm.m2.shape[0]
+    qm = pad_to_kernel_widths(qm)
     c2 = qm.m2.shape[0]
     k1 = qm.w2p.shape[0]                       # 2*C1
     w2t = (np.asarray(qm.w2p, np.int8).reshape(k1, 3, c2)
@@ -163,8 +246,9 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(dev)
 
     return Int8Weights(
-        inv_sx=inv_sx,
-        w1=t(qm.w1p, np.int8), m1=t(qm.m1, np.int32), o1=t(qm.o1, np.int32),
+        inv_sx=inv_sx, c2=valid_c2,
+        w1=t(qm.w1p, np.int8), w1e=t(expand_conv1_weights(qm.w1p), np.int8),
+        m1=t(qm.m1, np.int32), o1=t(qm.o1, np.int32),
         w2t=t(w2t, np.int8), m2=t(qm.m2, np.int32), o2=t(qm.o2, np.int32),
         w2l=t(qm.w2p, np.int8),
         w3t=t(np.asarray(qm.w3).T, np.int8),
@@ -175,10 +259,13 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
 
 def load_int8(path: str | None = None,
               device: str | torch.device = "cuda") -> Int8Weights:
-    """Read an ``.npz`` int8 artifact (default: the committed one)."""
+    """Read an int8 artifact: an ``.npz`` file, or a directory holding
+    ``int8.npz`` (what ``quantize`` writes); default: the committed one."""
     path = path or DEFAULT_ARTIFACT
+    if os.path.isdir(path):
+        path = os.path.join(path, ARTIFACT_FILE)
     if not os.path.isfile(path):
         raise FileNotFoundError(
             f"int8 artifact {path!r} not found (an .npz written by "
-            "scripts/export_int8_npz.py)")
+            "scripts/export_int8_npz.py, or a directory written by quantize)")
     return int8_weights_from_numpy(QuantizedModel.from_npz(path), device)

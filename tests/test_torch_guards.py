@@ -136,7 +136,9 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert banned not in src
     sources = _build._sources()
     assert [os.path.basename(s) for s in sources] == [
-        "conv_stage_int8.cu", "conv_stage_int8_v10.cu", "dense_argmax_int8.cu"]
+        "conv_stage_int8.cu", "conv_stage_int8_v10.cu", "conv_stage_int8_v5.cu",
+        "conv_stage_int8_v6.cu", "dense_argmax_int8.cu"]
+    assert [os.path.basename(s) for s in _build._headers()] == ["conv_stage_int8_mma.cuh"]
     for s in sources:
         with open(s) as f:
             cu = f.read()
@@ -144,16 +146,18 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert "Replaces: modulationdetectioncnn_tpu/ops/infer.py::" in cu
 
 
-def test_library_path_tracks_sources(tmp_path, monkeypatch):
-    """The library is named by a hash of the sources: an edit rebuilds."""
+@pytest.mark.parametrize("edited", ["conv_stage_int8.cu", "conv_stage_int8_mma.cuh"])
+def test_library_path_tracks_sources(tmp_path, monkeypatch, edited):
+    """The library is named by a hash of the sources and the headers they
+    include: an edit to either rebuilds."""
     from modulationdetectioncnn_torch.ops import _build
 
-    for s in _build._sources():
+    for s in _build._sources() + _build._headers():
         (tmp_path / os.path.basename(s)).write_bytes(open(s, "rb").read())
     monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
     before = _build.library_path()
     assert os.path.dirname(before) == _build.BUILD_DIR
-    with open(tmp_path / "conv_stage_int8.cu", "a") as f:
+    with open(tmp_path / edited, "a") as f:
         f.write("\n// edit\n")
     assert _build.library_path() != before
 
@@ -169,6 +173,19 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         infer.dense_argmax_int8(torch.zeros((1, 9920), dtype=torch.int8,
                                             device="meta"), qw)
+    planes = torch.zeros((1, 8, 128), dtype=torch.int8, device="meta")
+    frames = torch.zeros((1, 2, 128), device="meta")
+    for stage in (infer.conv_stage_int8_v5, infer.conv_stage_int8_v6,
+                  infer.conv_stage_int8_v4):
+        good = frames if stage is infer.conv_stage_int8_v5 else planes
+        with pytest.raises(ValueError, match="unsupported device"):
+            stage(good, qw)
+        bad = planes if stage is infer.conv_stage_int8_v5 else frames
+        with pytest.raises(ValueError, match="expected"):
+            stage(bad, qw)
+    with pytest.raises(ValueError, match="expected"):
+        infer.conv_stage_int8_v6(torch.zeros((1, 8, 64), dtype=torch.int8,
+                                             device="meta"), qw)
 
 
 BENCH_BLOCKED_RUN = r"""
@@ -246,3 +263,55 @@ def test_build_compiles_each_source_in_its_own_nvcc_then_links(tmp_path, monkeyp
     assert sorted(os.listdir(tmp_path / "build")) == [os.path.basename(res["path"])]
     assert _build.build()["seconds"] == 0.0          # reused, not rebuilt
     assert len(log.read_text().splitlines()) == len(calls)
+
+
+EVAL_BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from modulationdetectioncnn_torch import cli
+import modulationdetectioncnn_torch.data.radioml, modulationdetectioncnn_torch.eval.harness
+import modulationdetectioncnn_torch.golden.cnn, modulationdetectioncnn_torch.ops.infer_xla
+tiny = ["device=cpu", "data.frames_per_class_per_snr=1", "data.snr_db_min=0",
+        "data.snr_db_max=18", "data.snr_db_step=18", "eval.batch_size=16",
+        "eval.results_path={tmp}/r.json", "train.checkpoint_dir={ckpt}"]
+for backend in ("int8", "flax", "golden"):
+    assert cli.main(["eval", "eval.backend=" + backend, "eval.int8_kernel=v5", *tiny]) == 0
+assert cli.main(["quantize", "quant.calib_frames=33", *tiny]) == 0
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_eval_and_quantize_run_with_jax_blocked(tmp_path):
+    """eval (int8, flax, golden), quantize and their modules run with every
+    JAX module blocked; quantize writes <checkpoint_dir>_int8."""
+    ckpt = tmp_path / "ck"
+    os.makedirs(ckpt / "96000")
+    os.symlink(os.path.join(PORT, "assets", "ckpt_rml11_r5", "96000", "params.npz"),
+               ckpt / "96000" / "params.npz")
+    code = EVAL_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO, tmp=tmp_path, ckpt=ckpt)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+    assert os.path.isfile(tmp_path / "ck_int8" / "int8.npz")
+
+
+@pytest.mark.parametrize("argv", [["eval", "eval.backend=int8", "eval.int8_kernel=v5"],
+                                  ["quantize", "train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5"]],
+                         ids=["eval", "quantize"])
+def test_eval_and_quantize_raise_without_cuda(argv):
+    """Neither command runs on the CPU unless device=cpu is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the command would run on it")
+    from modulationdetectioncnn_torch import cli
+
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        cli.main(argv)
+    proc = subprocess.run([sys.executable, "-m", "modulationdetectioncnn_torch", *argv],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode != 0
+    assert "device=cpu" in proc.stderr
+    assert not proc.stdout.strip()

@@ -151,7 +151,7 @@ def test_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
     assert tinfer.dense_argmax_int8.launches == 0
 
 
-@pytest.mark.parametrize("version", ["v3", "v5", "bf16"])
+@pytest.mark.parametrize("version", ["v3", "v2", "bf16"])
 def test_unported_versions_raise(qw, version):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tinfer.make_int8_predict(qw, version)
@@ -260,4 +260,6 @@ def test_folded_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
         np.testing.assert_array_equal(stage(x, qw).numpy(), want)
     assert tinfer.launch_counts() == {
         "conv_stage_int8_v7": 0, "conv_stage_int8_v9": 0,
-        "conv_stage_int8_v10": 0, "dense_argmax_int8": 0}
+        "conv_stage_int8_v10": 0, "conv_stage_int8_v5": 0,
+        "conv_stage_int8_v6": 0, "conv_stage_int8_v4": 0,
+        "dense_argmax_int8": 0}
