@@ -12,38 +12,53 @@ Phases, each printing JSON lines (``"phase": ...``):
 2. build    -- compiles ``modulationdetectioncnn_torch/csrc/*.cu`` with nvcc
                for sm_90a (one nvcc per source, in parallel, then one link)
                and loads the library; build seconds and ptxas's report.
-3. kernels  -- each of the seven kernels against its plain PyTorch version
-               on the card, for five weight sets (the committed int8
+3. kernels  -- each of the ten int8 kernels against its plain PyTorch
+               version on the card, for five weight sets (the committed int8
                artifact, seeded random weights, the bench's own PTQ
                weights, a narrow model padded to the kernels' widths, and
-               a model the v9/v10 fold refuses, which runs on v7, v5, v6
-               and v4 only), on 8192 seeded frames, on the stream demo's
-               1024 frames, at B=1, on a ragged 37-frame slice and on the
-               bench's 4096 frames: 0 mismatching int8 activations over
-               the whole valid map and 0 mismatching labels, and every
-               version giving the same labels. Times at B=4096 (CUDA
-               events around runs of back-to-back launches, median of 5
-               runs), the plain version's, one torch call on the kernel's
-               largest product as a yardstick, and the least time the card
-               could take (bound).
-4. stream   -- ``run_stream_demo`` on cuda with the default StreamConfig and
-               the committed artifact, once with the default v7 classifier
-               and once with ``eval.int8_kernel=v10``, launch counters zeroed
-               just before each: subbands 1/5/11 must read BPSK/QPSK/GFSK,
-               streamed labels must equal whole-stream labels, the path's
-               kernels must have launched, and the labels must agree with
-               the CPU plain path.
+               a model the v9/v10 fold refuses, which runs on v7, v5, v6,
+               v4, v3 and v2 only), on 8192 seeded frames, on the stream
+               demo's 1024 frames, at B=1, on a ragged 37-frame slice and on
+               the bench's 4096 frames: 0 mismatching int8 activations over
+               the whole valid map, 0 mismatching logits (v2's dense stage)
+               and 0 mismatching labels, and every version giving the same
+               labels. The timing FIR against its plain version on the
+               stream bench's 4096 normalized frames with their own timing
+               estimates, on the demo's 1024 frames, at B=1, on a ragged
+               37-frame slice and at the wrap extremes of tau: 0 differing
+               floats. Times at the bench's sizes (CUDA events around runs
+               of back-to-back launches, median of 5 runs), the plain
+               version's, one torch call on the kernel's largest product as
+               a yardstick, and the least time the card could take (bound);
+               each kernel's device time from torch.profiler beside them
+               (the timing FIR's "ms": its launches are shorter than the
+               host's time to issue them).
+4. stream   -- ``run_stream_demo`` on cuda with the committed artifact,
+               launch counters zeroed just before each run: the default
+               StreamConfig with the default v7 classifier, with
+               ``eval.int8_kernel=v10`` and with ``eval.int8_kernel=v3``
+               (subbands 1/5/11 must read BPSK/QPSK/GFSK); then
+               ``stream.normalize_timing=true``, and the resampler with
+               timing (``stream.resample_up=1 stream.resample_down=2
+               stream.normalize_timing=true``), whose moved carriers are
+               reported, not checked. Every run: streamed labels equal
+               whole-stream labels, the path's kernels launched (the timing
+               FIR where timing is on), and the labels agree with the CPU
+               plain path.
 5. bench    -- the port's bench (``modulationdetectioncnn_torch.bench``) at
                its defaults: cnn mode at B=4096 with calibration over v7 and
-               v10 and the stream_extra line; then stream mode; then the v9
-               backend named explicitly. Counters zeroed before each run.
+               v10 and the stream_extra line; then stream mode, and stream
+               mode with ``stream.normalize_timing=true``; then the v9, v3
+               and v2 (``pallas_int8``) backends named explicitly. Counters
+               zeroed before each run.
                Its stdout and stderr lines are printed as they came; the
                contract keys, ``fallback`` false, the winner among the
                candidates, every kernel of each run launched, and no
                ``stream_extra_error`` are required.
-6. eval     -- ``eval eval.backend=int8`` with each of v5, v6, v4, v7 and v10
+6. eval     -- ``eval eval.backend=int8`` with each of v5, v6, v4, v7, v10, v3
+               and v2
                on 3520 frames (16 per class at 20 SNRs), counters zeroed
-               before each: the version's conv kernel and the dense kernel
+               before each: the version's conv kernel and its dense kernel
                launched and nothing else, the labels that run returned equal
                to the plain chain's, and results equal across versions (run
                through ``cli.cmd_eval``, which returns the labels; the
@@ -81,9 +96,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096          # the bench batch of the JAX package (BenchConfig)
 N_CHECK = 8192        # seeded frames held against the plain versions
 SEED = 0
-# Dense peaks from NVIDIA's data sheets: (int8 ops/s, bytes/s).
-PEAKS = {"SXM": (1979e12, 3.35e12), "PCIe": (1513e12, 2.0e12),
-         "NVL": (1671e12, 3.9e12)}
+# Dense peaks from NVIDIA's data sheets: (int8 ops/s, bytes/s, float32
+# FLOP/s outside the tensor cores).
+PEAKS = {"SXM": (1979e12, 3.35e12, 67e12), "PCIe": (1513e12, 2.0e12, 51e12),
+         "NVL": (1671e12, 3.9e12, 60e12)}
 TPU_KERNELS = {
     "conv_stage_int8_v7": "modulationdetectioncnn_tpu/ops/infer.py:1676",
     "dense_argmax_int8": "modulationdetectioncnn_tpu/ops/infer.py:631",
@@ -92,6 +108,10 @@ TPU_KERNELS = {
     "conv_stage_int8_v5": "modulationdetectioncnn_tpu/ops/infer.py:1515",
     "conv_stage_int8_v6": "modulationdetectioncnn_tpu/ops/infer.py:906",
     "conv_stage_int8_v4": "modulationdetectioncnn_tpu/ops/infer.py:780",
+    "conv_stage_int8_v3": "modulationdetectioncnn_tpu/ops/infer.py:600",
+    "conv_stage_int8_v2": "modulationdetectioncnn_tpu/ops/infer.py:459",
+    "dense_int8": "modulationdetectioncnn_tpu/ops/infer.py:342",
+    "correct_timing_fir": "modulationdetectioncnn_tpu/dsp/normalize.py:189",
 }
 _CSRC = "modulationdetectioncnn_torch/csrc/"
 SOURCES = {
@@ -102,11 +122,28 @@ SOURCES = {
     "conv_stage_int8_v5": _CSRC + "conv_stage_int8_v5.cu",
     "conv_stage_int8_v6": _CSRC + "conv_stage_int8_v6.cu",
     "conv_stage_int8_v4": _CSRC + "conv_stage_int8_v6.cu",
+    "conv_stage_int8_v3": _CSRC + "conv_stage_int8_v3.cu",
+    "conv_stage_int8_v2": _CSRC + "conv_stage_int8_v3.cu",
+    "dense_int8": _CSRC + "dense_argmax_int8.cu",
+    "correct_timing_fir": _CSRC + "correct_timing.cu",
 }
-CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4")
-INTEGER_VERSIONS = ("v7", "v5", "v6", "v4")     # no bf16 fold
-EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10")
-EVAL_PATH = ("v5", "v6", "v4")                  # this slice's kernels
+# The kernel each wrapper launches, as the profiler names it.
+KERNEL_SYMBOLS = {
+    "conv_stage_int8_v7": "conv_stage_int8_v7_kernel",
+    "dense_argmax_int8": "dense_argmax_int8_kernel<true>",
+    "conv_stage_int8_v10": "conv_stage_folded_kernel<true>",
+    "conv_stage_int8_v9": "conv_stage_folded_kernel<false>",
+    "conv_stage_int8_v5": "conv_stage_int8_v5_kernel",
+    "conv_stage_int8_v6": "conv_stage_int8_planes_kernel<true>",
+    "conv_stage_int8_v4": "conv_stage_int8_planes_kernel<false>",
+    "conv_stage_int8_v3": "conv_stage_int8_rows_kernel<true>",
+    "conv_stage_int8_v2": "conv_stage_int8_rows_kernel<false>",
+    "dense_int8": "dense_argmax_int8_kernel<false>",
+}
+CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2")
+INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2")   # no bf16 fold
+EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2")
+EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # The eval phase's dataset: 16 frames per class at each of the 20 SNRs.
 EVAL_DATA = ("data.frames_per_class_per_snr=16",)
 FLOAT_CKPT = os.path.join(REPO, "modulationdetectioncnn_torch", "assets", "ckpt_rml11_r5")
@@ -126,7 +163,7 @@ def require(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def peaks_for(name: str) -> tuple[str, float, float]:
+def peaks_for(name: str) -> tuple[str, float, float, float]:
     part = "PCIe" if "PCIe" in name else "NVL" if "NVL" in name else "SXM"
     return (part, *PEAKS[part])
 
@@ -152,17 +189,40 @@ def time_ms(fn, iters: int, warmup: int = 3, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
+    """The mean device time per launch of the CUDA kernel whose name holds
+    ``kernel``, from ``torch.profiler`` over ``iters`` calls of ``fn`` after
+    a warm-up: the kernel's own time, which ``time_ms`` cannot see when the
+    host takes longer to issue a launch than the card to run it. None when
+    the profiler shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if kernel in e.key and e.self_device_time_total > 0]
+    if len(ev) != 1 or ev[0].count != iters:
+        return None
+    return ev[0].self_device_time_total / ev[0].count / 1e3
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    part, int8_peak, bw_peak = peaks_for(name)
+    part, int8_peak, bw_peak, f32_peak = peaks_for(name)
     info = {"phase": "device", "name": name, "nvidia_smi": smi,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "peaks_part": part,
-            "int8_ops_per_s": int8_peak, "bytes_per_s": bw_peak}
+            "int8_ops_per_s": int8_peak, "bytes_per_s": bw_peak,
+            "f32_flops_per_s": f32_peak}
     emit(info)
     return info
 
@@ -220,30 +280,111 @@ def fold_refused_weights(art):
     return int8_weights_from_numpy(tree, "cuda")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from modulationdetectioncnn_torch.dsp import normalize
+    from modulationdetectioncnn_torch.ops import infer
+
+    infer.reset_launch_counts()
+    normalize.correct_timing_fir.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    from modulationdetectioncnn_torch.dsp import normalize
+    from modulationdetectioncnn_torch.ops import infer
+
+    return {**infer.launch_counts(),
+            "correct_timing_fir": normalize.correct_timing_fir.launches}
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[int, float]:
+    """(mismatching elements, largest absolute difference); floats are equal
+    when their values are (NaN equal to NaN), integers exactly."""
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    if got.is_floating_point():
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        diff = torch.where(same, 0.0, (got.double() - want.double()).abs())
+        return int((~same).sum()), float(diff.max()) if diff.numel() else 0.0
     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
 def conv_pairs(x: torch.Tensor, qw, versions) -> dict:
     """{kernel name: (its wrapper's valid map, its plain version's valid
-    map)} on the same inputs (frames, or their tap planes for v4/v6)."""
+    map)} on the same inputs (frames, their tap planes for v4/v6, or their
+    tap rows for v3/v2)."""
     from modulationdetectioncnn_torch.ops import infer
 
     planes = infer.tap_planes(x, qw.inv_sx)
+    rows = infer.expand_taps(x, qw.inv_sx)
     plain = {"v7": lambda: infer.conv_stage_int8_v7_plain(x, qw),
              "v9": lambda: infer.conv_stage_int8_folded_plain(x, qw),
              "v5": lambda: infer.conv_stage_int8_v5_plain(x, qw),
-             "v6": lambda: infer.conv_stage_int8_planes_plain(planes, qw)}
-    plain["v10"], plain["v4"] = plain["v9"], plain["v6"]
+             "v6": lambda: infer.conv_stage_int8_planes_plain(planes, qw),
+             "v3": lambda: infer.conv_stage_int8_taps_plain(rows, qw)}
+    plain["v10"], plain["v4"], plain["v2"] = plain["v9"], plain["v6"], plain["v3"]
     out = {}
     for v in versions:
         stage = getattr(infer, f"conv_stage_int8_{v}")
-        got = stage(planes if v in ("v6", "v4") else x, qw)
-        out[stage.__name__] = (got, plain[v]()[..., :qw.c2])
+        inp = planes if v in ("v6", "v4") else rows if v in ("v3", "v2") else x
+        out[stage.__name__] = (stage(inp, qw), plain[v]()[..., :qw.c2])
     return out
+
+
+def stream_bench_frames(n_frames: int) -> torch.Tensor:
+    """The stream bench's normalized frames (power and CFO, the default
+    StreamConfig) from its seeded wideband input of ``n_frames * 128``
+    samples, on the card: (n_frames, 2, 128)."""
+    from modulationdetectioncnn_torch.config import StreamConfig
+    from modulationdetectioncnn_torch.dsp import pipeline
+    from modulationdetectioncnn_torch.dsp.channelizer import design_prototype
+
+    sc = StreamConfig()
+    wide = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, n_frames * sc.frame_len)).astype(np.float32)).cuda()
+    fr = pipeline.subband_frames(
+        wide, design_prototype(sc.num_subbands, sc.taps_per_branch), sc)
+    return fr.reshape(-1, 2, sc.frame_len).contiguous()
+
+
+def timing_checks(demo: torch.Tensor, stream4096: torch.Tensor) -> tuple[list, dict]:
+    """The timing FIR against its plain version: on frames with their own
+    Oerder & Meyr estimates (the stream bench's 4096, the demo's 1024, B=1
+    and a ragged 37-frame slice), and on seeded frames at the wrap extremes
+    of tau. Returns the check lines and the kernel's stats."""
+    from modulationdetectioncnn_torch.config import StreamConfig
+    from modulationdetectioncnn_torch.dsp import normalize
+
+    sc = StreamConfig()
+    x_seed = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (16, 2, 128)).astype(np.float32)).cuda()
+    # Both ends of the wrap to [-sps/2, sps/2), the rounding boundaries of
+    # tau_c * 32 next to them (x.5 goes to even), and 0.
+    eps = np.float32(1e-6)
+    tau_ext = torch.tensor([-4.0, -4.0 + eps, 4.0 - eps, 4.0, 0.0, -eps, 8.0 - eps,
+                            8.0, 12.0, -3.984375, 3.984375, 0.015625, -0.015625,
+                            4.015625, 7.984375, 0.046875], dtype=torch.float32).cuda()
+    cases = {"stream_bench_b4096": (stream4096, None), "stream_demo_b1024": (demo, None),
+             "stream_bench_b1": (stream4096[:1], None),
+             "stream_bench_b37_at3": (stream4096[3:40], None),
+             "seeded_b16_tau_extremes": (x_seed, tau_ext)}
+    checks, st = [], {"mismatches": 0, "max_abs_err": 0.0, "checked": 0}
+    for name, (x, tau) in cases.items():
+        tau = normalize.estimate_timing(x, sc.sps) if tau is None else tau
+        c = normalize.timing_filters(tau, sc.sps, sc.timing_phases)
+        got = normalize.correct_timing_fir(x, c)
+        want = normalize.correct_timing_fir_plain(x, c)
+        torch.cuda.synchronize()
+        mism, err = compare(name, got, want)
+        st["mismatches"] += mism
+        st["checked"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        checks.append({"kernel": "correct_timing_fir", "input": name,
+                       "n": int(x.shape[0]), "mismatches": mism,
+                       "finite": bool(torch.isfinite(got).all())})
+        require(bool(torch.isfinite(got).all()), f"timing FIR {name}: non-finite output")
+    return checks, st
 
 
 def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
@@ -283,6 +424,8 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
             lab_p = infer.dense_argmax_int8_plain(conv_full, qw)
             pairs = conv_pairs(x, qw, versions)
             pairs["dense_argmax_int8"] = (infer.dense_argmax_int8(conv_full, qw), lab_p)
+            pairs["dense_int8"] = (infer.dense_int8(conv_full, qw),
+                                   infer.dense_int8_plain(conv_full, qw))
             labels = {v: infer.make_int8_predict(qw, v)(x) for v in versions}
             torch.cuda.synchronize()
             for kname, (got, want) in pairs.items():
@@ -297,7 +440,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
             # every plain version's map equal to the integer spec's.
             label_mism = {v: compare(v, lab, lab_p)[0] for v, lab in labels.items()}
             plain_mism = {k: compare(k, want, conv_full[..., :qw.c2])[0]
-                          for k, (_, want) in pairs.items() if k != "dense_argmax_int8"}
+                          for k, (_, want) in pairs.items() if not k.startswith("dense")}
             checks.append({"weights": wname, "input": xname,
                            "label_mismatches_vs_plain": label_mism,
                            "plain_maps_vs_integer_spec": plain_mism,
@@ -307,6 +450,9 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                     and all(m == 0 for m in plain_mism.values()),
                     f"{wname}/{xname}: labels differ {label_mism}, "
                     f"plain maps vs the integer spec {plain_mism}")
+    timing_rows, stats["correct_timing_fir"] = timing_checks(
+        demo_frames, stream_bench_frames(BATCH))
+    checks += timing_rows
     for c in checks:
         emit({"phase": "kernels.check", **c})
     for kname, s in stats.items():
@@ -318,6 +464,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     b = BATCH
     x = x_seed[:b]
     planes = infer.tap_planes(x, qw.inv_sx)
+    tap_rows = infer.expand_taps(x, qw.inv_sx)
     a1 = infer.conv1_int8_plain(x, qw)
     a1f = a1.reshape(-1, 512)                                    # (B*126, 512)
     conv = infer.conv_stage_int8_v7_plain(x, qw)
@@ -332,10 +479,13 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # model), so they share one count of operations: the function's int8
     # MACs (conv1 126*512*3 and conv2 124*80*1536 per frame, not the folded
     # form's padded lanes). Bytes: each input read once (frames, or v4/v6's
-    # tap planes), the map written once, the weights the stage reads.
+    # tap planes, v3/v2's tap rows), the map written once, the weights the
+    # stage reads.
     conv_ops = 2 * b * (126 * 512 * 3 + 124 * 80 * 1536)
     conv_out = b * 124 * 80
-    frames_in, planes_in = nbytes(x), nbytes(planes)
+    frames_in, planes_in, rows_in = nbytes(x), nbytes(planes), nbytes(tap_rows)
+    dense_ops = 2 * b * (9920 * 256 + 256 * 11)
+    dense_w = nbytes(qw.w3t, qw.m3, qw.o3, qw.w4, qw.s4, qw.b4)
     w_v7 = nbytes(qw.w1, qw.m1, qw.o1, qw.w2t, qw.m2, qw.o2)
     w_int = nbytes(qw.w1e, qw.m1, qw.o1, qw.w2l, qw.m2, qw.o2)
     w_fold = nbytes(qw.w1f, qw.w2l, qw.m2, qw.o2)
@@ -346,9 +496,10 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         "conv_stage_int8_v5": (conv_ops, frames_in + conv_out + w_int),
         "conv_stage_int8_v6": (conv_ops, planes_in + conv_out + w_int),
         "conv_stage_int8_v4": (conv_ops, planes_in + conv_out + w_int),
-        "dense_argmax_int8": (2 * b * (9920 * 256 + 256 * 11),
-                              b * 9920 + b * 4 + nbytes(qw.w3t, qw.m3, qw.o3, qw.w4,
-                                                        qw.s4, qw.b4)),
+        "conv_stage_int8_v3": (conv_ops, rows_in + conv_out + w_int),
+        "conv_stage_int8_v2": (conv_ops, rows_in + conv_out + w_int),
+        "dense_argmax_int8": (dense_ops, b * 9920 + b * 4 + dense_w),
+        "dense_int8": (dense_ops, b * 9920 + b * 11 * 4 + dense_w),
     }
     int8_peak, bw_peak = dev_info["int8_ops_per_s"], dev_info["bytes_per_s"]
 
@@ -359,10 +510,11 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
 
     lane_packed = (lambda: torch._int_mm(a1f, w2l_cm),
                    "torch._int_mm, conv2 lane-packed (B*126, 512) x (512, 240)")
+    im2col_mm = (lambda: torch._int_mm(im2col, qw.w2t.T), "torch._int_mm, conv2 im2col "
+                 "(B*124, 1536) x (1536, 80)")
     plans = (
         ("conv_stage_int8_v7", infer.conv_stage_int8_v7, infer.conv_stage_int8_v7_plain,
-         lambda: torch._int_mm(im2col, qw.w2t.T), "torch._int_mm, conv2 im2col "
-         "(B*124, 1536) x (1536, 80)", x),
+         *im2col_mm, x),
         ("dense_argmax_int8", infer.dense_argmax_int8, infer.dense_argmax_int8_plain,
          lambda: torch._int_mm(h, qw.w3t.T), "torch._int_mm, dense1 (B, 9920) x "
          "(9920, 256)", h),
@@ -376,10 +528,18 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
          infer.conv_stage_int8_planes_plain, *lane_packed, planes),
         ("conv_stage_int8_v4", infer.conv_stage_int8_v4,
          infer.conv_stage_int8_planes_plain, *lane_packed, planes),
+        ("conv_stage_int8_v3", infer.conv_stage_int8_v3,
+         infer.conv_stage_int8_taps_plain, *im2col_mm, tap_rows),
+        ("conv_stage_int8_v2", infer.conv_stage_int8_v2,
+         infer.conv_stage_int8_taps_plain, *im2col_mm, tap_rows),
+        ("dense_int8", infer.dense_int8, infer.dense_int8_plain,
+         lambda: torch._int_mm(h, qw.w3t.T), "torch._int_mm, dense1 (B, 9920) x "
+         "(9920, 256)", h),
     )
     rows = []
     for kname, kernel, plain, lib, lib_what, arg in plans:
         ms = time_ms(lambda: kernel(arg, qw), iters=20)
+        dev_ms = device_ms(lambda: kernel(arg, qw), KERNEL_SYMBOLS[kname])
         plain_ms = time_ms(lambda: plain(arg, qw), iters=2, warmup=1, reps=3)
         library_ms = time_ms(lib, iters=20)
         int8_ops, nb = work[kname]
@@ -388,40 +548,87 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                      "replaces": TPU_KERNELS[kname], "launches": None,
                      "max_abs_err": stats[kname]["max_abs_err"],
                      "mismatches": stats[kname]["mismatches"],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bms,
                      "bound_by": by, "library_ms": library_ms,
                      "library_call": lib_what, "batch": b,
                      "int8_ops": int8_ops, "bytes": nb})
+    # The timing FIR on the stream bench's 4096 frames with their own
+    # filters. Bytes: the frames read once (unpadded), the filters, the
+    # output written once; operations: 17 multiplies and adds per output
+    # over the float32 peak.
+    import torch.nn.functional as F
+
+    from modulationdetectioncnn_torch.config import StreamConfig
+    from modulationdetectioncnn_torch.dsp import normalize
+
+    sc = StreamConfig()
+    xt = stream_bench_frames(b)
+    ct = normalize.timing_filters(normalize.estimate_timing(xt, sc.sps), sc.sps,
+                                  sc.timing_phases)
+    taps = ct.shape[1]
+    xpad = F.pad(xt, ((taps - 1) // 2, (taps - 1) // 2))
+    c4 = ct[:, None, :, None]
+    t_ops, t_bytes = 2 * taps * xt.numel(), 2 * nbytes(xt) + nbytes(ct)
+    t_bound = max(t_ops / dev_info["f32_flops_per_s"], t_bytes / bw_peak) * 1e3
+    # A launch of this kernel is shorter than the host's time to issue one
+    # through the wrapper, so back-to-back CUDA events time the host: its
+    # "ms" is the profiler's device time, the events' time is reported too.
+    fir = lambda: normalize.correct_timing_fir(xt, ct)  # noqa: E731
+    events_ms = time_ms(fir, iters=20)
+    kernel_ms = device_ms(fir, "correct_timing_fir_kernel")
+    rows.append({"name": "correct_timing_fir", "route": "cuda",
+                 "source": SOURCES["correct_timing_fir"],
+                 "replaces": TPU_KERNELS["correct_timing_fir"], "launches": None,
+                 "max_abs_err": stats["correct_timing_fir"]["max_abs_err"],
+                 "mismatches": stats["correct_timing_fir"]["mismatches"],
+                 "ms": kernel_ms if kernel_ms is not None else events_ms,
+                 "ms_from": "profiler" if kernel_ms is not None else "cuda_events",
+                 "events_ms": events_ms,
+                 "plain_ms": time_ms(lambda: normalize.correct_timing_fir_plain(xt, ct),
+                                     iters=20),
+                 "bound_ms": t_bound,
+                 "bound_by": ("operations" if t_ops / dev_info["f32_flops_per_s"]
+                              >= t_bytes / bw_peak else "bytes"),
+                 "library_ms": time_ms(lambda: torch.matmul(xpad.unfold(-1, taps, 1), c4),
+                                       iters=20),
+                 "library_call": "torch.matmul, (B, 2, 128, 17) unfolded frames x "
+                                 "(B, 1, 17, 1) filters",
+                 "batch": b, "f32_ops": t_ops, "bytes": t_bytes})
     prologue_ms = time_ms(lambda: infer.tap_planes(x, qw.inv_sx), iters=20)
+    rows_ms = time_ms(lambda: infer.expand_taps(x, qw.inv_sx), iters=20)
+    filters_ms = time_ms(lambda: normalize.timing_filters(
+        normalize.estimate_timing(xt, sc.sps), sc.sps, sc.timing_phases), iters=20)
     emit({"phase": "kernels", "timed": rows,
-          "tap_planes_prologue_ms": prologue_ms})
+          "tap_planes_prologue_ms": prologue_ms, "expand_taps_prologue_ms": rows_ms,
+          "timing_estimate_and_filters_ms": filters_ms})
     return rows
 
 
-def phase_stream(kernel: str) -> dict[str, int]:
-    """The stream demo on cuda through the ``kernel`` classifier; returns
-    the launch counts of that run."""
-    import dataclasses
+def phase_stream(name: str, overrides: list[str], path: tuple[str, ...],
+                 check_tops: bool = True) -> dict[str, int]:
+    """The stream demo on cuda with ``overrides`` (the committed artifact);
+    returns the launch counts of that run. With ``check_tops`` the occupied
+    subbands must read the demo's modulations and equal the CPU's labels
+    exactly; a resampled stream moves the carriers, so there they are
+    reported only."""
     from collections import Counter
 
-    from modulationdetectioncnn_torch.config import AmcConfig, RML_CLASSES
+    from modulationdetectioncnn_torch.config import AmcConfig, RML_CLASSES, apply_overrides
     from modulationdetectioncnn_torch.dsp import framer, pipeline
-    from modulationdetectioncnn_torch.ops import infer
 
-    base = AmcConfig()                     # default StreamConfig, device=cuda
-    cfg = dataclasses.replace(base, eval=dataclasses.replace(base.eval,
-                                                             int8_kernel=kernel))
-    infer.reset_launch_counts()
+    cfg = apply_overrides(AmcConfig(), overrides)          # device=cuda
+    reset_counts()
     t0 = time.perf_counter()
     labels = pipeline.run_stream_demo(cfg)
     wall = time.perf_counter() - t0
-    launches = infer.launch_counts()
+    launches = launch_counts()
 
     wide, occupied = pipeline.make_demo_signal(cfg)
     predict = pipeline._make_predictor(cfg)
     batch = pipeline.classify_stream(framer.to_planes(wide, "cuda"), predict,
                                      cfg.stream).cpu().numpy()
-    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    cpu_cfg = apply_overrides(cfg, ["device=cpu"])
     cpu = pipeline.classify_stream_blocked(
         framer.to_planes(wide, "cpu"), pipeline._make_predictor(cpu_cfg),
         cpu_cfg.stream).numpy()
@@ -429,22 +636,26 @@ def phase_stream(kernel: str) -> dict[str, int]:
             for k in occupied}
     occ = sorted(occupied)
     agree_cpu = float((cpu == labels).mean())
-    emit({"phase": "stream", "int8_kernel": kernel, "frames": int(labels.size),
-          "shape": list(labels.shape), "wall_s": wall, "tops": tops,
-          "launches": launches,
+    emit({"phase": "stream", "run": name, "overrides": overrides,
+          "frames": int(labels.size), "shape": list(labels.shape), "wall_s": wall,
+          "tops": tops, "launches": launches,
           "streamed_equals_batch": bool(np.array_equal(labels, batch[:, :labels.shape[1]])),
           "agreement_with_cpu_plain": agree_cpu,
           "occupied_equal_cpu_plain": bool(np.array_equal(labels[occ], cpu[occ]))})
-    require(tops == occupied, f"occupied subbands read {tops}, want {occupied}")
     require(labels.shape[1] == batch.shape[1]
-            and np.array_equal(labels, batch), "streamed labels != whole-stream labels")
-    path = (f"conv_stage_int8_{kernel}", "dense_argmax_int8")
-    require(all(launches[k] > 0 for k in path), f"kernel not launched: {launches}")
+            and np.array_equal(labels, batch), f"stream {name}: streamed labels "
+            "!= whole-stream labels")
+    require(all(launches[k] > 0 for k in path),
+            f"stream {name}: kernel not launched: {launches}")
     # CPU and GPU DSP floats differ in the last bits (matmul order), which
     # can flip CFO's argmax on noise-only frames: >= 99 % overall, exact on
-    # the occupied subbands.
-    require(np.array_equal(labels[occ], cpu[occ]), "occupied subbands differ from CPU")
-    require(agree_cpu >= 0.99, f"agreement with CPU plain path {agree_cpu}")
+    # the occupied subbands of the unresampled demo.
+    require(agree_cpu >= 0.99, f"stream {name}: agreement with CPU plain path {agree_cpu}")
+    if check_tops:
+        require(tops == occupied, f"stream {name}: occupied subbands read {tops}, "
+                f"want {occupied}")
+        require(np.array_equal(labels[occ], cpu[occ]),
+                f"stream {name}: occupied subbands differ from CPU")
     return launches
 
 
@@ -454,15 +665,14 @@ def run_bench(name: str, argv: list[str], path: tuple[str, ...]) -> tuple[dict, 
     line of its own, and requires every kernel of ``path`` launched.
     Returns the contract line, the stderr JSON lines and the counts."""
     from modulationdetectioncnn_torch import bench
-    from modulationdetectioncnn_torch.ops import infer
 
     out, err = io.StringIO(), io.StringIO()
-    infer.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = bench.main(argv)
     wall = time.perf_counter() - t0
-    launches = infer.launch_counts()
+    launches = launch_counts()
     out_lines = out.getvalue().strip().splitlines()
     err_lines = err.getvalue().strip().splitlines()
     for line in out_lines + err_lines:
@@ -483,8 +693,9 @@ def run_bench(name: str, argv: list[str], path: tuple[str, ...]) -> tuple[dict, 
 
 
 def phase_bench() -> dict[str, int]:
-    """The bench path: cnn mode at the defaults, stream mode, and v9 named
-    explicitly. Returns the v9 and v10 launch counts on it."""
+    """The bench path: cnn mode at the defaults, stream mode with timing
+    correction off (the default) and on, and v9, v3 and v2 (``pallas_int8``)
+    named explicitly. Returns the v9 and v10 launch counts on it."""
     from modulationdetectioncnn_torch.config import BenchConfig
 
     cands = BenchConfig().calibration_candidates
@@ -501,9 +712,17 @@ def phase_bench() -> dict[str, int]:
                           ("conv_stage_int8_v7", "dense_argmax_int8"))
     require(res["metric"] == "streamed_iq_samples_per_sec_per_chip",
             f"bench stream: {res}")
+    res, _, _ = run_bench("stream_timing", ["stream", "stream.normalize_timing=true"],
+                          ("conv_stage_int8_v7", "dense_argmax_int8", "correct_timing_fir"))
+    require(res["metric"] == "streamed_iq_samples_per_sec_per_chip",
+            f"bench stream timing: {res}")
     res, _, v9 = run_bench("v9", ["pallas_int8_v9", "bench.stream_extra=false"],
                            ("conv_stage_int8_v9", "dense_argmax_int8"))
     require(res["backend"] == "pallas_int8_v9", f"bench v9: {res}")
+    for backend, path in (("pallas_int8_v3", ("conv_stage_int8_v3", "dense_argmax_int8")),
+                          ("pallas_int8", ("conv_stage_int8_v2", "dense_int8"))):
+        res, _, _ = run_bench(backend, [backend, "bench.stream_extra=false"], path)
+        require(res["backend"] == backend, f"bench {backend}: {res}")
     return {"conv_stage_int8_v10": cnn["conv_stage_int8_v10"],
             "conv_stage_int8_v9": v9["conv_stage_int8_v9"]}
 
@@ -568,7 +787,8 @@ def phase_eval(tmp: str) -> dict[str, int]:
     and read just after; the labels that run returns must be identical
     across versions and equal to the plain chain's. Then the flax and golden
     backends on the exported float checkpoint, with their label agreement.
-    Returns the launch counts of the v5/v6/v4 runs."""
+    Returns the launch counts of the v5/v6/v4/v3/v2 runs (v2's dense stage
+    is the logits kernel)."""
     from modulationdetectioncnn_torch import cli
     from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
     from modulationdetectioncnn_torch.ops import infer
@@ -577,12 +797,12 @@ def phase_eval(tmp: str) -> dict[str, int]:
     def run_eval(overrides: list[str]) -> tuple[dict, np.ndarray, dict, float]:
         cfg = apply_overrides(AmcConfig(), overrides)
         out = io.StringIO()
-        infer.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             result, labels = cli.cmd_eval(cfg)
         wall = time.perf_counter() - t0
-        counts = infer.launch_counts()
+        counts = launch_counts()
         with open(cfg.eval.results_path) as f:
             require(json.load(f) == result, f"eval {overrides}: results file differs")
         require(json.loads(out.getvalue().strip().splitlines()[-1]) == result["headline"],
@@ -605,13 +825,16 @@ def phase_eval(tmp: str) -> dict[str, int]:
               "overall_accuracy": results[v]["overall_accuracy"],
               "label_mismatches_vs_plain": mism})
         kname = f"conv_stage_int8_{v}"
-        require(len(labels) == len(x) and counts[kname] > 0 and counts["dense_argmax_int8"] > 0
-                and sum(counts.values()) == counts[kname] + counts["dense_argmax_int8"],
+        dname = "dense_int8" if v == "v2" else "dense_argmax_int8"
+        require(len(labels) == len(x) and counts[kname] > 0 and counts[dname] > 0
+                and sum(counts.values()) == counts[kname] + counts[dname],
                 f"eval {v}: {len(labels)} labels, launches {counts}")
         require(mism == 0, f"eval {v}: {mism} labels differ from the plain chain")
         require(results[v] == results[EVAL_VERSIONS[0]], f"eval {v}: results differ from v5's")
         if v in EVAL_PATH:
             launches[kname] = counts[kname]
+        if v == "v2":
+            launches[dname] = counts[dname]
 
     # The float backends on a quarter of the frames, in one batch: the
     # golden forward is float64 NumPy on the host.
@@ -668,7 +891,7 @@ def demo_frames() -> torch.Tensor:
     blocks = framer.overlap_save_blocks(framer.to_planes(wide, "cuda"),
                                         sc.block_len, plan.halo_in).transpose(0, 1)
     fr = pipeline.block_frontend(
-        blocks, design_prototype(sc.num_subbands, sc.taps_per_branch), sc, plan)
+        blocks, design_prototype(sc.num_subbands, sc.taps_per_branch), None, sc, plan)
     return fr.reshape(-1, 2, sc.frame_len).contiguous()
 
 
@@ -691,10 +914,22 @@ def main() -> int:
             dev = phase_device()
             phase_build()
             rows = phase_kernels(dev, demo_frames())
-            launches = phase_stream("v7")           # the stream path: v7 + dense
-            phase_stream("v10")
+            int8 = ("dense_argmax_int8",)
+            # The stream path: v7 + dense.
+            launches = phase_stream("v7", [], ("conv_stage_int8_v7", *int8))
+            phase_stream("v10", ["eval.int8_kernel=v10"], ("conv_stage_int8_v10", *int8))
+            phase_stream("v3", ["eval.int8_kernel=v3"], ("conv_stage_int8_v3", *int8))
+            # The stream path with timing correction: the timing FIR.
+            timing = ("conv_stage_int8_v7", *int8, "correct_timing_fir")
+            launches["correct_timing_fir"] = phase_stream(
+                "timing", ["stream.normalize_timing=true"], timing,
+                check_tops=False)["correct_timing_fir"]
+            phase_stream("resample_timing", ["stream.resample_up=1", "stream.resample_down=2",
+                                             "stream.normalize_timing=true"],
+                         timing, check_tops=False)
             launches.update(phase_bench())          # the bench path: v9, v10
-            launches.update(phase_eval(tmp))        # the eval path: v5, v6, v4
+            # The eval path: v5, v6, v4, v3, v2 and v2's dense stage.
+            launches.update(phase_eval(tmp))
             phase_quantize(tmp)
             phase_profile()
         for row in rows:

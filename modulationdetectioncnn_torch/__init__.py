@@ -7,8 +7,9 @@ JAX package -- so it runs on a machine with an NVIDIA H100 and no JAX.
 
 Ported so far (ROADMAP.md lists the rest): the ``stream``, ``bench``,
 ``eval`` and ``quantize`` commands (``python -m modulationdetectioncnn_torch
-<cmd>``). The streaming front end (overlap-save blocks -> polyphase
-channelizer -> framer -> power and CFO normalization) feeds the int8
+<cmd>``). The streaming front end ([rational resampler ->] overlap-save
+blocks -> polyphase channelizer -> framer -> power, CFO [and timing]
+normalization) feeds the int8
 VT-CNN2 classifier, whose fused stages are hand-written CUDA kernels for
 Hopper (``csrc/``) built with ``nvcc`` on first use (``ops/_build.py``);
 ``eval`` sweeps the synthetic RadioML-style dataset with the float model,

@@ -14,8 +14,9 @@ roofline against the H100's data-sheet peaks, and, in cnn mode, the
     python -m modulationdetectioncnn_torch.bench device=cpu bench.batch_size=64
 
 Backends keep the JAX package's names, so an override means the same in
-both packages: ``pallas_int8_v4`` .. ``pallas_int8_v10`` name the port's
-CUDA counterparts of those Pallas classifiers, ``xla_int8`` the int8 chain
+both packages: ``pallas_int8_v3`` .. ``pallas_int8_v10`` name the port's
+CUDA counterparts of those Pallas classifiers, ``pallas_int8`` the v2
+forward's logits and their argmax, ``xla_int8`` the int8 chain
 from library ops (``ops/infer_xla.py``: ``torch._int_mm``, no kernel of the
 port) and ``xla_bf16`` the torch VT-CNN2 in bf16 (cuBLAS/cuDNN). As in the
 JAX package, ``pallas_int8_v5`` is accepted by name but left out of
@@ -41,12 +42,15 @@ from modulationdetectioncnn_torch.device import resolve_device
 
 TARGET_SAMPLES_PER_SEC = 1.0e9  # vs_baseline = value / 1 GS/s
 
+# Backend -> make_int8_predict version ("v2": the argmax of the v2 logits).
 INT8_BACKENDS = {"pallas_int8_v7": "v7", "pallas_int8_v9": "v9",
                  "pallas_int8_v10": "v10", "pallas_int8_v6": "v6",
-                 "pallas_int8_v4": "v4", "pallas_int8_v5": "v5"}
+                 "pallas_int8_v4": "v4", "pallas_int8_v5": "v5",
+                 "pallas_int8_v3": "v3", "pallas_int8": "v2"}
 # The JAX package's list: v5 is accepted by name but not listed.
 BACKENDS = ("pallas_int8_v10", "pallas_int8_v7", "pallas_int8_v9",
-            "pallas_int8_v6", "pallas_int8_v4", "xla_bf16", "xla_int8")
+            "pallas_int8_v6", "pallas_int8_v4", "pallas_int8_v3",
+            "pallas_int8", "xla_bf16", "xla_int8")
 
 
 def device_name(dev: torch.device) -> str:
@@ -201,8 +205,8 @@ def run(cfg: AmcConfig | None = None, quiet: bool = False,
 
 def run_stream_bench(cfg: AmcConfig, quiet: bool = False,
                      backend: str | None = None) -> dict:
-    """The full chain (channelize -> normalize -> frame -> classify) on
-    continuous wideband I/Q, samples/s, chained timing."""
+    """The full chain ([resample ->] channelize -> frame -> normalize ->
+    classify) on continuous wideband I/Q, samples/s, chained timing."""
     from modulationdetectioncnn_torch.dsp import pipeline
     from modulationdetectioncnn_torch.dsp.channelizer import design_prototype
     from modulationdetectioncnn_torch.utils.timing import (
@@ -217,7 +221,7 @@ def run_stream_bench(cfg: AmcConfig, quiet: bool = False,
                          "length (data.frame_len)")
     # Size the wideband block so the classifier sees ~bench.batch_size
     # frames per iteration.
-    align = m * sc.frame_hop
+    align = m * sc.frame_hop * max(sc.resample_down, 1)
     t_len = (cfg.bench.batch_size * sc.frame_len // align) * align
     h = design_prototype(m, sc.taps_per_branch)
     n_frames = pipeline.total_frames(sc, t_len) * m

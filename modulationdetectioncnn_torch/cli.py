@@ -12,7 +12,9 @@ Commands ported so far:
 - ``quantize``: post-training int8 quantization of the checkpoint in
   ``train.checkpoint_dir``, written to ``<checkpoint_dir>_int8``, with the
   int8-vs-float agreement printed as JSON;
-- ``stream``: the streaming demo through the int8 CUDA kernels;
+- ``stream``: the streaming demo through the int8 CUDA kernels (with
+  ``stream.resample_up/down`` the wideband resampler in front, with
+  ``stream.normalize_timing=true`` the per-frame timing correction);
 - ``bench``: the port's benchmark (``bench.py``: one JSON contract line on
   stdout, calibration and the stream chain's rate on stderr).
 
@@ -27,8 +29,12 @@ Overrides use the JAX package's names, plus ``device=``:
         train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5
     python -m modulationdetectioncnn_torch stream
     python -m modulationdetectioncnn_torch stream device=cpu eval.int8_kernel=v10
+    python -m modulationdetectioncnn_torch stream stream.normalize_timing=true
+    python -m modulationdetectioncnn_torch stream stream.resample_up=1 stream.resample_down=2
+    python -m modulationdetectioncnn_torch eval eval.backend=int8 eval.int8_kernel=v3
     python -m modulationdetectioncnn_torch bench
     python -m modulationdetectioncnn_torch bench pallas_int8_v9
+    python -m modulationdetectioncnn_torch bench pallas_int8   # v2 logits + argmax
     python -m modulationdetectioncnn_torch bench device=cpu bench.batch_size=64
 
 Every command runs on the card unless ``device=cpu`` is given. The other

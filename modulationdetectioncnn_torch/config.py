@@ -4,7 +4,8 @@ The port's own copy of the fields of ``modulationdetectioncnn_tpu/config.py``
 that its ported paths read, with the same names and defaults, so that an
 override such as ``stream.num_subbands=8`` or ``bench.backend=pallas_int8_v10``
 means the same thing to both packages. Fields of paths not ported yet
-(training beyond ``train.checkpoint_dir``, mesh, the resampler) are absent.
+(training beyond ``train.checkpoint_dir``, mesh, the DCN block floor) are
+absent.
 """
 from __future__ import annotations
 
@@ -85,15 +86,27 @@ class QuantConfig:
 
 @dataclass(frozen=True)
 class StreamConfig:
-    """Streaming front end. The JAX package's resampler and timing-correction
-    fields are absent: those stages are not ported yet."""
+    """Streaming front end. ``dsp/pipeline.py::plan_frontend`` and
+    ``check_block_alignment`` validate these fields and raise ``ValueError``,
+    as the JAX package's do."""
     num_subbands: int = 16            # polyphase channelizer branches
     taps_per_branch: int = 8          # prototype filter taps per branch
+    # Rational up/down resampling of the wideband stream before the
+    # channelizer; 1/1 = off. fir_taps sizes the anti-alias lowpass.
+    resample_up: int = 1
+    resample_down: int = 1
+    fir_taps: int = 33
     frame_len: int = 128              # classification frame length
     frame_hop: int = 128              # must divide frame_len
     block_len: int = 1 << 15          # overlap-save block length
     normalize_cfo: bool = True
     cfo_pad_factor: int = 4           # DFT size = frame_len * pad_factor
+    # Per-frame Oerder & Meyr timing estimate and polyphase fractional-delay
+    # correction (the 17-tap FIR is a CUDA kernel on the card); off by
+    # default, as in the JAX package.
+    normalize_timing: bool = False
+    timing_phases: int = 32
+    sps: int = 8                      # samples per symbol at the frame rate
 
 
 @dataclass(frozen=True)
@@ -106,7 +119,7 @@ class EvalConfig:
     # the committed assets/rml11_int8.npz.
     int8_artifact: str | None = None
     # Which int8 classifier eval and the stream path run (ops/infer.py
-    # make_int8_predict): "v4", "v5", "v6", "v7", "v9" or "v10".
+    # make_int8_predict): "v2", "v3", "v4", "v5", "v6", "v7", "v9" or "v10".
     int8_kernel: str = "v7"
     batch_size: int = 2048
     # 0 sweeps the whole dataset; f > 0 only the held-out part of

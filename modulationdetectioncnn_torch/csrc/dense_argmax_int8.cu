@@ -1,13 +1,20 @@
 // Fused int8 dense1 -> requantize -> dense2 -> argmax, for Hopper (sm_90a).
+// One templated body, two C entry points:
 //
 // Replaces: modulationdetectioncnn_tpu/ops/infer.py::_dense_argmax_int8_kernel
-// (the dense stage of make_int8_classifier_v7 and of v3..v10).
+// (ops/infer.py:631, the dense stage of make_int8_classifier_v7 and of
+// v3..v10) with amc_dense_argmax_int8, and
+// Replaces: modulationdetectioncnn_tpu/ops/infer.py::_dense_stage_int8_kernel
+// (ops/infer.py:342, the dense stage of make_int8_forward_v2, call
+// ops/infer.py:535, and of v1) with amc_dense_int8, which stops at the
+// logits and writes them, (B, 11) f32.
 //
 // Computes, per frame of h (B, 9920) int8 (the conv map flattened t*80+c):
 //   a3[d]  = clip((sum_k h[k] * w3t[d, k] + o3[d]) >> m3[d], 0, 127)   int8
 //   acc4[c] = sum_d a3[d] * w4[d, c]                                  int32
 //   logit[c] = float(acc4[c]) * s4[c] + b4[c]                           f32
 //   label  = argmax over the 11 classes, ties to the lowest index     int32
+//            (amc_dense_argmax_int8; amc_dense_int8 writes the logits)
 // The logit is a rounded multiply and then a rounded add (__fmul_rn,
 // __fadd_rn), never a fused multiply-add: the reference rounds twice, and
 // an FMA could flip the argmax of a near tie.
@@ -43,6 +50,8 @@ constexpr int DT = 8;             //                outputs (stride 32)
 static_assert(KDW % KC == 0, "K chunks must tile the reduction");
 static_assert((BM / FT) * 32 == THREADS && DT * 32 == D, "thread tiling");
 
+// ARGMAX: labels (B,) int32 into out; else the logits (B, NC) f32.
+template <bool ARGMAX>
 __global__ void __launch_bounds__(THREADS)
 dense_argmax_int8_kernel(const int8_t* __restrict__ h, long long n,
                          const int8_t* __restrict__ w3t,
@@ -51,7 +60,7 @@ dense_argmax_int8_kernel(const int8_t* __restrict__ h, long long n,
                          const int8_t* __restrict__ w4,
                          const float* __restrict__ s4,
                          const float* __restrict__ b4,
-                         int* __restrict__ out) {
+                         void* __restrict__ out) {
   __shared__ int hs[BM][KC];
   __shared__ int ws[D][W_STRIDE];
   __shared__ int8_t a3[BM][D];
@@ -112,21 +121,40 @@ dense_argmax_int8_kernel(const int8_t* __restrict__ h, long long n,
     const int r = idx / NC, c = idx % NC;
     int s = 0;
     for (int d = 0; d < D; ++d) s += a3[r][d] * static_cast<int>(w4[d * NC + c]);
-    logits[r][c] = __fadd_rn(__fmul_rn(__int2float_rn(s), s4[c]), b4[c]);
+    const float v = __fadd_rn(__fmul_rn(__int2float_rn(s), s4[c]), b4[c]);
+    if constexpr (ARGMAX)
+      logits[r][c] = v;
+    else if (f0 + r < n)
+      static_cast<float*>(out)[(f0 + r) * NC + c] = v;
   }
-  __syncthreads();
-
-  if (tid < BM && f0 + tid < n) {
-    int best = 0;
-    float bv = logits[tid][0];
-    for (int c = 1; c < NC; ++c) {
-      if (logits[tid][c] > bv) {  // strict: ties keep the lowest index
-        bv = logits[tid][c];
-        best = c;
+  if constexpr (ARGMAX) {
+    __syncthreads();
+    if (tid < BM && f0 + tid < n) {
+      int best = 0;
+      float bv = logits[tid][0];
+      for (int c = 1; c < NC; ++c) {
+        if (logits[tid][c] > bv) {  // strict: ties keep the lowest index
+          bv = logits[tid][c];
+          best = c;
+        }
       }
+      static_cast<int*>(out)[f0 + tid] = best;
     }
-    out[f0 + tid] = best;
   }
+}
+
+template <bool ARGMAX>
+int launch(const void* h, long long n, const void* w3t, const void* m3,
+           const void* o3, const void* w4, const void* s4, const void* b4,
+           void* out, void* stream) {
+  const long long blocks = (n + BM - 1) / BM;
+  dense_argmax_int8_kernel<ARGMAX><<<static_cast<unsigned>(blocks), THREADS, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(h), n, static_cast<const int8_t*>(w3t),
+      static_cast<const int*>(m3), static_cast<const int*>(o3),
+      static_cast<const int8_t*>(w4), static_cast<const float*>(s4),
+      static_cast<const float*>(b4), out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -136,12 +164,12 @@ extern "C" int amc_dense_argmax_int8(const void* h, long long n,
                                      const void* o3, const void* w4,
                                      const void* s4, const void* b4,
                                      void* out, void* stream) {
-  const long long blocks = (n + BM - 1) / BM;
-  dense_argmax_int8_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(h), n, static_cast<const int8_t*>(w3t),
-      static_cast<const int*>(m3), static_cast<const int*>(o3),
-      static_cast<const int8_t*>(w4), static_cast<const float*>(s4),
-      static_cast<const float*>(b4), static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(h, n, w3t, m3, o3, w4, s4, b4, out, stream);
+}
+
+extern "C" int amc_dense_int8(const void* h, long long n, const void* w3t,
+                              const void* m3, const void* o3, const void* w4,
+                              const void* s4, const void* b4, void* out,
+                              void* stream) {
+  return launch<false>(h, n, w3t, m3, o3, w4, s4, b4, out, stream);
 }

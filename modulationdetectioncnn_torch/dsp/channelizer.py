@@ -30,6 +30,21 @@ def design_prototype(num_subbands: int, taps_per_branch: int,
     return h / h.sum()
 
 
+def design_interp(n_phases: int, taps_per_phase: int = 8,
+                  beta: float = 8.0) -> np.ndarray:
+    """Polyphase fractional-delay interpolator prototype (timing correction,
+    ``dsp/normalize.py::correct_timing``): a Kaiser-windowed sinc at the
+    ``n_phases``-times-upsampled rate, odd length P*taps+1 (integer centre,
+    so an exact zero-delay phase), unit gain for that phase. A copy of
+    ``golden/dsp.py::design_interp``."""
+    p, t = n_phases, taps_per_phase
+    ln = p * t + 1
+    n = np.arange(ln, dtype=np.float64)
+    center = (ln - 1) / 2.0
+    h = np.sinc((n - center) / p) * np.kaiser(ln, beta)
+    return h / h[int(center)]
+
+
 @functools.lru_cache(maxsize=16)
 def dft_matrices(m: int) -> tuple[np.ndarray, np.ndarray]:
     """Real/imag parts of the M-point DFT matrix F[p, k] = exp(-2pi*i*pk/M)."""

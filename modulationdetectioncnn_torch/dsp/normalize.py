@@ -1,10 +1,14 @@
-"""Per-frame power and carrier (CFO) normalization on I/Q planes.
+"""Per-frame power, carrier (CFO) and symbol-timing normalization on I/Q
+planes.
 
-Counterpart of ``power_normalize``, ``estimate_cfo`` and ``correct_cfo`` of
-the JAX ``dsp/normalize.py``, with the same arithmetic in the same order:
-CFO by the FFT-of-x^4 method (a padded DFT as two real matmuls), parabolic
-peak refinement. Timing estimation and correction (off by default) are not
-ported yet.
+Counterpart of the JAX ``dsp/normalize.py``, with the same arithmetic in
+the same order: CFO by the FFT-of-x^4 method (a padded DFT as two real
+matmuls) with parabolic peak refinement; timing by the Oerder & Meyr
+square-law estimate and a polyphase fractional-delay correction (off by
+default, ``StreamConfig.normalize_timing``). The correction's per-frame
+17-tap FIR, a Pallas kernel in the JAX package, is the hand-written CUDA
+kernel ``csrc/correct_timing.cu`` on the card (``correct_timing_fir``), with
+its plain version beside it (``correct_timing_fir_plain``).
 """
 from __future__ import annotations
 
@@ -13,6 +17,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from modulationdetectioncnn_torch.dsp.channelizer import design_interp
+from modulationdetectioncnn_torch.ops import _build
 
 
 def _cmul(ar, ai, br, bi):
@@ -78,3 +86,142 @@ def correct_cfo(x: torch.Tensor, cfo: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(ang), torch.sin(ang)
     yr, yi = _cmul(x[..., 0, :], x[..., 1, :], c, s)
     return torch.stack([yr, yi], dim=-2).to(torch.float32)
+
+
+def estimate_timing(x: torch.Tensor, sps: int) -> torch.Tensor:
+    """Oerder & Meyr symbol-timing estimate in samples, range [0, sps).
+    x: (..., 2, T) f32 -> (...)."""
+    e = x[..., 0, :] ** 2 + x[..., 1, :] ** 2
+    t = torch.arange(x.shape[-1], dtype=torch.float32, device=x.device)
+    ang = -2.0 * math.pi * t / sps
+    cr = (e * torch.cos(ang)).sum(dim=-1)
+    ci = (e * torch.sin(ang)).sum(dim=-1)
+    tau = (-torch.atan2(ci, cr) / (2 * math.pi)) * sps
+    return _floor_mod(tau, sps)
+
+
+def _floor_mod(a: torch.Tensor, m: float) -> torch.Tensor:
+    """``a % m`` with the sign of ``m``, computed as ``jnp.remainder`` does:
+    the exact ``fmod``, then ``+ m`` where the signs differ."""
+    r = torch.fmod(a, m)
+    return torch.where((r != 0) & ((r < 0) != (m < 0)), r + m, r)
+
+
+@functools.lru_cache(maxsize=8)
+def _interp_bank(n_phases: int, taps_per_phase: int) -> np.ndarray:
+    """(P, taps+1) causal phase filters g_p[i] = h[i*P + p] of the
+    interpolator prototype (``design_interp``), zero-padded."""
+    p_n, t_n = n_phases, taps_per_phase
+    h = design_interp(p_n, t_n)
+    g = np.zeros((p_n, t_n + 1), dtype=np.float64)
+    for p in range(p_n):
+        gp = h[p::p_n]
+        g[p, :len(gp)] = gp
+    return g.astype(np.float32)
+
+
+def timing_filters(tau: torch.Tensor, sps: int, n_phases: int = 32,
+                   taps_per_phase: int = 8) -> torch.Tensor:
+    """The per-frame filters of ``correct_timing``, tau (...) samples ->
+    (frames, 2*taps+1) float32, frames = tau.numel(). Each frame uses ONE
+    phase filter of the interpolator bank, the phase nearest tau_c*P with
+    tau_c = tau wrapped to [-sps/2, sps/2); its taps+1 weights, shifted by
+    the frame's integer delay d, make the filter ``cbig[j] = w[j - d]``,
+    added lane by lane as the JAX package adds it. Plain torch ops."""
+    p_n, t_n = n_phases, taps_per_phase
+    c = (p_n * t_n) // 2                       # centre of the P*taps+1 prototype
+    tau = torch.as_tensor(tau, dtype=torch.float32).reshape(-1)
+    tau_c = _floor_mod(tau + sps / 2.0, sps) - sps / 2.0
+    s = torch.round(tau_c * p_n).to(torch.int32) + c   # half to even
+    d = torch.div(s, p_n, rounding_mode="floor")[:, None]   # integer delay
+    p = torch.remainder(s, p_n)                             # phase
+    grev = torch.from_numpy(np.ascontiguousarray(
+        _interp_bank(p_n, t_n)[:, ::-1])).to(tau.device)    # (P, taps+1)
+    w = grev[p.long()]                                      # (frames, taps+1)
+    n_big = 2 * t_n + 1
+    jlane = torch.arange(n_big, dtype=torch.int32, device=tau.device)[None, :]
+    cbig = torch.zeros((tau.shape[0], n_big), dtype=torch.float32, device=tau.device)
+    for i in range(t_n + 1):
+        cbig = cbig + torch.where(jlane == d + i, w[:, i:i + 1], 0.0)
+    return cbig
+
+
+def correct_timing(x: torch.Tensor, tau: torch.Tensor, sps: int,
+                   n_phases: int = 32, taps_per_phase: int = 8) -> torch.Tensor:
+    """Per-frame symbol-timing correction: y[n] ~= x(n + tau_c), with tau_c =
+    tau wrapped to [-sps/2, sps/2). x: (..., 2, T) f32 planes; tau: (...)
+    samples (float32), on x's device. The JAX package's formulation: the
+    per-frame filters of ``timing_filters`` ((frames, 17) for the default 8
+    taps per phase), applied to both planes by the fractional-delay FIR
+    ``correct_timing_fir``."""
+    t_len = x.shape[-1]
+    lead = x.shape[:-2]
+    b = math.prod(lead)
+    cbig = timing_filters(tau, sps, n_phases, taps_per_phase)
+    if cbig.shape[0] != b:
+        raise ValueError(f"tau {tuple(tau.shape)} does not match frames {tuple(lead)}")
+    out = correct_timing_fir(x.reshape(b, 2, t_len).to(torch.float32).contiguous(), cbig)
+    return out.reshape(lead + (2, t_len))
+
+
+def correct_timing_fir_plain(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The plain version of the timing FIR: x (B, 2, T) f32, c (B, taps) f32
+    per-frame weights (taps odd) -> (B, 2, T) f32,
+    ``out[b, h, n] = sum_j x_pad[b, h, n + j] * c[b, j]`` with x_pad = x and
+    (taps-1)/2 zeros on each side, accumulated ``acc = acc + x * c[j]`` for
+    j = 0, 1, ... (a rounded multiply, then a rounded add), as the JAX
+    kernel does."""
+    taps, t_len = c.shape[-1], x.shape[-1]
+    xp = F.pad(x, ((taps - 1) // 2, (taps - 1) // 2))
+    acc = torch.zeros_like(x)
+    for j in range(taps):
+        acc = acc + xp[..., j:j + t_len] * c[:, None, j:j + 1]
+    return acc
+
+
+# The kernel keeps each row of the warp it runs on in 48 KB of static
+# shared memory at most: 8 warps x (T + 2*taps - 1) floats.
+_FIR_WARPS = 8
+_FIR_SMEM_LIMIT = 48 * 1024
+
+
+def correct_timing_fir(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The per-frame fractional-delay FIR of ``correct_timing``, (B, 2, T)
+    f32 and (B, taps) f32 -> (B, 2, T) f32. Launches
+    ``csrc/correct_timing.cu`` on a CUDA tensor (counted in ``launches``),
+    bit-exact against ``correct_timing_fir_plain``; the plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return correct_timing_fir_plain(x, c)
+    name = "correct_timing_fir"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 3 or x.shape[1] != 2 or x.dtype != torch.float32:
+        raise ValueError(f"{name}: expected (B, 2, T) float32 frames, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    b, _, t_len = x.shape
+    if (c.dtype != torch.float32 or c.dim() != 2 or c.shape[0] != b
+            or c.shape[1] % 2 == 0):
+        raise ValueError(f"{name}: expected (B, taps) float32 weights with odd "
+                         f"taps, got {tuple(c.shape)} {c.dtype}")
+    taps = c.shape[1]
+    if _FIR_WARPS * (t_len + 2 * taps - 1) * 4 > _FIR_SMEM_LIMIT:
+        raise ValueError(f"{name}: frame length {t_len} with {taps} taps "
+                         "exceeds the kernel's shared memory")
+    for key, t in (("x", x), ("c", c)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous on {x.device}")
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        code = lib.amc_correct_timing_fir(
+            x.data_ptr(), 2 * b, t_len, c.data_ptr(), taps, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, name, code)
+    correct_timing_fir.launches += 1
+    return out
+
+
+correct_timing_fir.launches = 0

@@ -1,19 +1,21 @@
 """Streaming classification pipeline (the product ``stream`` path).
 
 Counterpart of the JAX ``dsp/pipeline.py`` for one process: continuous
-wideband I/Q -> overlap-save blocks -> polyphase channelizer -> per-subband
-framing -> per-frame power and CFO normalization -> int8 classifier.
+wideband I/Q -> [rational FIR resampler] -> overlap-save blocks -> polyphase
+channelizer -> per-subband framing -> per-frame power, CFO and [timing]
+normalization -> int8 classifier. The bracketed stages are off by default
+(``StreamConfig.resample_up/down``, ``normalize_timing``).
 
 The load-bearing invariant: classifying a stream block by block, each block
 carrying a halo of history, gives exactly the labels of classifying the
 whole stream at once (``classify_stream_blocked`` == ``classify_stream``).
-``plan_frontend`` composes that halo through the channelizer (its FIR
-history) and the framer (overlapping frames' reach).
+``plan_frontend`` composes that halo through the resampler (``fir_taps - 1``
+upsampled-rate inputs of history), the channelizer (its FIR history) and
+the framer (overlapping frames' reach).
 
 The classifier is the int8 artifact through the CUDA kernels, or the float
 model of a checkpoint that has no artifact yet (``_make_predictor``). Not
-ported yet: the rational resampler in front of the channelizer, timing
-correction and the time-sharded path (ROADMAP.md, Queue 1).
+ported yet: the time-sharded path (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from modulationdetectioncnn_torch.config import (
     AmcConfig, DataConfig, RML_CLASSES, StreamConfig)
 from modulationdetectioncnn_torch.device import resolve_device
-from modulationdetectioncnn_torch.dsp import channelizer, framer, normalize
+from modulationdetectioncnn_torch.dsp import channelizer, fir, framer, normalize
 from modulationdetectioncnn_torch.dsp.channelizer import design_prototype
 
 Predictor = Callable[[torch.Tensor], torch.Tensor]
@@ -39,27 +41,56 @@ Predictor = Callable[[torch.Tensor], torch.Tensor]
 class FrontEndPlan:
     """Halo/trim bookkeeping for seamless blocked streaming."""
     m: int                # channelizer subbands
+    up: int               # resample numerator
+    down: int             # resample denominator
     frame_len: int
     hop: int
     halo_in: int          # wideband input samples of history per block
+    trim_res: int         # resampled samples dropped right after resampling
     n_hist_sub: int       # subband samples of history kept after channelizing
     n_lead_frames: int    # invalid leading frames (zero history) to drop
 
 
 def plan_frontend(sc: StreamConfig) -> FrontEndPlan:
-    """Compose the input halo through channelizer -> framer."""
-    m, f, hop = sc.num_subbands, sc.frame_len, sc.frame_hop
+    """Compose the input halo through resampler -> channelizer -> framer.
+
+    The alignment of a block (block_len*up % down == 0, and the resulting
+    subband count per block divisible by frame_hop) is checked by
+    ``check_block_alignment``, not here."""
+    m, up, down = sc.num_subbands, sc.resample_up, sc.resample_down
+    f, hop = sc.frame_len, sc.frame_hop
     if f % hop != 0:
         raise ValueError(
             f"frame_hop ({hop}) must divide frame_len ({f}) for seamless "
             "overlapping-frame streaming")
     # Subband-rate history: channelizer FIR state + overlapping-frame reach.
     n_hist_sub = (sc.taps_per_branch - 1) + (f - hop)
-    return FrontEndPlan(m, f, hop, n_hist_sub * m, n_hist_sub, (f - hop) // hop)
+    h_y = n_hist_sub * m                      # in resampled wideband samples
+    if (up, down) == (1, 1):
+        return FrontEndPlan(m, up, down, f, hop, h_y, 0, n_hist_sub,
+                            (f - hop) // hop)
+    # Resampled output y[j] needs inputs back to (j*down - Lr + 1)/up; exact
+    # outputs from j = -h_y need halo_in*up >= h_y*down + Lr - 1, rounded so
+    # the per-block decimation phase matches the full stream's
+    # ((halo_in*up) % down == 0).
+    halo_in = -(-(h_y * down + sc.fir_taps - 1) // up)
+    while (halo_in * up) % down:
+        halo_in += 1
+    trim_res = halo_in * up // down - h_y
+    return FrontEndPlan(m, up, down, f, hop, halo_in, trim_res, n_hist_sub,
+                        (f - hop) // hop)
+
+
+def design_resampler(sc: StreamConfig) -> np.ndarray:
+    """Anti-alias lowpass for the wideband up/down resampler (gain = up)."""
+    cutoff = 0.5 / max(sc.resample_up, sc.resample_down)
+    return fir.design_lowpass(sc.fir_taps, cutoff) * sc.resample_up
 
 
 def batch_subband_len(sc: StreamConfig, t_len: int) -> int:
     """Subband-stream length the batch path produces for a T-sample input."""
+    if (sc.resample_up, sc.resample_down) != (1, 1):
+        t_len = -(-t_len * sc.resample_up // sc.resample_down)
     return t_len // sc.num_subbands
 
 
@@ -71,38 +102,55 @@ def total_frames(sc: StreamConfig, t_len: int) -> int:
 
 def check_block_alignment(sc: StreamConfig, block: int) -> int:
     """Validate block length against the plan; returns subband samples/block."""
-    if block % sc.num_subbands != 0:
-        raise ValueError("block_len must align to subbands")
-    bs = block // sc.num_subbands
+    m, up, down = sc.num_subbands, sc.resample_up, sc.resample_down
+    if (block * up) % down != 0:
+        raise ValueError("block_len*up must be divisible by resample_down")
+    bs_wide = block * up // down
+    if bs_wide % m != 0:
+        raise ValueError("resampled block must align to subbands")
+    bs = bs_wide // m
     if bs % sc.frame_hop != 0:
         raise ValueError("per-block subband samples must align to frame_hop")
     return bs
 
 
 def _normalize_frames(fr: torch.Tensor, sc: StreamConfig) -> torch.Tensor:
-    """Per-frame normalization chain: power -> CFO."""
+    """Per-frame normalization chain: power -> CFO -> timing."""
     fr = normalize.power_normalize(fr)
     if sc.normalize_cfo:
         fr = normalize.correct_cfo(
             fr, normalize.estimate_cfo(fr, pad_factor=sc.cfo_pad_factor))
+    if sc.normalize_timing:
+        tau = normalize.estimate_timing(fr, sc.sps)
+        fr = normalize.correct_timing(fr, tau, sc.sps, sc.timing_phases)
     return fr
 
 
 def subband_frames(x: torch.Tensor, h: np.ndarray, sc: StreamConfig) -> torch.Tensor:
     """Wideband I/Q planes (..., 2, T) -> (..., M, F, 2, frame_len)
     normalized frames: the whole-stream ('batch') reference path."""
-    sub = channelizer.channelize(x, h, sc.num_subbands)      # (..., 2, T/M, M)
+    m = sc.num_subbands
+    if (sc.resample_up, sc.resample_down) != (1, 1):
+        x = fir.fir_resample_iq(x, design_resampler(sc), sc.resample_up,
+                                sc.resample_down)
+        x = x[..., :x.shape[-1] - x.shape[-1] % m]            # whole subbands
+    sub = channelizer.channelize(x, h, m)                     # (..., 2, T/M, M)
     sub = torch.movedim(sub, -1, -3)                          # (..., M, 2, T/M)
     fr = framer.frames_from_stream(sub, sc.frame_len, sc.frame_hop)
     fr = fr.transpose(-2, -3)                                 # (..., M, F, 2, f)
     return _normalize_frames(fr, sc)
 
 
-def block_frontend(xb: torch.Tensor, h: np.ndarray, sc: StreamConfig,
-                   plan: FrontEndPlan) -> torch.Tensor:
+def block_frontend(xb: torch.Tensor, h: np.ndarray, hr: np.ndarray | None,
+                   sc: StreamConfig, plan: FrontEndPlan) -> torch.Tensor:
     """Halo'd wideband blocks (..., 2, halo_in + B) -> normalized frames
-    (..., M, F_b, 2, frame_len). Frame k of block b starts at global subband
-    index b*Bs - (frame_len - hop) + k*hop."""
+    (..., M, F_b, 2, frame_len). ``hr`` is the resampler's lowpass
+    (``design_resampler``), None when there is no resampling. Frame k of
+    block b starts at global subband index b*Bs - (frame_len - hop) + k*hop."""
+    if (plan.up, plan.down) != (1, 1):
+        if hr is None:
+            raise ValueError("a resampling plan needs the resampler's filter")
+        xb = fir.fir_resample_iq(xb, hr, plan.up, plan.down)[..., plan.trim_res:]
     sub = channelizer.channelize(xb, h, plan.m)
     sub = torch.movedim(sub, -1, -3)                   # (..., M, 2, hist + Bs)
     sub = framer.trim_halo(sub, sc.taps_per_branch - 1)
@@ -131,9 +179,10 @@ def classify_stream_blocked(x: torch.Tensor, predict_fn: Predictor,
     plan = plan_frontend(sc)
     m = sc.num_subbands
     check_block_alignment(sc, sc.block_len)
+    hr = design_resampler(sc) if (plan.up, plan.down) != (1, 1) else None
     # (2, nb, halo+block) -> (nb, 2, halo+block)
     blocks = framer.overlap_save_blocks(x, sc.block_len, plan.halo_in).transpose(0, 1)
-    fr = block_frontend(blocks, h, sc, plan)           # (nb, M, F_b, 2, f)
+    fr = block_frontend(blocks, h, hr, sc, plan)       # (nb, M, F_b, 2, f)
     nb, _, fb = fr.shape[:3]
     labels = predict_fn(fr.reshape(nb * m * fb, 2, fr.shape[-1]))
     # (nb, M, F_b) -> (M, nb*F_b); drop the zero-history lead-in frames and

@@ -50,6 +50,16 @@ _SIGNATURES = {
                                _P, _P],
     "amc_conv_stage_int8_v4": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
                                _P, _P],
+    # xe, n, w1e, m1, o1, w2l, m2, o2, out, stream
+    "amc_conv_stage_int8_v3": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
+    "amc_conv_stage_int8_v2": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
+    # h, n, w3t, m3, o3, w4, s4, b4, logits, stream
+    "amc_dense_int8": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P],
+    # x, rows, t_len, c, taps, out, stream
+    "amc_correct_timing_fir": [_P, ctypes.c_longlong, ctypes.c_int, _P,
+                               ctypes.c_int, _P, _P],
 }
 
 

@@ -1,10 +1,10 @@
-"""int8 VT-CNN2 inference: the fused stages and the v4-v10 classifiers.
+"""int8 VT-CNN2 inference: the fused stages and the v2-v10 classifiers.
 
-Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py``'s v4, v5, v6,
-v7, v9 and v10 paths. The classifiers share the dense stage and differ in
-the conv stage, which all compute one function (the integer spec of
-``golden/quant.py``) from different inputs and with different conv1
-arithmetic:
+Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py``'s v2 to v10
+paths. The classifiers share the dense stage (v2: the dense stage without
+the argmax, which returns logits) and differ in the conv stage, which all
+compute one function (the integer spec of ``golden/quant.py``) from
+different inputs and with different conv1 arithmetic:
 
 - v7: frames in, conv1 on integers (``__dp4a``);
 - v9, v10: frames in, conv1 as a bf16 product against requantize-folded
@@ -15,11 +15,17 @@ arithmetic:
 - v4, v6: (B, 8, T) int8 tap planes in (quantize and ``tap_planes`` in
   plain torch first, as the JAX package did them in XLA), then v5's body;
   v6 also prefetches the next frame's planes.
+- v2, v3: (B, T-2, 8) int8 tap rows in (quantize and ``expand_taps`` in
+  plain torch first, as in the JAX package), the transposed layout of the
+  planes, then the same body; v3 prefetches the next frame's rows and feeds
+  the dense + argmax stage, v2 feeds the dense stage that returns logits
+  (``make_int8_forward_v2``) and takes their argmax.
 
-v4, v5 and v6 need no fold, so a model that the fold refuses still gets a
+v2 to v6 need no fold, so a model that the fold refuses still gets a
 tensor-core path. Each stage has three pieces in this module:
 
-- the wrapper (``conv_stage_int8_v*``, ``dense_argmax_int8``): on a CUDA
+- the wrapper (``conv_stage_int8_v*``, ``dense_argmax_int8``,
+  ``dense_int8``): on a CUDA
   tensor it launches the hand-written kernel of ``csrc/`` and counts the
   launch in its ``launches`` attribute, or raises; on a CPU tensor it runs
   the plain version. There is no fallback from one to the other.
@@ -31,8 +37,9 @@ tensor-core path. Each stage has three pieces in this module:
   it replaces, its bound on the H100 and what its design does about it.
 
 Shapes are the JAX package's public ones: frames (B, 2, 128) f32 in,
-labels (B,) int32 out. The conv map is the compact (B, 124, C2) int8; the
-TPU kernel's (B, 128, 128) layout padding is not reproduced. The kernels
+labels (B,) int32 (or v2's (B, NC) f32 logits) out. The conv map is the
+compact (B, 124, C2) int8; the TPU kernels' (B, 128, 128) layout padding and
+v3's garbage rows are not reproduced. The kernels
 are compiled for the full-width model; a narrower one runs padded to it
 (``quant.pad_to_kernel_widths``), and the conv-stage wrappers return the
 model's own ``[:, :, :c2]`` map. The kernels take any B: a ragged batch
@@ -110,6 +117,27 @@ def conv_stage_int8_planes_plain(xp: torch.Tensor, qw: Int8Weights) -> torch.Ten
     return _conv2_plain(requantize(acc1, qw.m1, qw.o1), qw)
 
 
+def expand_taps(x: torch.Tensor, inv_sx: float) -> torch.Tensor:
+    """The v2/v3 prologue, (B, 2, T) f32 -> (B, T-2, 8) int8 tap rows:
+    quantize, then lane 3h+k of row t holds ``xq[:, h, t+k]`` and lanes 6
+    and 7 are zero (the JAX package's quantize + ``expand_taps``, which it
+    ran in XLA; the transpose of ``tap_planes`` without its two tail
+    columns). Plain torch ops."""
+    xq = quantize_input(x, inv_sx)
+    t1 = xq.shape[-1] - 2
+    cols = [xq[:, h, k:k + t1] for h in range(2) for k in range(3)]
+    zero = torch.zeros_like(cols[0])
+    return torch.stack(cols + [zero, zero], dim=-1)
+
+
+def conv_stage_int8_taps_plain(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """The plain version of the v2 and v3 conv stages, (B, T-2, 8) int8 tap
+    rows -> (B, T-4, C2) int8: conv1 as one (m, 8) x (8, 2C) integer product
+    of the rows against ``w1e``, rq1, then conv2 and rq2."""
+    acc1 = _exact_matmul(xe, qw.w1e)                            # (B, t1, 2C)
+    return _conv2_plain(requantize(acc1, qw.m1, qw.o1), qw)
+
+
 def conv_stage_int8_v5_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """The plain version of the v5 conv stage, (B, 2, T) f32 -> (B, T-4, C2)
     int8: the tap planes the kernel builds from the quantized frame, then
@@ -146,26 +174,40 @@ def conv_stage_int8_folded_plain(x: torch.Tensor, qw: Int8Weights) -> torch.Tens
 # ------------------------------------------------------- dense + argmax
 
 
-def dense_argmax_int8_plain(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """(B, T2*C2) int8 -> (B,) int32 labels: dense1 -> rq3 -> dense2 ->
-    f32 multiply, then add -> argmax with ties to the lowest index."""
+def dense_int8_plain(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """(B, T2*C2) int8 -> (B, NC) f32 logits: dense1 -> rq3 -> dense2 ->
+    ``float(acc4) * s4``, then ``+ b4`` (two roundings, no fused
+    multiply-add). NC is the carried width (11 for a padded model, whose
+    padded classes read -inf)."""
     h = h.reshape(h.shape[0], -1)
     a3 = requantize(_exact_matmul(h, qw.w3t.T), qw.m3, qw.o3)
     acc4 = _exact_matmul(a3, qw.w4)
     logits = acc4.to(torch.float32) * qw.s4
-    logits = logits + qw.b4
+    return logits + qw.b4
+
+
+def argmax_lowest(logits: torch.Tensor) -> torch.Tensor:
+    """(B, N) -> (B,) int32: the index of the largest value, ties to the
+    lowest index (``jnp.argmax``; the dense kernel's strict ``>``)."""
     mx = logits.max(dim=-1, keepdim=True).values
-    lane = torch.arange(logits.shape[-1], device=h.device, dtype=torch.int32)
+    lane = torch.arange(logits.shape[-1], device=logits.device, dtype=torch.int32)
     idx = torch.where(logits >= mx, lane, torch.iinfo(torch.int32).max)
     return idx.min(dim=-1).values.to(torch.int32)
 
 
+def dense_argmax_int8_plain(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """(B, T2*C2) int8 -> (B,) int32 labels: ``dense_int8_plain``'s logits,
+    then the argmax with ties to the lowest index."""
+    return argmax_lowest(dense_int8_plain(h, qw))
+
+
 # ------------------------------------------------------ kernel launches
 
-_FRAMES, _PLANES, _MAP = "frames", "planes", "map"
+_FRAMES, _PLANES, _TAPS, _MAP = "frames", "planes", "taps", "map"
 # Per C entry point: the weights it reads, in its argument order, and its
 # input: (B, 2, 128) f32 frames (the entry also takes inv_sx), (B, 8, 128)
-# int8 tap planes, or the (B, 124, 80) int8 conv map.
+# int8 tap planes, (B, 126, 8) int8 tap rows, or the (B, 124, 80) int8 conv
+# map.
 _ENTRIES = {
     "conv_stage_int8_v7": (("w1", "m1", "o1", "w2t", "m2", "o2"), _FRAMES),
     "conv_stage_int8_v9": (("w1f", "w2l", "m2", "o2"), _FRAMES),
@@ -173,7 +215,10 @@ _ENTRIES = {
     "conv_stage_int8_v5": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _FRAMES),
     "conv_stage_int8_v6": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _PLANES),
     "conv_stage_int8_v4": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _PLANES),
+    "conv_stage_int8_v3": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _TAPS),
+    "conv_stage_int8_v2": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _TAPS),
     "dense_argmax_int8": (("w3t", "m3", "o3", "w4", "s4", "b4"), _MAP),
+    "dense_int8": (("w3t", "m3", "o3", "w4", "s4", "b4"), _MAP),
 }
 # The shapes the kernels are compiled for.
 _WEIGHT_SHAPES = {"w1": (3, C1), "w1e": (8, 2 * C1), "w2t": (C2, 6 * C1),
@@ -181,13 +226,15 @@ _WEIGHT_SHAPES = {"w1": (3, C1), "w1e": (8, 2 * C1), "w2t": (C2, 6 * C1),
                   "w3t": (DENSE, T2 * C2), "w4": (DENSE, N_CLASSES)}
 _INPUTS = {_FRAMES: ((2, FRAME_LEN), torch.float32),
            _PLANES: ((8, FRAME_LEN), torch.int8),
+           _TAPS: ((FRAME_LEN - 2, 8), torch.int8),
            _MAP: ((T2 * C2,), torch.int8)}
 
 
 def _launch(wrapper, inp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """Check the arguments, launch the CUDA entry point named after
     ``wrapper`` on the current stream, count the launch on ``wrapper``;
-    returns the (B, 124, 80) int8 map or the (B,) int32 labels."""
+    returns the (B, 124, 80) int8 map, the (B,) int32 labels or the
+    (B, 11) f32 logits."""
     name = wrapper.__name__
     keys, kind = _ENTRIES[name]
     weights = {k: getattr(qw, k) for k in keys}
@@ -206,7 +253,9 @@ def _launch(wrapper, inp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
                          f"{dtype}, got {tuple(inp.shape)} {inp.dtype}")
     if inp.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {inp.device}")
-    if kind == _MAP:
+    if name == "dense_int8":
+        out = torch.empty((b, N_CLASSES), dtype=torch.float32, device=inp.device)
+    elif kind == _MAP:
         out = torch.empty((b,), dtype=torch.int32, device=inp.device)
     else:
         out = torch.empty((b, T2, C2), dtype=torch.int8, device=inp.device)
@@ -284,6 +333,30 @@ def conv_stage_int8_v4(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     return _run(conv_stage_int8_v4, conv_stage_int8_planes_plain, xp, qw)[..., :qw.c2]
 
 
+def conv_stage_int8_v3(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v3 conv stage, (B, 126, 8) int8 tap rows (``expand_taps``) ->
+    (B, 124, c2) int8: conv1 and conv2 on the int8 tensor cores, the next
+    frame's rows prefetched (``cp.async``). Launches
+    ``csrc/conv_stage_int8_v3.cu``'s v3 entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(conv_stage_int8_v3, conv_stage_int8_taps_plain, xe, qw)[..., :qw.c2]
+
+
+def conv_stage_int8_v2(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v2 conv stage: v3 without the prefetch. Launches
+    ``csrc/conv_stage_int8_v3.cu``'s v2 entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(conv_stage_int8_v2, conv_stage_int8_taps_plain, xe, qw)[..., :qw.c2]
+
+
+def dense_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """Fused dense stage without the argmax, the carried-width (B, 124, 80)
+    or (B, 9920) int8 map -> (B, 11) f32 logits (v2's). Launches
+    ``csrc/dense_argmax_int8.cu``'s logits entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(dense_int8, dense_int8_plain, h, qw)
+
+
 def dense_argmax_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """Fused dense stage, the carried-width (B, 124, 80) or (B, 9920) int8
     map -> (B,) int32. Launches ``csrc/dense_argmax_int8.cu`` on a CUDA
@@ -293,7 +366,8 @@ def dense_argmax_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 KERNEL_WRAPPERS = (conv_stage_int8_v7, conv_stage_int8_v9, conv_stage_int8_v10,
                    conv_stage_int8_v5, conv_stage_int8_v6, conv_stage_int8_v4,
-                   dense_argmax_int8)
+                   conv_stage_int8_v3, conv_stage_int8_v2, dense_argmax_int8,
+                   dense_int8)
 
 
 def reset_launch_counts() -> None:
@@ -319,6 +393,10 @@ def _planes(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     return tap_planes(x, qw.inv_sx)
 
 
+def _taps(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    return expand_taps(x, qw.inv_sx)
+
+
 # version: (wrapper, its plain version, the prologue that makes its input)
 CONV_STAGES = {
     "v7": (conv_stage_int8_v7, conv_stage_int8_v7_plain, _frames),
@@ -327,6 +405,8 @@ CONV_STAGES = {
     "v5": (conv_stage_int8_v5, conv_stage_int8_v5_plain, _frames),
     "v6": (conv_stage_int8_v6, conv_stage_int8_planes_plain, _planes),
     "v4": (conv_stage_int8_v4, conv_stage_int8_planes_plain, _planes),
+    "v3": (conv_stage_int8_v3, conv_stage_int8_taps_plain, _taps),
+    "v2": (conv_stage_int8_v2, conv_stage_int8_taps_plain, _taps),
 }
 
 
@@ -350,11 +430,27 @@ def _conv_stage_fn(version: str, qw: Int8Weights):
     return stage
 
 
+def make_int8_forward_v2(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v2 int8 forward, (B, 2, T) f32 -> (B, nc) f32 logits of the model's
+    own classes: the v2 conv stage, then the dense stage without the
+    argmax."""
+    stage = _conv_stage_fn("v2", qw)
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        return dense_int8(stage(x), qw)[:, :qw.nc]
+
+    return forward
+
+
 def make_int8_predict(qw: Int8Weights, version: str = "v7") -> Callable[[torch.Tensor], torch.Tensor]:
     """Version-selectable int8 label predictor, (B, 2, T) f32 -> (B,) int32
-    labels on the weights' device: the conv stage of ``version`` (v4, v5,
-    v6, v7, v9 or v10), then the dense stage. Bit-exact against
-    golden/quant.py."""
+    labels on the weights' device: the conv stage of ``version`` (v3, v4,
+    v5, v6, v7, v9 or v10), then the dense + argmax stage; for v2, the
+    argmax of ``make_int8_forward_v2``'s logits, ties to the lowest index
+    as ``jnp.argmax`` gives. Bit-exact against golden/quant.py."""
+    if version == "v2":
+        forward = make_int8_forward_v2(qw)
+        return lambda x: argmax_lowest(forward(x))
     stage = _conv_stage_fn(version, qw)
 
     def classify(x: torch.Tensor) -> torch.Tensor:

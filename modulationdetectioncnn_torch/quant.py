@@ -19,7 +19,8 @@ The kernels are compiled for the full-width VT-CNN2 (``FRAME_LEN``, ``C1``,
 (``pad_to_kernel_widths``), as the TPU kernels padded to 128 lanes: every
 padded channel, unit or class computes an exact zero or can never win the
 argmax, so the padded model gives the unpadded one's map and labels. The
-conv-stage wrappers return the model's own ``[:, :, :c2]`` map.
+conv-stage wrappers return the model's own ``[:, :, :c2]`` map, and v2's
+logits the model's own ``[:, :nc]`` classes.
 """
 from __future__ import annotations
 
@@ -96,6 +97,7 @@ class Int8Weights:
 
     inv_sx: float            # float32(1 / float64(float32(s_x))), exact f32
     c2: int                  # the model's own conv2 filters (<= m2's length)
+    nc: int                  # the model's own classes (<= b4's length)
     w1: torch.Tensor         # (3, C1) int8
     w1e: torch.Tensor        # (8, 2*C1) int8 tap-plane conv1, [3h+k, h*C1+c]
     m1: torch.Tensor         # (2*C1,) int32
@@ -221,8 +223,9 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
     (D, T2*C2). The v9/v10 conv stage reads the folded conv1
     (``Int8Weights.w1f``, built on first use) and conv2 in the taps-on-N
     layout of the JAX package's ``pack_conv2_weights_lane256`` without its
-    lane padding, which is ``w2p`` itself. The v4/v5/v6 conv stages read
-    conv1 in the tap-plane layout (``expand_conv1_weights``). Every kernel
+    lane padding, which is ``w2p`` itself. The v2 to v6 conv stages read
+    conv1 in the tap-plane layout (``expand_conv1_weights``), which is also
+    that of v2/v3's tap rows. Every kernel
     reads the shifts as integers, so a model with float requantize
     multipliers (the golden spec's legacy form) raises ``ValueError``. A
     model narrower than the kernels is padded to their widths first
@@ -234,7 +237,7 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
         if not np.issubdtype(np.asarray(getattr(qm, k)).dtype, np.integer):
             raise ValueError(f"{k}: the port's kernels need integer requantize "
                              "shifts (the fixed-point quantize() contract)")
-    valid_c2 = qm.m2.shape[0]
+    valid_c2, valid_nc = qm.m2.shape[0], qm.b4.shape[0]
     qm = pad_to_kernel_widths(qm)
     c2 = qm.m2.shape[0]
     k1 = qm.w2p.shape[0]                       # 2*C1
@@ -246,7 +249,7 @@ def int8_weights_from_numpy(tree: QuantizedModel | Mapping[str, Any],
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(dev)
 
     return Int8Weights(
-        inv_sx=inv_sx, c2=valid_c2,
+        inv_sx=inv_sx, c2=valid_c2, nc=valid_nc,
         w1=t(qm.w1p, np.int8), w1e=t(expand_conv1_weights(qm.w1p), np.int8),
         m1=t(qm.m1, np.int32), o1=t(qm.o1, np.int32),
         w2t=t(w2t, np.int8), m2=t(qm.m2, np.int32), o2=t(qm.o2, np.int32),

@@ -5,6 +5,7 @@ and no fallback."""
 import json
 
 import pytest
+import torch
 
 from modulationdetectioncnn_torch import bench
 from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
@@ -30,7 +31,8 @@ def _fake_measure(rates, measured):
 
 @pytest.mark.parametrize("backend", ["pallas_int8_v10", "pallas_int8_v9",
                                      "xla_bf16", "pallas_int8_v6", "pallas_int8_v4",
-                                     "pallas_int8_v5", "xla_int8"])
+                                     "pallas_int8_v5", "xla_int8", "pallas_int8_v3",
+                                     "pallas_int8"])
 def test_bench_run_contract_fields(capsys, backend):
     res = bench.run(_cfg("bench.stream_extra=false"), backend=backend)
     assert set(res) == KEYS
@@ -110,7 +112,7 @@ def test_cli_bench_prints_contract_and_stream_extra(capsys):
     assert not any("stream_extra_error" in e for e in err)
 
 
-@pytest.mark.parametrize("backend", ["pallas_int8_v3", "pallas_bf16", "frobnicate"])
+@pytest.mark.parametrize("backend", ["pallas_bf16_v4", "pallas_bf16", "frobnicate"])
 def test_unported_backend_raises(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bench.run(_cfg("bench.stream_extra=false"), backend=backend)
@@ -155,9 +157,46 @@ def test_backend_list_matches_jax():
     by name but, as there, not listed."""
     import bench as jbench
 
-    ported = [b for b in jbench.BACKENDS if b not in (
-        "pallas_int8_v3", "pallas_int8", "pallas_bf16")]
+    ported = [b for b in jbench.BACKENDS if b != "pallas_bf16"]
     assert list(bench.BACKENDS) == ported
     assert "pallas_int8_v5" not in bench.BACKENDS and "pallas_int8_v5" not in jbench.BACKENDS
     classify, (x,) = bench.make_classifier(_cfg(), "pallas_int8_v5", 8)
     assert classify(x).shape == (8,)
+
+
+@pytest.mark.parametrize("backend,version", [("pallas_int8_v3", "v3"), ("pallas_int8", "v2")])
+def test_v3_and_v2_backends_classify_as_the_plain_chain(backend, version):
+    """``pallas_int8_v3`` is the v3 classifier and ``pallas_int8`` the
+    argmax of the v2 logits, as in the JAX bench (bench.py:89-98): both
+    give the bench's own int8 weights' plain-chain labels."""
+    from modulationdetectioncnn_torch.ops import infer
+
+    cfg = _cfg()
+    classify, (x,) = bench.make_classifier(cfg, backend, 32)
+    qw, x2 = bench.make_int8_weights(cfg, 32)
+    assert torch.equal(x, x2)
+    want = infer.dense_argmax_int8_plain(infer.conv_stage_int8_v7_plain(x, qw), qw)
+    got = classify(x)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bench.INT8_BACKENDS[backend] == version
+
+
+@pytest.mark.parametrize("extra", [["stream.normalize_timing=true"],
+                                   ["stream.resample_up=1", "stream.resample_down=2"],
+                                   ["stream.resample_up=2", "stream.resample_down=3",
+                                    "stream.normalize_timing=true"]])
+def test_stream_bench_with_timing_and_resampling(capsys, extra):
+    """Stream mode with the timing correction and/or the resampler on: the
+    block is aligned to subbands * hop * resample_down, as in the JAX bench
+    (bench.py:249), and the contract line is printed."""
+    cfg = _cfg("bench.mode=stream", "stream.num_subbands=4",
+               "stream.taps_per_branch=4", "bench.batch_size=48", *extra)
+    res = bench.run(cfg)
+    assert set(res) == KEYS and res["value"] > 0 and res["fallback"] is False
+    err = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    sc = cfg.stream
+    align = sc.num_subbands * sc.frame_hop * sc.resample_down
+    assert err["block_samples"] == (48 * 128 // align) * align
+    from modulationdetectioncnn_torch.dsp import pipeline
+
+    assert err["frames_per_iter"] == pipeline.total_frames(sc, err["block_samples"]) * 4

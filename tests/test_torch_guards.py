@@ -12,6 +12,7 @@ import ast
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -136,14 +137,22 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert banned not in src
     sources = _build._sources()
     assert [os.path.basename(s) for s in sources] == [
-        "conv_stage_int8.cu", "conv_stage_int8_v10.cu", "conv_stage_int8_v5.cu",
-        "conv_stage_int8_v6.cu", "dense_argmax_int8.cu"]
+        "conv_stage_int8.cu", "conv_stage_int8_v10.cu", "conv_stage_int8_v3.cu",
+        "conv_stage_int8_v5.cu", "conv_stage_int8_v6.cu", "correct_timing.cu",
+        "dense_argmax_int8.cu"]
     assert [os.path.basename(s) for s in _build._headers()] == ["conv_stage_int8_mma.cuh"]
     for s in sources:
         with open(s) as f:
             cu = f.read()
         assert "torch/extension.h" not in cu and 'extern "C"' in cu
-        assert "Replaces: modulationdetectioncnn_tpu/ops/infer.py::" in cu
+        assert ("Replaces: modulationdetectioncnn_tpu/ops/infer.py::" in cu
+                or "Replaces: modulationdetectioncnn_tpu/dsp/normalize.py::" in cu)
+    # Every C entry point a wrapper calls is declared with its argument types.
+    entries = set()
+    for s in sources:
+        with open(s) as f:
+            entries |= set(re.findall(r'extern "C" int (amc_\w+)\(', f.read()))
+    assert entries == set(_build._SIGNATURES)
 
 
 @pytest.mark.parametrize("edited", ["conv_stage_int8.cu", "conv_stage_int8_mma.cuh"])
@@ -315,3 +324,74 @@ def test_eval_and_quantize_raise_without_cuda(argv):
     assert proc.returncode != 0
     assert "device=cpu" in proc.stderr
     assert not proc.stdout.strip()
+
+
+def test_new_cuda_wrappers_reject_what_the_kernel_does_not_take():
+    """The v3/v2 stages take (B, 126, 8) int8 tap rows, the logits stage
+    the conv map, the timing FIR (B, 2, T) float32 frames with (B, taps)
+    odd-tap filters: anything else raises before a launch."""
+    from modulationdetectioncnn_torch.dsp import normalize
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    qw = load_int8(device="cpu")
+    rows = torch.zeros((1, 126, 8), dtype=torch.int8, device="meta")
+    planes = torch.zeros((1, 8, 128), dtype=torch.int8, device="meta")
+    for stage in (infer.conv_stage_int8_v3, infer.conv_stage_int8_v2):
+        with pytest.raises(ValueError, match="unsupported device"):
+            stage(rows, qw)
+        with pytest.raises(ValueError, match="expected"):
+            stage(planes, qw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        infer.dense_int8(torch.zeros((1, 9920), dtype=torch.int8, device="meta"), qw)
+    x = torch.zeros((3, 2, 128), device="meta")
+    c = torch.zeros((3, 17), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        normalize.correct_timing_fir(x, c)
+    assert normalize.correct_timing_fir.launches == 0
+
+
+TIMING_BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from modulationdetectioncnn_torch import cli
+from modulationdetectioncnn_torch.dsp import fir
+for argv in (["stream", "device=cpu", "stream.normalize_timing=true", "eval.int8_kernel=v3"],
+             ["stream", "device=cpu", "stream.resample_up=1", "stream.resample_down=2",
+              "eval.int8_kernel=v2"],
+             ["bench", "device=cpu", "pallas_int8", "bench.batch_size=8",
+              "bench.warmup_iters=1", "bench.timed_iters=2", "bench.stream_extra=false"]):
+    assert cli.main(argv) == 0, argv
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_timing_resampler_v3_v2_run_with_jax_blocked():
+    """The stream with timing correction and v3, with the resampler and v2,
+    and the pallas_int8 bench run with every JAX module blocked."""
+    code = TIMING_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [["stream", "stream.normalize_timing=true"],
+                                  ["stream", "stream.resample_up=1", "stream.resample_down=2"],
+                                  ["stream", "eval.int8_kernel=v3"],
+                                  ["eval", "eval.backend=int8", "eval.int8_kernel=v2"],
+                                  ["bench", "pallas_int8_v3"], ["bench", "pallas_int8"]],
+                         ids=["timing", "resampler", "stream_v3", "eval_v2", "bench_v3",
+                              "bench_v2"])
+def test_new_paths_raise_without_cuda(argv):
+    """This slice's paths run on the card unless device=cpu is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the command would run on it")
+    from modulationdetectioncnn_torch import cli
+
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        cli.main(argv)

@@ -151,7 +151,7 @@ def test_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
     assert tinfer.dense_argmax_int8.launches == 0
 
 
-@pytest.mark.parametrize("version", ["v3", "v2", "bf16"])
+@pytest.mark.parametrize("version", ["v1", "bf16"])
 def test_unported_versions_raise(qw, version):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tinfer.make_int8_predict(qw, version)
@@ -262,4 +262,165 @@ def test_folded_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
         "conv_stage_int8_v7": 0, "conv_stage_int8_v9": 0,
         "conv_stage_int8_v10": 0, "conv_stage_int8_v5": 0,
         "conv_stage_int8_v6": 0, "conv_stage_int8_v4": 0,
-        "dense_argmax_int8": 0}
+        "conv_stage_int8_v3": 0, "conv_stage_int8_v2": 0,
+        "dense_argmax_int8": 0, "dense_int8": 0}
+
+
+# ---------------------------------------------------- v3 / v2 / dense
+
+
+def test_expand_taps_matches_jax(qm, frames):
+    """The v2/v3 prologue: quantize, then lane 3h+k of row t is
+    xq[h, t+k] (tests/test_ops_infer.py's layout), lanes 6 and 7 zero."""
+    x = np.concatenate([frames, frames[:1] * 40])           # hits the clip
+    inv = float(np.float32(1.0 / np.float64(np.float32(qm.s_x))))
+    got = tinfer.expand_taps(torch.from_numpy(x), inv).numpy()
+    want = np.asarray(jinfer.expand_taps(jnp.asarray(gq.quantize_input(x, qm.s_x)), 126))
+    assert got.shape == (17, 126, 8) and got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert (got[..., 6:] == 0).all() and {-127, 127} <= set(np.unique(got).tolist())
+
+
+def _pallas_conv_map(qm, x, version, block_b=8, chunk=4):
+    """The JAX package's v3 or v2 conv kernel alone, in interpret mode,
+    fed as its classifier feeds it (the XLA quantize + expand_taps
+    prologue): the valid (B, 124, C2) map of its output."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    b, c2, t1 = x.shape[0], qm.m2.shape[0], 126
+    x_i8 = jnp.clip(jnp.round(jnp.asarray(x) * float(1.0 / qm.s_x)), -127.0, 127.0
+                    ).astype(jnp.int8)
+    xe = jinfer.expand_taps(x_i8, t1).reshape(b * t1, 8)
+    w1e = jinfer.expand_conv1_weights(qm.w1p)
+    if version == "v2":
+        consts = (w1e, qm.m1, qm.o1, qm.w2p, qm.m2, qm.o2)
+        kern = functools.partial(jinfer._conv_stage_int8_v2_kernel, chunk=chunk, t1=t1, c2=c2)
+        out_block, out_shape = (block_b, t1 - 2, c2), (b, t1 - 2, c2)
+    else:
+        cin = qm.w2p.shape[0] // 2
+        w2 = np.asarray(qm.w2p).reshape(2, cin, 3, c2).transpose(0, 2, 1, 3)
+        consts = (w1e, qm.m1, qm.o1, jinfer.pack_conv2_weights_tapk(w2),
+                  jinfer._pad_cols(qm.m2), jinfer._pad_cols(qm.o2))
+        kern = functools.partial(jinfer._conv_stage_int8_v3_kernel, chunk=chunk, t1=t1)
+        out_block, out_shape = (block_b, t1, 128), (b, t1, 128)
+    consts = [jnp.asarray(a) for a in consts]
+    specs = [pl.BlockSpec(a.shape, (lambda i: (0,)) if a.ndim == 1 else (lambda i: (0, 0)))
+             for a in consts]
+    out = pl.pallas_call(
+        kern, grid=(b // block_b,),
+        in_specs=[pl.BlockSpec((block_b * t1, 8), lambda i: (i, 0))] + specs,
+        out_specs=pl.BlockSpec(out_block, lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct(out_shape, jnp.int8), interpret=True,
+    )(xe, *consts)
+    return np.asarray(out)[:, :124, :c2]
+
+
+@pytest.mark.parametrize("version", ["v3", "v2"])
+def test_taps_conv_stage_matches_pallas_and_golden(qm, qw, frames, version):
+    """The whole valid conv map of v3/v2 (plain version on the CPU) equals
+    the JAX package's v3/v2 Pallas kernel (interpret mode) and golden's
+    integer chain, bit for bit."""
+    a1 = gq.conv1_int8(gq.quantize_input(frames, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    want_golden = gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2)
+    want_pallas = _pallas_conv_map(qm, frames, version)
+    got = tinfer.make_conv_stage(qw, version)(torch.from_numpy(frames)).numpy()
+    assert got.shape == (16, 124, 80) and got.dtype == np.int8
+    np.testing.assert_array_equal(want_pallas, want_golden)
+    np.testing.assert_array_equal(got, want_golden)
+    assert 0 < (got > 0).mean() < 1
+
+
+@pytest.mark.parametrize("version", ["v3", "v2"])
+@pytest.mark.parametrize("n", [16, 5])
+def test_taps_labels_match_pallas_and_golden(qm, qw, frames, version, n):
+    """Full and ragged batches: labels equal the JAX package's v3/v2
+    classifier (``make_int8_predict``, interpret mode) and golden's."""
+    x = frames[:n]
+    want_pallas = np.asarray(jinfer.make_int8_predict(qm, version, interpret=True)(
+        jnp.asarray(x)))
+    got = tinfer.make_int8_predict(qw, version)(torch.from_numpy(x)).numpy()
+    assert got.shape == (n,) and got.dtype == np.int32
+    np.testing.assert_array_equal(want_pallas, gq.int8_predict(qm, x))
+    np.testing.assert_array_equal(got, want_pallas)
+
+
+@pytest.mark.parametrize("version", ["v3", "v2"])
+def test_taps_path_on_the_committed_artifact(version):
+    """The deployed model on 256 frames of synthetic RML-style data: the
+    v3/v2 map equals v7's (the integer spec) and the labels golden's."""
+    from modulationdetectioncnn_tpu.config import DataConfig
+    from modulationdetectioncnn_tpu.data.synthetic import make_dataset
+
+    x, _, _ = make_dataset(DataConfig(), snrs=[0, 10, 18],
+                           frames_per_class_per_snr=8, seed=5)
+    x = torch.from_numpy(x[:256])
+    art = load_int8(device="cpu")
+    np.testing.assert_array_equal(tinfer.make_conv_stage(art, version)(x).numpy(),
+                                  tinfer.conv_stage_int8_v7_plain(x, art).numpy())
+    np.testing.assert_array_equal(
+        tinfer.make_int8_predict(art, version)(x).numpy(),
+        gq.int8_predict(TorchQM.from_npz(DEFAULT_ARTIFACT), x.numpy()))
+
+
+@pytest.mark.parametrize("n", [16, 5])
+def test_v2_logits_match_pallas_within_one_ulp(qm, qw, frames, n):
+    """v2's logits: equal, bit for bit, to ``float32(acc4) * s4`` then
+    ``+ b4`` rounded separately (the port's plain version and its CUDA
+    kernel); the JAX package's interpret-mode kernel is within 1 ulp of
+    them, because XLA's CPU backend fuses its multiply-add into an FMA (it
+    equals the fused form bit for bit)."""
+    x = frames[:n]
+    got = tinfer.make_int8_forward_v2(qw)(torch.from_numpy(x)).numpy()
+    want = np.asarray(jinfer.make_int8_forward_v2(qm, interpret=True)(jnp.asarray(x)))
+    assert got.shape == want.shape == (n, 11) and got.dtype == np.float32
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    a1 = gq.conv1_int8(gq.quantize_input(x, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    h = gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2).reshape(n, -1).astype(np.int64)
+    acc3 = h @ qm.w3.astype(np.int64)
+    a3 = np.clip((acc3 + qm.o3) >> qm.m3, 0, 127)
+    acc4 = (a3 @ qm.w4.astype(np.int64)).astype(np.float32)
+    np.testing.assert_array_equal(got, (acc4 * qm.s4).astype(np.float32) + qm.b4)
+    fused = (acc4.astype(np.float64) * qm.s4 + qm.b4).astype(np.float32)
+    np.testing.assert_array_equal(want, fused)
+    np.testing.assert_array_equal(tinfer.argmax_lowest(torch.from_numpy(got)).numpy(),
+                                  gq.int8_predict(qm, x))
+
+
+def test_dense_stage_logits_and_labels_agree(qw, frames):
+    """The logits stage and the dense + argmax stage read the same map: the
+    argmax of one is the other, including on a padded-class model."""
+    x = torch.from_numpy(frames)
+    conv = tinfer.conv_stage_int8_v7_plain(x, qw)
+    logits = tinfer.dense_int8(conv, qw)
+    assert logits.shape == (16, 11) and logits.dtype == torch.float32
+    np.testing.assert_array_equal(tinfer.argmax_lowest(logits).numpy(),
+                                  tinfer.dense_argmax_int8(conv, qw).numpy())
+
+
+def test_taps_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
+    tinfer.reset_launch_counts()
+    x = torch.from_numpy(frames)
+    xe = tinfer.expand_taps(x, qw.inv_sx)
+    want = tinfer.conv_stage_int8_v7_plain(x, qw).numpy()
+    for stage in (tinfer.conv_stage_int8_v3, tinfer.conv_stage_int8_v2):
+        np.testing.assert_array_equal(stage(xe, qw).numpy(), want)
+    np.testing.assert_array_equal(tinfer.dense_int8(torch.from_numpy(want), qw).numpy(),
+                                  tinfer.dense_int8_plain(torch.from_numpy(want), qw).numpy())
+    assert set(tinfer.launch_counts().values()) == {0}
+
+
+def test_fold_refused_model_runs_on_v3_and_v2(qm, frames):
+    """v3 and v2 need no fold: a conv1 offset that is not bf16-exact is
+    refused by v9/v10 and runs on v3/v2 with golden's labels."""
+    tree = qm.tree()
+    tree["o1"] = np.asarray(tree["o1"]).copy()
+    tree["o1"][5] = 257
+    refused = int8_weights_from_numpy(tree, device="cpu")
+    with pytest.raises(ValueError, match="bf16"):
+        tinfer.make_int8_predict(refused, "v10")
+    want = gq.int8_predict(TorchQM.from_tree(tree), frames)
+    for v in ("v3", "v2"):
+        np.testing.assert_array_equal(
+            tinfer.make_int8_predict(refused, v)(torch.from_numpy(frames)).numpy(), want)

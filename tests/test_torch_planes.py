@@ -103,7 +103,7 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting(qw, frames):
     for stage in (tinfer.conv_stage_int8_v6, tinfer.conv_stage_int8_v4):
         np.testing.assert_array_equal(stage(xp, qw).numpy(), want)
     assert set(tinfer.launch_counts().values()) == {0}
-    assert len(tinfer.launch_counts()) == 7
+    assert len(tinfer.launch_counts()) == 10
 
 
 def test_make_conv_stage_defaults_to_v10(qm):
@@ -198,6 +198,33 @@ def test_narrow_model_padded_carry_gives_unpadded_and_golden_labels(widths, monk
         assert got.max() < nc
     padded = tinfer.conv_stage_int8_v7_plain(xt, qw).numpy()
     assert (padded[..., c2:] == 0).all()
+
+
+@pytest.mark.parametrize("widths", [(32, 16, 32, 2), (8, 80, 17, 11)],
+                         ids=["c32_c16_d32_nc2", "c8_c80_d17_nc11"])
+def test_narrow_model_on_v3_and_v2(widths, monkeypatch):
+    """v3 and v2 run a narrow model padded to the kernels' widths: the map
+    and labels are the unpadded model's and golden's, and v2's logits are
+    the unpadded plain dense stage's for the model's own classes."""
+    qm = _narrow_qm(*widths)
+    tqm = TorchQM.from_tree(qm.tree())
+    qw = int8_weights_from_numpy(tqm, device="cpu")
+    with monkeypatch.context() as m:
+        qw_raw = _unpadded(tqm, m)
+    c1, c2, d, nc = widths
+    assert qw.nc == nc and qw.b4.shape[0] == 11
+    x = torch.from_numpy((np.random.default_rng(6).standard_normal((24, 2, 128)) * 2
+                          ).astype(np.float32))
+    want_map = tinfer.conv_stage_int8_v7_plain(x, qw_raw)
+    want = gq.int8_predict(qm, x.numpy())
+    for version in ("v3", "v2"):
+        np.testing.assert_array_equal(tinfer.make_conv_stage(qw, version)(x).numpy(),
+                                      want_map.numpy())
+        np.testing.assert_array_equal(tinfer.make_int8_predict(qw, version)(x).numpy(), want)
+    logits = tinfer.make_int8_forward_v2(qw)(x)
+    assert logits.shape == (24, nc)
+    np.testing.assert_array_equal(logits.numpy(),
+                                  tinfer.dense_int8_plain(want_map, qw_raw).numpy())
 
 
 def test_pad_to_kernel_widths_layout():
