@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ``stream``, ``bench``, ``eval`` and ``quantize``
-paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's ``stream``, ``bench``, ``eval``, ``quantize``,
+``train`` and ``qat`` paths on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -12,12 +12,12 @@ Phases, each printing JSON lines (``"phase": ...``):
 2. build    -- compiles ``modulationdetectioncnn_torch/csrc/*.cu`` with nvcc
                for sm_90a (one nvcc per source, in parallel, then one link)
                and loads the library; build seconds and ptxas's report.
-3. kernels  -- each of the ten int8 kernels against its plain PyTorch
+3. kernels  -- each of the eleven int8 kernels against its plain PyTorch
                version on the card, for five weight sets (the committed int8
                artifact, seeded random weights, the bench's own PTQ
                weights, a narrow model padded to the kernels' widths, and
                a model the v9/v10 fold refuses, which runs on v7, v5, v6,
-               v4, v3 and v2 only), on 8192 seeded frames, on the stream
+               v4, v3, v2 and v1 only), on 8192 seeded frames, on the stream
                demo's 1024 frames, at B=1, on a ragged 37-frame slice and on
                the bench's 4096 frames: 0 mismatching int8 activations over
                the whole valid map, 0 mismatching logits (v2's dense stage)
@@ -26,7 +26,17 @@ Phases, each printing JSON lines (``"phase": ...``):
                stream bench's 4096 normalized frames with their own timing
                estimates, on the demo's 1024 frames, at B=1, on a ragged
                37-frame slice and at the wrap extremes of tau: 0 differing
-               floats. Times at the bench's sizes (CUDA events around runs
+               floats. The bf16 v4 conv and dense kernels against their
+               plain versions for three float weight sets (the bench's
+               seeded model, the exported checkpoint, a narrow padded
+               model) on the bench's 4096 frames, the demo's 1024, B=1 and
+               37 frames: every map element within one bf16 ulp plus 1e-3
+               of the map's largest magnitude (largest difference and
+               bit-equal share printed), labels >= 99.9 % equal with every
+               difference a near-tie of the plain logits; the whole bf16
+               classifier over the exported checkpoint against the float
+               model on the eval phase's frames (>= 0.85, printed).
+               Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
                a yardstick, and the least time the card could take (bound);
@@ -49,14 +59,15 @@ Phases, each printing JSON lines (``"phase": ...``):
                its defaults: cnn mode at B=4096 with calibration over v7 and
                v10 and the stream_extra line; then stream mode, and stream
                mode with ``stream.normalize_timing=true``; then the v9, v3
-               and v2 (``pallas_int8``) backends named explicitly. Counters
+               and v2 (``pallas_int8``) backends named explicitly, and the
+               bf16 v4 classifier (``pallas_bf16_v4``). Counters
                zeroed before each run.
                Its stdout and stderr lines are printed as they came; the
                contract keys, ``fallback`` false, the winner among the
                candidates, every kernel of each run launched, and no
                ``stream_extra_error`` are required.
-6. eval     -- ``eval eval.backend=int8`` with each of v5, v6, v4, v7, v10, v3
-               and v2
+6. eval     -- ``eval eval.backend=int8`` with each of v5, v6, v4, v7, v10, v3,
+               v2 and v1
                on 3520 frames (16 per class at 20 SNRs), counters zeroed
                before each: the version's conv kernel and its dense kernel
                launched and nothing else, the labels that run returned equal
@@ -68,11 +79,26 @@ Phases, each printing JSON lines (``"phase": ...``):
 7. quantize -- ``quantize`` of the exported float checkpoint into a
                temporary directory: agreement_vs_float, and per array the
                elements that differ from the committed artifact (reported).
-8. profile  -- torch.profiler over 10 iterations of the v10 classifier and
+8. train    -- ``train`` at full width and the default batch of 1024 for
+               300 steps on 44,000 frames (0 to 18 dB) resident on the
+               card, with checkpoints: records (samples/s), the loss
+               falling, the checkpoints kept.
+9. canary   -- the 2-class canary of tests/test_accuracy_regression.py in
+               bf16 (>= 0.85), and a resume from step 30 to 60 that logs
+               exactly steps 31..60.
+10. trained_int8 -- ``quantize`` of what ``train`` wrote, then ``eval
+               eval.int8_kernel=v1`` on it, counters zeroed just before the
+               eval: v1 and the logits dense stage launched, labels equal to
+               the plain chain's.
+11. qat     -- ``qat`` (40 steps) on a copy of the exported checkpoint, then
+               ``quantize`` of its ``_qat`` output and an int8 ``eval``
+               beside the PTQ artifact's.
+12. profile -- torch.profiler over 10 iterations of the v10 classifier and
                of the stream chain at B=4096: device time by kernel and the
                device's busy share (reported, not checked).
 
-Then one ``{"kernels": [...]}`` line and, last, the contract line
+Then one ``{"kernels": [...]}`` line (rows 1-11, 15, 16 and 21 of PERF.md's
+kernel table) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before the
 last line. With no CUDA device, or outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -97,9 +123,9 @@ BATCH = 4096          # the bench batch of the JAX package (BenchConfig)
 N_CHECK = 8192        # seeded frames held against the plain versions
 SEED = 0
 # Dense peaks from NVIDIA's data sheets: (int8 ops/s, bytes/s, float32
-# FLOP/s outside the tensor cores).
-PEAKS = {"SXM": (1979e12, 3.35e12, 67e12), "PCIe": (1513e12, 2.0e12, 51e12),
-         "NVL": (1671e12, 3.9e12, 60e12)}
+# FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor cores).
+PEAKS = {"SXM": (1979e12, 3.35e12, 67e12, 989e12), "PCIe": (1513e12, 2.0e12, 51e12, 756e12),
+         "NVL": (1671e12, 3.9e12, 60e12, 835e12)}
 TPU_KERNELS = {
     "conv_stage_int8_v7": "modulationdetectioncnn_tpu/ops/infer.py:1676",
     "dense_argmax_int8": "modulationdetectioncnn_tpu/ops/infer.py:631",
@@ -112,6 +138,9 @@ TPU_KERNELS = {
     "conv_stage_int8_v2": "modulationdetectioncnn_tpu/ops/infer.py:459",
     "dense_int8": "modulationdetectioncnn_tpu/ops/infer.py:342",
     "correct_timing_fir": "modulationdetectioncnn_tpu/dsp/normalize.py:189",
+    "conv_stage_int8_v1": "modulationdetectioncnn_tpu/ops/infer.py:317",
+    "conv_stage_bf16_v4": "modulationdetectioncnn_tpu/ops/infer.py:1819",
+    "dense_argmax_bf16": "modulationdetectioncnn_tpu/ops/infer.py:1848",
 }
 _CSRC = "modulationdetectioncnn_torch/csrc/"
 SOURCES = {
@@ -126,6 +155,9 @@ SOURCES = {
     "conv_stage_int8_v2": _CSRC + "conv_stage_int8_v3.cu",
     "dense_int8": _CSRC + "dense_argmax_int8.cu",
     "correct_timing_fir": _CSRC + "correct_timing.cu",
+    "conv_stage_int8_v1": _CSRC + "conv_stage_int8_v5.cu",
+    "conv_stage_bf16_v4": _CSRC + "conv_stage_bf16_v4.cu",
+    "dense_argmax_bf16": _CSRC + "dense_argmax_bf16.cu",
 }
 # The kernel each wrapper launches, as the profiler names it.
 KERNEL_SYMBOLS = {
@@ -139,13 +171,27 @@ KERNEL_SYMBOLS = {
     "conv_stage_int8_v3": "conv_stage_int8_rows_kernel<true>",
     "conv_stage_int8_v2": "conv_stage_int8_rows_kernel<false>",
     "dense_int8": "dense_argmax_int8_kernel<false>",
+    "conv_stage_int8_v1": "conv_stage_int8_v5_kernel",    # v5's body
+    "conv_stage_bf16_v4": "conv_stage_bf16_v4_kernel",
+    "dense_argmax_bf16": "dense_argmax_bf16_kernel",
 }
-CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2")
-INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2")   # no bf16 fold
-EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2")
+CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2", "v1")
+INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2", "v1")   # no bf16 fold
+EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2", "v1")
 EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
+# The bf16 v4 map's tolerance against its plain version: one bf16 ulp
+# relative plus 1e-3 of the map's largest magnitude (elements next to the
+# ReLU edge); the dense stage's labels: >= 99.9 % equal, and every
+# difference a near-tie of the plain logits (top-2 gap < 1e-3 of the row's
+# largest logit).
+BF16_RTOL, BF16_ATOL_OF_MAX = 2.0 ** -7, 1e-3
+BF16_LABEL_AGREEMENT, NEAR_TIE = 0.999, 1e-3
 # The eval phase's dataset: 16 frames per class at each of the 20 SNRs.
 EVAL_DATA = ("data.frames_per_class_per_snr=16",)
+# The train phase's dataset (11 classes at the 10 SNRs from 0 to 18 dB) and
+# steps.
+TRAIN_DATA = ("data.frames_per_class_per_snr=400", "data.snr_db_min=0")
+TRAIN_STEPS = 300
 FLOAT_CKPT = os.path.join(REPO, "modulationdetectioncnn_torch", "assets", "ckpt_rml11_r5")
 CONTRACT_KEYS = {"metric", "value", "unit", "vs_baseline", "backend", "fallback"}
 
@@ -163,7 +209,7 @@ def require(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def peaks_for(name: str) -> tuple[str, float, float, float]:
+def peaks_for(name: str) -> tuple[str, float, float, float, float]:
     part = "PCIe" if "PCIe" in name else "NVL" if "NVL" in name else "SXM"
     return (part, *PEAKS[part])
 
@@ -217,12 +263,12 @@ def phase_device() -> dict:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    part, int8_peak, bw_peak, f32_peak = peaks_for(name)
+    part, int8_peak, bw_peak, f32_peak, bf16_peak = peaks_for(name)
     info = {"phase": "device", "name": name, "nvidia_smi": smi,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "peaks_part": part,
             "int8_ops_per_s": int8_peak, "bytes_per_s": bw_peak,
-            "f32_flops_per_s": f32_peak}
+            "f32_flops_per_s": f32_peak, "bf16_flops_per_s": bf16_peak}
     emit(info)
     return info
 
@@ -283,17 +329,18 @@ def fold_refused_weights(art):
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from modulationdetectioncnn_torch.dsp import normalize
-    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.ops import infer, infer_bf16
 
     infer.reset_launch_counts()
+    infer_bf16.reset_launch_counts()
     normalize.correct_timing_fir.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     from modulationdetectioncnn_torch.dsp import normalize
-    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.ops import infer, infer_bf16
 
-    return {**infer.launch_counts(),
+    return {**infer.launch_counts(), **infer_bf16.launch_counts(),
             "correct_timing_fir": normalize.correct_timing_fir.launches}
 
 
@@ -324,6 +371,7 @@ def conv_pairs(x: torch.Tensor, qw, versions) -> dict:
              "v6": lambda: infer.conv_stage_int8_planes_plain(planes, qw),
              "v3": lambda: infer.conv_stage_int8_taps_plain(rows, qw)}
     plain["v10"], plain["v4"], plain["v2"] = plain["v9"], plain["v6"], plain["v3"]
+    plain["v1"] = plain["v5"]
     out = {}
     for v in versions:
         stage = getattr(infer, f"conv_stage_int8_{v}")
@@ -384,6 +432,93 @@ def timing_checks(demo: torch.Tensor, stream4096: torch.Tensor) -> tuple[list, d
                        "n": int(x.shape[0]), "mismatches": mism,
                        "finite": bool(torch.isfinite(got).all())})
         require(bool(torch.isfinite(got).all()), f"timing FIR {name}: non-finite output")
+    return checks, st
+
+
+def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
+                ) -> tuple[list, dict]:
+    """The bf16 v4 kernels against their plain versions, for three weight
+    sets (the bench's seeded torch VT-CNN2, the exported float checkpoint,
+    a narrow 2-class model padded to the kernels' widths), on the bench's
+    4096 frames, the stream demo's 1024, B=1 and a ragged 37-frame slice:
+    every map element within BF16_RTOL * |plain| + BF16_ATOL_OF_MAX *
+    max|plain|, the largest difference and the share of bit-equal elements
+    printed; the dense stage, given the plain map, with labels >= 99.9 %
+    equal and every difference a near-tie of the plain logits. Then the
+    whole bf16 classifier over the exported checkpoint on the eval phase's
+    frames against the torch float model's labels. Returns the check lines
+    and both kernels' stats."""
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, ModelConfig, apply_overrides
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+    from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+    seeded = VTCNN2(generator=torch.Generator().manual_seed(0)).state_dict()
+    narrow = VTCNN2.from_config(
+        ModelConfig(num_classes=2, conv1_filters=32, conv2_filters=16, dense_units=32),
+        generator=torch.Generator().manual_seed(SEED)).state_dict()
+    ckpt_model = restore_model(FLOAT_CKPT, ModelConfig(), 128, "cuda")[0]
+    weights = {"bench_seeded": seeded, "float_checkpoint": ckpt_model.state_dict(),
+               "narrow_c32_c16_d32_nc2": narrow}
+    inputs = {f"bench_frames_b{BATCH}": bench_x, "stream_frames": demo,
+              "seeded_b1": x_seed[:1], "seeded_b37_at3": x_seed[3:40]}
+    checks = []
+    st = {k: {"mismatches": 0, "max_abs_err": 0.0, "checked": 0}
+          for k in ("conv_stage_bf16_v4", "dense_argmax_bf16")}
+    for wname, params in weights.items():
+        bw = ib.make_bf16_weights(params, "cuda")
+        for xname, x in inputs.items():
+            got = ib.conv_stage_bf16_v4(x, bw).float()
+            want = ib.conv_stage_bf16_v4_plain(x, bw)[..., :bw.c2].float()
+            plain_map = ib.conv_stage_bf16_v4_plain(x, bw)
+            labels = ib.dense_argmax_bf16(plain_map, bw)
+            logits = ib.dense_logits_bf16_plain(plain_map, bw)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            bound = BF16_RTOL * want.abs() + BF16_ATOL_OF_MAX * float(want.abs().max())
+            outside = int((diff > bound).sum())
+            lab_p = ib.argmax_lowest(logits)
+            differ = (labels != lab_p).nonzero().flatten()
+            top2 = logits.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]) / logits.abs().masked_fill(
+                torch.isinf(logits), 0).amax(-1).clamp_min(1e-30)
+            not_tie = int((gap[differ] >= NEAR_TIE).sum())
+            agree = float((labels == lab_p).float().mean())
+            c = st["conv_stage_bf16_v4"]
+            c["mismatches"] += outside
+            c["checked"] += 1
+            c["max_abs_err"] = max(c["max_abs_err"], float(diff.max()))
+            d = st["dense_argmax_bf16"]
+            d["mismatches"] += not_tie
+            d["checked"] += 1
+            d["max_abs_err"] = max(d["max_abs_err"],
+                                   int((labels - lab_p).abs().max()) if len(x) else 0)
+            checks.append({"kernel": "conv_stage_bf16_v4", "weights": wname, "input": xname,
+                           "n": int(x.shape[0]), "outside_tolerance": outside,
+                           "max_abs_diff": float(diff.max()),
+                           "max_abs_map": float(want.abs().max()),
+                           "bit_equal_share": float((got == want).float().mean())})
+            checks.append({"kernel": "dense_argmax_bf16", "weights": wname, "input": xname,
+                           "n": int(x.shape[0]), "label_agreement": agree,
+                           "differing": int(differ.numel()), "differing_not_near_tie": not_tie})
+            require(outside == 0, f"bf16 conv {wname}/{xname}: {outside} elements outside "
+                    f"tolerance, max diff {float(diff.max())}")
+            require(bool(torch.isfinite(got).all()), f"bf16 conv {wname}/{xname}: non-finite")
+            require(agree >= BF16_LABEL_AGREEMENT and not_tie == 0,
+                    f"bf16 dense {wname}/{xname}: agreement {agree}, {not_tie} "
+                    "differences that are not near-ties")
+    # The whole classifier on the eval frames, against the float model.
+    x = torch.from_numpy(cli._build_dataset(apply_overrides(AmcConfig(), list(EVAL_DATA)))[0]).cuda()
+    classify = ib.make_bf16_classifier_v4(ckpt_model.state_dict(), "cuda")
+    with torch.no_grad():
+        flax_labels = torch.cat([ckpt_model(x[i:i + 1024]).argmax(-1)
+                                 for i in range(0, len(x), 1024)])
+    got = classify(x)
+    agree = float((got == flax_labels).float().mean())
+    checks.append({"classifier": "bf16_v4", "weights": "float_checkpoint", "frames": len(x),
+                   "label_agreement_vs_flax_model": agree})
+    require(agree >= 0.85, f"bf16 v4 classifier vs the float model: agreement {agree}")
     return checks, st
 
 
@@ -453,6 +588,9 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     timing_rows, stats["correct_timing_fir"] = timing_checks(
         demo_frames, stream_bench_frames(BATCH))
     checks += timing_rows
+    bf16_rows, bf16_stats = bf16_checks(demo_frames, x_seed, bench_x)
+    checks += bf16_rows
+    stats.update(bf16_stats)
     for c in checks:
         emit({"phase": "kernels.check", **c})
     for kname, s in stats.items():
@@ -498,6 +636,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         "conv_stage_int8_v4": (conv_ops, planes_in + conv_out + w_int),
         "conv_stage_int8_v3": (conv_ops, rows_in + conv_out + w_int),
         "conv_stage_int8_v2": (conv_ops, rows_in + conv_out + w_int),
+        "conv_stage_int8_v1": (conv_ops, frames_in + conv_out + w_int),
         "dense_argmax_int8": (dense_ops, b * 9920 + b * 4 + dense_w),
         "dense_int8": (dense_ops, b * 9920 + b * 11 * 4 + dense_w),
     }
@@ -535,6 +674,8 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         ("dense_int8", infer.dense_int8, infer.dense_int8_plain,
          lambda: torch._int_mm(h, qw.w3t.T), "torch._int_mm, dense1 (B, 9920) x "
          "(9920, 256)", h),
+        ("conv_stage_int8_v1", infer.conv_stage_int8_v1,
+         infer.conv_stage_int8_v5_plain, *lane_packed, x),
     )
     rows = []
     for kname, kernel, plain, lib, lib_what, arg in plans:
@@ -595,6 +736,41 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                  "library_call": "torch.matmul, (B, 2, 128, 17) unfolded frames x "
                                  "(B, 1, 17, 1) filters",
                  "batch": b, "f32_ops": t_ops, "bytes": t_bytes})
+    # The bf16 v4 stages on the bench's seeded float weights (what its
+    # pallas_bf16_v4 backend serves), at B=4096: operations over the bf16
+    # tensor-core peak (the function's MACs, counted as for rows 1, 3-9),
+    # bytes as for the int8 rows.
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+
+    bw = ib.make_bf16_weights(VTCNN2(generator=torch.Generator().manual_seed(0)).state_dict(),
+                              "cuda")
+    bmap = ib.conv_stage_bf16_v4_plain(x, bw)
+    a1b = ib.conv1_bf16_plain(x, bw).reshape(-1, 512)          # (B*126, 512) bf16
+    w2_cm = bw.w2t.T                                            # (512, 240), column-major
+    hb = bmap.reshape(b, -1)
+    bf16_peak = dev_info["bf16_flops_per_s"]
+    for kname, kernel, plain, lib, lib_what, arg, ops, nb in (
+            ("conv_stage_bf16_v4", ib.conv_stage_bf16_v4, ib.conv_stage_bf16_v4_plain,
+             lambda: torch.matmul(a1b, w2_cm), "torch.matmul bf16, conv2 lane-packed "
+             "(B*126, 512) x (512, 240)", x, conv_ops,
+             frames_in + nbytes(bmap) + nbytes(bw.w1e, bw.w2t, bw.b2)),
+            ("dense_argmax_bf16", ib.dense_argmax_bf16, ib.dense_argmax_bf16_plain,
+             lambda: torch.matmul(hb, bw.w3t.T), "torch.matmul bf16, dense1 (B, 9920) x "
+             "(9920, 256)", bmap, dense_ops,
+             nbytes(bmap) + b * 4 + nbytes(bw.w3t, bw.b3, bw.w4, bw.b4))):
+        t_ops, t_bytes = ops / bf16_peak * 1e3, nb / bw_peak * 1e3
+        rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
+                     "replaces": TPU_KERNELS[kname], "launches": None,
+                     "max_abs_err": stats[kname]["max_abs_err"],
+                     "mismatches": stats[kname]["mismatches"],
+                     "ms": time_ms(lambda: kernel(arg, bw), iters=20),
+                     "device_ms": device_ms(lambda: kernel(arg, bw), KERNEL_SYMBOLS[kname]),
+                     "plain_ms": time_ms(lambda: plain(arg, bw), iters=5, warmup=1, reps=3),
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": time_ms(lib, iters=20), "library_call": lib_what,
+                     "batch": b, "bf16_ops": ops, "bytes": nb})
     prologue_ms = time_ms(lambda: infer.tap_planes(x, qw.inv_sx), iters=20)
     rows_ms = time_ms(lambda: infer.expand_taps(x, qw.inv_sx), iters=20)
     filters_ms = time_ms(lambda: normalize.timing_filters(
@@ -723,8 +899,14 @@ def phase_bench() -> dict[str, int]:
                           ("pallas_int8", ("conv_stage_int8_v2", "dense_int8"))):
         res, _, _ = run_bench(backend, [backend, "bench.stream_extra=false"], path)
         require(res["backend"] == backend, f"bench {backend}: {res}")
+    # The bf16 v4 classifier, selectable by name only (as in the JAX bench).
+    bf16 = ("conv_stage_bf16_v4", "dense_argmax_bf16")
+    res, _, v4 = run_bench("pallas_bf16_v4", ["pallas_bf16_v4", "bench.stream_extra=false"], bf16)
+    require(res["backend"] == "pallas_bf16_v4"
+            and sum(v4.values()) == sum(v4[k] for k in bf16), f"bench bf16 v4: {res} {v4}")
     return {"conv_stage_int8_v10": cnn["conv_stage_int8_v10"],
-            "conv_stage_int8_v9": v9["conv_stage_int8_v9"]}
+            "conv_stage_int8_v9": v9["conv_stage_int8_v9"],
+            **{k: v4[k] for k in bf16}}
 
 
 def phase_profile() -> None:
@@ -825,7 +1007,7 @@ def phase_eval(tmp: str) -> dict[str, int]:
               "overall_accuracy": results[v]["overall_accuracy"],
               "label_mismatches_vs_plain": mism})
         kname = f"conv_stage_int8_{v}"
-        dname = "dense_int8" if v == "v2" else "dense_argmax_int8"
+        dname = "dense_int8" if v in ("v1", "v2") else "dense_argmax_int8"
         require(len(labels) == len(x) and counts[kname] > 0 and counts[dname] > 0
                 and sum(counts.values()) == counts[kname] + counts[dname],
                 f"eval {v}: {len(labels)} labels, launches {counts}")
@@ -876,6 +1058,168 @@ def phase_quantize(tmp: str) -> None:
           "agreement_vs_float": agree, "elements_differing_from_artifact": differ,
           "s_x": float(got["s_x"]), "artifact_s_x": float(ref["s_x"])})
     require(set(line) == {"int8_artifact", "agreement_vs_float"}, f"quantize printed {line}")
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its stdout captured; returns (result, the
+    stdout lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kw)
+    return result, out.getvalue().strip().splitlines()
+
+
+def phase_train(tmp: str) -> str:
+    """``train`` on the card (``cli.cmd_train``) at full width (conv1 256,
+    conv2 80, dense 256, 11 classes, bf16 compute, float32 parameters) and
+    the default ``train.batch_size=1024``, for TRAIN_STEPS steps on the
+    configured dataset cut to 400 frames per class at the 10 SNRs from 0 to
+    18 dB (44,000 frames, resident on the card), checkpointing every 100
+    steps. Reports the records (samples/s over each window). The cut keeps
+    the SNRs at which a few hundred steps learn: over all 20 SNRs Dense1's
+    units die in the first hundred steps in both packages
+    (scripts/train_liveness.py; the JAX package's own 11-class log,
+    artifacts_train.log, reads loss 2.23 at step 500), and PTQ cannot scale
+    a dead layer. Requires finite
+    losses that fall, the parameters moved from step 100 to 300, and the 3
+    checkpoints kept. Returns the checkpoint directory."""
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+
+    ck = os.path.join(tmp, "ck_train")
+    overrides = [*TRAIN_DATA, f"train.num_steps={TRAIN_STEPS}", "train.eval_every=100",
+                 "train.checkpoint_every=100"]
+    cfg = apply_overrides(AmcConfig(), [*overrides, f"train.checkpoint_dir={ck}"])
+    t0 = time.perf_counter()
+    (_, history, held_out, _), lines = quiet(cli.cmd_train, cfg)
+    wall = time.perf_counter() - t0
+    saved = sorted(os.listdir(ck), key=lambda d: int(d) if d.isdigit() else -1)
+    emit({"phase": "train", "overrides": overrides, "frames_held_out": len(held_out[0]),
+          "records": history, "wall_s": wall, "saved_steps": saved,
+          "samples_per_sec_last_window": history[-1]["samples_per_sec"],
+          "printed": json.loads(lines[-1])})
+    from modulationdetectioncnn_torch.utils.checkpoint import restore
+
+    require([h["step"] for h in history] == list(range(100, TRAIN_STEPS + 1, 100))
+            and all(np.isfinite(h["loss"]) for h in history)
+            and history[-1]["loss"] < history[0]["loss"], f"train: {history}")
+    require(saved == ["100", "200", "300"], f"train: saved steps {saved}")
+    first, last = restore(ck, 100)[0], restore(ck, 300)[0]
+    require(all(not torch.equal(first[k], last[k]) for k in first),
+            "train: a parameter did not move between steps 100 and 300")
+    return ck
+
+
+CANARY = ("data.classes=BPSK,QPSK", "model.num_classes=2", "data.frames_per_class_per_snr=100",
+          "data.snr_db_min=10", "data.snr_db_max=18", "data.snr_db_step=4",
+          "train.batch_size=128")
+
+
+def phase_canary(tmp: str) -> None:
+    """The 2-class canary of tests/test_accuracy_regression.py on the card,
+    in the default bf16: 120 steps of 128 must reach >= 0.85 on the first
+    512 held-out frames. Then resume: a run stopped at step 30 and restarted
+    with 60 steps must log exactly steps 31..60 (as the JAX package's resume
+    test, warmup 5)."""
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+    from modulationdetectioncnn_torch.data import synthetic
+    from modulationdetectioncnn_torch.train import loop
+    from modulationdetectioncnn_torch.utils import checkpoint as ckpt
+
+    cfg = apply_overrides(AmcConfig(), [*CANARY, "train.num_steps=120", "train.eval_every=120"])
+    x, y, s = synthetic.make_dataset(cfg.data)
+    (xtr, ytr, _), (xte, yte, _) = synthetic.train_test_split(x, y, s)
+    t0 = time.perf_counter()
+    model, history = loop.train(cfg, (xtr, ytr), (xte, yte))
+    acc = float((loop.make_eval_step(model)(xte[:512]).cpu().numpy() == yte[:512]).mean())
+    wall = time.perf_counter() - t0
+    d = os.path.join(tmp, "ck_canary")
+    resume = [*CANARY, "train.warmup_steps=5", f"train.checkpoint_dir={d}",
+              "train.checkpoint_every=30"]
+    loop.train(apply_overrides(AmcConfig(), [*resume, "train.num_steps=30",
+                                             "train.eval_every=30"]), (xtr, ytr))
+    count30 = ckpt.restore_train_state(d)[1].count
+    _, resumed = loop.train(apply_overrides(AmcConfig(), [*resume, "train.num_steps=60",
+                                                          "train.eval_every=1"]), (xtr, ytr))
+    steps = [h["step"] for h in resumed]
+    emit({"phase": "canary", "accuracy": acc, "gate": 0.85, "record": history[-1],
+          "wall_s": wall, "resumed_first_step": steps[0] if steps else None,
+          "resumed_last_step": steps[-1] if steps else None,
+          "optimizer_count_at_30": count30, "saved_steps": sorted(os.listdir(d))})
+    require(acc >= 0.85, f"canary: accuracy {acc} below the 0.85 gate")
+    require(steps == list(range(31, 61)) and count30 == 30,
+            f"canary resume: steps {steps[:3]}..{steps[-3:]}, count {count30}")
+
+
+def phase_trained_int8(tmp: str, ck: str) -> dict[str, int]:
+    """``quantize`` of the checkpoint ``train`` wrote, then ``eval
+    eval.backend=int8 eval.int8_kernel=v1`` on it (the eval phase's 3520
+    frames), counters zeroed just before the eval and read just after: v1
+    and the logits dense stage launched and nothing else, the labels equal
+    to the plain chain's. Returns that run's counts."""
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    cfg = apply_overrides(AmcConfig(), [f"train.checkpoint_dir={ck}"])
+    (art, agree), _ = quiet(cli.cmd_quantize, cfg)
+    cfg = apply_overrides(AmcConfig(), [*EVAL_DATA, "eval.backend=int8", "eval.int8_kernel=v1",
+                                        f"eval.int8_artifact={art}",
+                                        f"eval.results_path={tmp}/eval_trained.json"])
+    x = torch.from_numpy(cli._build_dataset(cfg)[0]).cuda()
+    qw = load_int8(art, "cuda")
+    want = torch.cat([infer.argmax_lowest(infer.dense_int8_plain(
+        infer.conv_stage_int8_v5_plain(x[i:i + 1024], qw), qw)[:, :qw.nc])
+        for i in range(0, len(x), 1024)]).cpu().numpy()
+    reset_counts()
+    t0 = time.perf_counter()
+    (result, labels), _ = quiet(cli.cmd_eval, cfg)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    mism = int((labels != want).sum())
+    emit({"phase": "trained_int8", "int8_artifact": os.path.relpath(art, tmp),
+          "agreement_vs_float": agree, "frames": len(labels), "wall_s": wall,
+          "launches": counts, "overall_accuracy": result["overall_accuracy"],
+          "headline": result["headline"], "label_mismatches_vs_plain": mism})
+    path = ("conv_stage_int8_v1", "dense_int8")
+    require(all(counts[k] > 0 for k in path) and sum(counts.values()) == sum(
+        counts[k] for k in path), f"trained int8 eval v1: launches {counts}")
+    require(mism == 0, f"trained int8 eval v1: {mism} labels differ from the plain chain")
+    return counts
+
+
+def phase_qat(tmp: str) -> None:
+    """``qat`` on a copy of the exported float checkpoint (40 steps of the
+    default batch on the configured dataset cut to 50 frames per class and
+    SNR), then ``quantize`` of its ``_qat`` output and ``eval`` of that
+    artifact with int8 (v7) on the eval phase's frames, beside the PTQ
+    artifact of the same checkpoint (phase quantize)."""
+    import shutil
+
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+
+    ck = os.path.join(tmp, "ckpt_rml11_r5")
+    shutil.copytree(FLOAT_CKPT, ck)
+    cfg = apply_overrides(AmcConfig(), ["data.frames_per_class_per_snr=50",
+                                        "train.num_steps=40", f"train.checkpoint_dir={ck}"])
+    t0 = time.perf_counter()
+    qat_dir, lines = quiet(cli.cmd_qat, cfg)
+    qat_wall = time.perf_counter() - t0
+    (art, agree), _ = quiet(cli.cmd_quantize, apply_overrides(
+        AmcConfig(), [f"train.checkpoint_dir={qat_dir}"]))
+    acc = {}
+    for name, artifact in (("qat", art), ("ptq", os.path.join(tmp, "ckpt_int8"))):
+        (res, _), _ = quiet(cli.cmd_eval, apply_overrides(AmcConfig(), [
+            *EVAL_DATA, "eval.backend=int8", f"eval.int8_artifact={artifact}",
+            f"eval.results_path={tmp}/eval_{name}.json"]))
+        acc[name] = res["overall_accuracy"]
+    emit({"phase": "qat", "printed": json.loads(lines[-1]), "qat_wall_s": qat_wall,
+          "int8_agreement_vs_float": agree, "overall_accuracy_int8": acc})
+    require(os.path.isfile(os.path.join(qat_dir, "0", "params.npz"))
+            and os.path.isfile(os.path.join(art, "int8.npz")), "qat: outputs missing")
+    require(acc["qat"] > 2 / 11, f"qat: int8 accuracy {acc}")
 
 
 def demo_frames() -> torch.Tensor:
@@ -931,6 +1275,12 @@ def main() -> int:
             # The eval path: v5, v6, v4, v3, v2 and v2's dense stage.
             launches.update(phase_eval(tmp))
             phase_quantize(tmp)
+            # This slice: train, the canary and resume, the trained
+            # checkpoint through quantize and eval with v1, qat.
+            ck = phase_train(tmp)
+            phase_canary(tmp)
+            launches["conv_stage_int8_v1"] = phase_trained_int8(tmp, ck)["conv_stage_int8_v1"]
+            phase_qat(tmp)
             phase_profile()
         for row in rows:
             row["launches"] = launches[row["name"]]

@@ -1,13 +1,24 @@
 """CLI of the port: ``python -m modulationdetectioncnn_torch <cmd> [key=value ...]``.
 
-Commands ported so far:
+Commands:
 
+- ``train``: train the float VT-CNN2 on the configured dataset's training
+  split (``train_test_split(test_frac=0.2)``), the whole split resident on
+  the device, with the in-training eval on the held-out part; with
+  ``train.checkpoint_dir`` it resumes from the newest step there and saves
+  every ``train.checkpoint_every`` steps (``<dir>/<step>/params.npz`` and
+  ``opt_state.npz``, the 3 newest kept). Records go to stderr (and
+  ``train.log_jsonl``), a summary JSON line to stdout;
+- ``qat``: quantization-aware fine-tuning of the checkpoint in
+  ``train.checkpoint_dir`` (``train.num_steps`` steps of Adam at
+  ``train.learning_rate``), saved to ``<checkpoint_dir>_qat`` at step 0,
+  which ``quantize train.checkpoint_dir=<dir>_qat`` then exports;
 - ``eval``: sweep the configured dataset (with ``eval.test_split=0.2``, its
   held-out test part) with ``eval.backend`` (``flax``,
   the torch float model restored from ``train.checkpoint_dir``; ``golden``,
   the NumPy float forward of the same parameters; ``int8``, the CUDA
-  kernels that ``eval.int8_kernel`` names on ``eval.int8_artifact``, default
-  the committed artifact), write ``eval.results_path`` and print the
+  kernels that ``eval.int8_kernel`` (v1 to v10) names on
+  ``eval.int8_artifact``, default the committed artifact), write ``eval.results_path`` and print the
   per-SNR curve and the headline JSON;
 - ``quantize``: post-training int8 quantization of the checkpoint in
   ``train.checkpoint_dir``, written to ``<checkpoint_dir>_int8``, with the
@@ -20,6 +31,15 @@ Commands ported so far:
 
 Overrides use the JAX package's names, plus ``device=``:
 
+    python -m modulationdetectioncnn_torch train data.classes=BPSK,QPSK \
+        model.num_classes=2 train.num_steps=200 train.checkpoint_dir=/tmp/ck
+    python -m modulationdetectioncnn_torch quantize train.checkpoint_dir=/tmp/ck
+    python -m modulationdetectioncnn_torch eval eval.backend=int8 \
+        eval.int8_kernel=v1 eval.int8_artifact=/tmp/ck_int8 \
+        data.classes=BPSK,QPSK model.num_classes=2
+    python -m modulationdetectioncnn_torch qat train.checkpoint_dir=/tmp/ck \
+        train.num_steps=50 data.classes=BPSK,QPSK model.num_classes=2
+    python -m modulationdetectioncnn_torch bench pallas_bf16_v4
     python -m modulationdetectioncnn_torch eval eval.backend=int8 eval.int8_kernel=v5
     python -m modulationdetectioncnn_torch eval \\
         train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5
@@ -37,13 +57,13 @@ Overrides use the JAX package's names, plus ``device=``:
     python -m modulationdetectioncnn_torch bench pallas_int8   # v2 logits + argmax
     python -m modulationdetectioncnn_torch bench device=cpu bench.batch_size=64
 
-Every command runs on the card unless ``device=cpu`` is given. The other
-commands of the JAX package (train, qat, scaling) are not ported yet
-(ROADMAP.md).
+Every command runs on the card unless ``device=cpu`` is given. The JAX
+package's ``scaling`` command is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import json
+import logging
 import sys
 
 import numpy as np
@@ -52,7 +72,7 @@ import torch
 from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
 from modulationdetectioncnn_torch.device import resolve_device
 
-COMMANDS = ("eval", "quantize", "stream", "bench")
+COMMANDS = ("train", "eval", "quantize", "qat", "stream", "bench")
 EVAL_BACKENDS = ("flax", "golden", "int8")
 
 
@@ -60,6 +80,22 @@ def _build_dataset(cfg: AmcConfig):
     from modulationdetectioncnn_torch.data.radioml import load_dataset
 
     return load_dataset(cfg.data)
+
+
+def cmd_train(cfg: AmcConfig):
+    """Train on the configured dataset's training split, evaluating on the
+    held-out part. Returns (model, records, (x, y, snr) held out, classes)."""
+    from modulationdetectioncnn_torch.data.synthetic import train_test_split
+    from modulationdetectioncnn_torch.train import loop
+
+    resolve_device(cfg.device)
+    x, y, s, classes = _build_dataset(cfg)
+    logging.getLogger("amc").info("dataset: %s frames, %d classes", x.shape, len(classes))
+    (xtr, ytr, _), (xte, yte, ste) = train_test_split(x, y, s, test_frac=0.2)
+    model, history = loop.train(cfg, (xtr, ytr), (xte, yte))
+    print(json.dumps({"train": history[-1] if history else None,
+                      "checkpoint_dir": cfg.train.checkpoint_dir}))
+    return model, history, (xte, yte, ste), classes
 
 
 def load_float_model(cfg: AmcConfig):
@@ -165,6 +201,29 @@ def cmd_quantize(cfg: AmcConfig, out_dir: str | None = None) -> tuple[str, float
     return out_dir, agree
 
 
+def cmd_qat(cfg: AmcConfig) -> str:
+    """QAT fine-tune of the float checkpoint, saved to
+    ``<checkpoint_dir>_qat`` at step 0 (parameters only); returns that
+    directory."""
+    from modulationdetectioncnn_torch.train.qat import finetune_qat
+    from modulationdetectioncnn_torch.train.quant import calibrate_activations
+    from modulationdetectioncnn_torch.utils import checkpoint as ckpt
+
+    model = load_float_model(cfg)
+    x, y, _, _ = _build_dataset(cfg)
+    calib = x[::max(1, len(x) // cfg.quant.calib_frames)]
+    scales = calibrate_activations(model, calib, cfg.quant.act_percentile)
+    tuned = finetune_qat(
+        model.state_dict(), scales, x, y, num_steps=cfg.train.num_steps,
+        batch_size=cfg.train.batch_size, learning_rate=cfg.train.learning_rate,
+        seed=cfg.train.seed, dropout_rate=cfg.model.dropout_rate)
+    out_dir = cfg.train.checkpoint_dir.rstrip("/") + "_qat"
+    ckpt.save(out_dir, 0, tuned)
+    logging.getLogger("amc").info("QAT-tuned checkpoint saved to %s", out_dir)
+    print(json.dumps({"qat_checkpoint": out_dir}))
+    return out_dir
+
+
 def cmd_stream(cfg: AmcConfig):
     from modulationdetectioncnn_torch.dsp import pipeline
 
@@ -187,7 +246,11 @@ def main(argv: list[str] | None = None) -> int:
         cfg = apply_overrides(AmcConfig(), overrides)
     except (KeyError, ValueError, TypeError) as e:
         raise SystemExit(f"bad override: {e}") from e
-    {"eval": cmd_eval, "quantize": cmd_quantize, "stream": cmd_stream}[cmd](cfg)
+    if cmd in ("train", "qat"):      # their progress records, on stderr
+        logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                            format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    {"train": cmd_train, "eval": cmd_eval, "quantize": cmd_quantize, "qat": cmd_qat,
+     "stream": cmd_stream}[cmd](cfg)
     return 0
 
 

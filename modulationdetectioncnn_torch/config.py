@@ -3,9 +3,8 @@
 The port's own copy of the fields of ``modulationdetectioncnn_tpu/config.py``
 that its ported paths read, with the same names and defaults, so that an
 override such as ``stream.num_subbands=8`` or ``bench.backend=pallas_int8_v10``
-means the same thing to both packages. Fields of paths not ported yet
-(training beyond ``train.checkpoint_dir``, mesh, the DCN block floor) are
-absent.
+means the same thing to both packages. Fields of paths not ported yet (the
+mesh, the DCN block floor) are absent.
 """
 from __future__ import annotations
 
@@ -72,9 +71,22 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Only the checkpoint directory so far (``eval``, ``quantize`` and the
-    stream predictor restore from it); training is not ported yet."""
+    """``train`` (``train/loop.py``) and ``qat`` (``train/qat.py``);
+    ``eval``, ``quantize`` and the stream predictor restore from
+    ``checkpoint_dir``."""
+    batch_size: int = 1024
+    num_steps: int = 3000
+    learning_rate: float = 1e-3
+    warmup_steps: int = 100
+    weight_decay: float = 0.0
+    seed: int = 42
+    eval_every: int = 500
+    # In-training eval runs on at most this many held-out frames (a fixed
+    # seeded subsample, the JAX package's); 0 = the whole held-out split.
+    eval_max_frames: int = 16384
     checkpoint_dir: str | None = None
+    checkpoint_every: int = 1000
+    log_jsonl: str | None = None
 
 
 @dataclass(frozen=True)

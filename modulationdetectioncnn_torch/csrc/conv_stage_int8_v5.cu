@@ -3,7 +3,14 @@
 //
 // Replaces: modulationdetectioncnn_tpu/ops/infer.py::_conv_stage_int8_v5_kernel
 //   (ops/infer.py:1515, reached by pl.pallas_call in make_int8_classifier_v5,
-//   ops/infer.py:1592) with amc_conv_stage_int8_v5.
+//   ops/infer.py:1592) with amc_conv_stage_int8_v5, and
+// Replaces: modulationdetectioncnn_tpu/ops/infer.py::_conv_stage_int8_kernel
+//   (ops/infer.py:317, the v1 conv stage of make_int8_forward, pl.pallas_call
+//   at ops/infer.py:386) with amc_conv_stage_int8_v1. The two TPU kernels
+//   compute one function (f32 frames in, quantize, conv1, rq1, conv2 with
+//   N = 3*80, shift-add, rq2) and differed only in how Mosaic scheduled
+//   conv1 (v1 a broadcast multiply-add on the VPU, v5 a K = 8 dot), so both
+//   entry points launch the one kernel below.
 //
 // Computes, per frame of x (B, 2, 128) f32:
 //   xq   = clip(round_half_even(x * inv_sx), -127, 127)                int8
@@ -81,6 +88,17 @@ conv_stage_int8_v5_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+int launch(const void* x, long long n, const void* w1e, const void* m1,
+           const void* o1, const void* w2l, const void* m2, const void* o2,
+           float inv_sx, void* out, void* stream) {
+  return launch_persistent(
+      conv_stage_int8_v5_kernel, SMEM_BYTES, n, stream,
+      static_cast<const float*>(x), n, static_cast<const int8_t*>(w1e),
+      static_cast<const int*>(m1), static_cast<const int*>(o1),
+      static_cast<const int8_t*>(w2l), static_cast<const int*>(m2),
+      static_cast<const int*>(o2), inv_sx, static_cast<int8_t*>(out));
+}
+
 }  // namespace
 
 extern "C" int amc_conv_stage_int8_v5(const void* x, long long n,
@@ -88,10 +106,13 @@ extern "C" int amc_conv_stage_int8_v5(const void* x, long long n,
                                       const void* o1, const void* w2l,
                                       const void* m2, const void* o2,
                                       float inv_sx, void* out, void* stream) {
-  return launch_persistent(
-      conv_stage_int8_v5_kernel, SMEM_BYTES, n, stream,
-      static_cast<const float*>(x), n, static_cast<const int8_t*>(w1e),
-      static_cast<const int*>(m1), static_cast<const int*>(o1),
-      static_cast<const int8_t*>(w2l), static_cast<const int*>(m2),
-      static_cast<const int*>(o2), inv_sx, static_cast<int8_t*>(out));
+  return launch(x, n, w1e, m1, o1, w2l, m2, o2, inv_sx, out, stream);
+}
+
+extern "C" int amc_conv_stage_int8_v1(const void* x, long long n,
+                                      const void* w1e, const void* m1,
+                                      const void* o1, const void* w2l,
+                                      const void* m2, const void* o2,
+                                      float inv_sx, void* out, void* stream) {
+  return launch(x, n, w1e, m1, o1, w2l, m2, o2, inv_sx, out, stream);
 }

@@ -6,6 +6,11 @@ in ``cfg.model.dtype``, logits fp32), and the same initialisation as Flax
 (``lecun_normal`` kernels, zero biases), so that the int8 quantizer sees a
 random model at the scale its fixed-point contract was written for.
 
+Dropout (train mode only) draws its keep masks with ``torch.rand`` from
+the generator passed to ``forward``, or from torch's global generator when
+none is given; the training loop passes its own seeded generator, so a run
+is reproducible from its seed (Flax draws them from the ``dropout`` key).
+
 Layouts: the module keeps torch's own (conv weights OIHW, activations NCHW,
 ``nn.Linear`` weights (out, in)). ``params_from_flax`` and ``flax_params``
 carry a Flax parameter tree across in both directions. Flax flattens the
@@ -83,24 +88,40 @@ class VTCNN2(nn.Module):
         return fn(h, layer.weight.to(dt), layer.bias.to(dt), **kw)
 
     def forward(self, x: torch.Tensor,
-                intermediates: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+                intermediates: dict[str, torch.Tensor] | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, 2, T) -> (B, C) fp32 logits. When ``intermediates`` is a dict,
         the pre-ReLU outputs of Conv1, Conv2 and Dense1 are stored in it (as
-        Flax's ``capture_intermediates`` returns them)."""
+        Flax's ``capture_intermediates`` returns them). ``generator`` draws
+        the dropout masks in train mode."""
         keep = intermediates if intermediates is not None else {}
+        rate = self.dropout_rate if self.training else 0.0
         h = x.to(self.dtype)[:, None]                         # (B, 1, 2, T)
         h = self._layer(F.conv2d, h, self.conv1)              # (B, f1, 2, T-2)
         keep["Conv1"] = h
-        h = F.dropout(F.relu(h), self.dropout_rate, self.training)
-        h = self._layer(F.conv2d, h, self.conv2)              # (B, f2, 1, T-4)
+        h = dropout(F.relu(h), rate, generator)
+        # conv2's kernel spans both rows: a 1-D conv over the 2*f1 stacked
+        # channels (c*2 + row), the same sums, faster than conv2d on the CPU.
+        h = F.conv1d(h.flatten(1, 2), self.conv2.weight.to(self.dtype).flatten(1, 2),
+                     self.conv2.bias.to(self.dtype))[:, :, None]  # (B, f2, 1, T-4)
         keep["Conv2"] = h
-        h = F.dropout(F.relu(h), self.dropout_rate, self.training)
+        h = dropout(F.relu(h), rate, generator)
         h = h.permute(0, 2, 3, 1).flatten(1)                  # t*f2 + c order
         h = self._layer(F.linear, h, self.dense1)
         keep["Dense1"] = h
-        h = F.dropout(F.relu(h), self.dropout_rate, self.training)
+        h = dropout(F.relu(h), rate, generator)
         h = self._layer(F.linear, h, self.dense2)
         return h.to(torch.float32)
+
+
+def dropout(h: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout as Flax's ``nn.Dropout``: keep each element with
+    probability ``1 - rate`` (a uniform draw from ``generator`` below it)
+    and scale it by ``1 / (1 - rate)``, in ``h``'s dtype. Identity at rate 0."""
+    if rate == 0.0:
+        return h
+    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - rate
+    return torch.where(keep, h / (1.0 - rate), torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -124,11 +145,13 @@ def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     }
 
 
-def flax_params(model: VTCNN2) -> dict[str, dict[str, np.ndarray]]:
-    """The inverse of ``params_from_flax``: the model's fp32 parameters as a
-    Flax-layout NumPy tree (what the JAX package's quantizer reads)."""
-    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in
-          model.state_dict().items()}
+def flax_params(model: VTCNN2 | Mapping[str, torch.Tensor]
+                ) -> dict[str, dict[str, np.ndarray]]:
+    """The inverse of ``params_from_flax``: the fp32 parameters of a model
+    or of its state dict as a Flax-layout NumPy tree (what the JAX
+    package's quantizer reads)."""
+    state = model.state_dict() if isinstance(model, nn.Module) else model
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in state.items()}
     return {
         "Conv1": {"kernel": sd["conv1.weight"].transpose(2, 3, 1, 0),
                   "bias": sd["conv1.bias"]},

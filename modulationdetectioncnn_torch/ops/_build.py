@@ -45,6 +45,8 @@ _SIGNATURES = {
     # x, n, w1e, m1, o1, w2l, m2, o2, inv_sx, out, stream
     "amc_conv_stage_int8_v5": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
                                ctypes.c_float, _P, _P],
+    "amc_conv_stage_int8_v1": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_float, _P, _P],
     # xp, n, w1e, m1, o1, w2l, m2, o2, out, stream
     "amc_conv_stage_int8_v6": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
                                _P, _P],
@@ -57,6 +59,11 @@ _SIGNATURES = {
                                _P, _P],
     # h, n, w3t, m3, o3, w4, s4, b4, logits, stream
     "amc_dense_int8": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P],
+    # x, n, w1e, w2t, b2, out, stream
+    "amc_conv_stage_bf16_v4": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P],
+    # h, n, w3t, b3, w4, b4, nc, labels, stream
+    "amc_dense_argmax_bf16": [_P, ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int,
+                              _P, _P],
     # x, rows, t_len, c, taps, out, stream
     "amc_correct_timing_fir": [_P, ctypes.c_longlong, ctypes.c_int, _P,
                                ctypes.c_int, _P, _P],

@@ -1,8 +1,9 @@
-"""int8 VT-CNN2 inference: the fused stages and the v2-v10 classifiers.
+"""int8 VT-CNN2 inference: the fused stages and the v1-v10 classifiers.
 
-Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py``'s v2 to v10
-paths. The classifiers share the dense stage (v2: the dense stage without
-the argmax, which returns logits) and differ in the conv stage, which all
+Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py``'s int8 v1 to
+v10 paths (its bf16 v4 classifier is ``ops/infer_bf16.py``). The
+classifiers share the dense stage (v1, v2: the dense stage without the
+argmax, which returns logits) and differ in the conv stage, which all
 compute one function (the integer spec of ``golden/quant.py``) from
 different inputs and with different conv1 arithmetic:
 
@@ -12,6 +13,9 @@ different inputs and with different conv1 arithmetic:
   also prefetches the next frame while the current one's products run;
 - v5: frames in, quantize and the tap planes in the kernel, conv1 as an
   int8 tensor-core product, then integer rq1 and v10's conv2;
+- v1: v5's kernel body under its own entry point (the two TPU kernels
+  differed only in how Mosaic scheduled conv1), feeding the dense stage
+  that returns logits (``make_int8_forward``), whose argmax is the label;
 - v4, v6: (B, 8, T) int8 tap planes in (quantize and ``tap_planes`` in
   plain torch first, as the JAX package did them in XLA), then v5's body;
   v6 also prefetches the next frame's planes.
@@ -37,7 +41,7 @@ tensor-core path. Each stage has three pieces in this module:
   it replaces, its bound on the H100 and what its design does about it.
 
 Shapes are the JAX package's public ones: frames (B, 2, 128) f32 in,
-labels (B,) int32 (or v2's (B, NC) f32 logits) out. The conv map is the
+labels (B,) int32 (or v1/v2's (B, NC) f32 logits) out. The conv map is the
 compact (B, 124, C2) int8; the TPU kernels' (B, 128, 128) layout padding and
 v3's garbage rows are not reproduced. The kernels
 are compiled for the full-width model; a narrower one runs padded to it
@@ -213,6 +217,7 @@ _ENTRIES = {
     "conv_stage_int8_v9": (("w1f", "w2l", "m2", "o2"), _FRAMES),
     "conv_stage_int8_v10": (("w1f", "w2l", "m2", "o2"), _FRAMES),
     "conv_stage_int8_v5": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _FRAMES),
+    "conv_stage_int8_v1": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _FRAMES),
     "conv_stage_int8_v6": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _PLANES),
     "conv_stage_int8_v4": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _PLANES),
     "conv_stage_int8_v3": (("w1e", "m1", "o1", "w2l", "m2", "o2"), _TAPS),
@@ -317,6 +322,13 @@ def conv_stage_int8_v5(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     return _run(conv_stage_int8_v5, conv_stage_int8_v5_plain, x, qw)[..., :qw.c2]
 
 
+def conv_stage_int8_v1(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
+    """v1 conv stage, v5's function and kernel body: (B, 2, 128) f32 ->
+    (B, 124, c2) int8. Launches ``csrc/conv_stage_int8_v5.cu``'s v1 entry
+    on a CUDA tensor; plain version on the CPU."""
+    return _run(conv_stage_int8_v1, conv_stage_int8_v5_plain, x, qw)[..., :qw.c2]
+
+
 def conv_stage_int8_v6(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """v6 conv stage, (B, 8, 128) int8 tap planes (``tap_planes``) ->
     (B, 124, c2) int8: conv1 and conv2 on the int8 tensor cores, the next
@@ -351,7 +363,7 @@ def conv_stage_int8_v2(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 def dense_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """Fused dense stage without the argmax, the carried-width (B, 124, 80)
-    or (B, 9920) int8 map -> (B, 11) f32 logits (v2's). Launches
+    or (B, 9920) int8 map -> (B, 11) f32 logits (v1's and v2's). Launches
     ``csrc/dense_argmax_int8.cu``'s logits entry on a CUDA tensor; plain
     version on the CPU."""
     return _run(dense_int8, dense_int8_plain, h, qw)
@@ -366,8 +378,8 @@ def dense_argmax_int8(h: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 KERNEL_WRAPPERS = (conv_stage_int8_v7, conv_stage_int8_v9, conv_stage_int8_v10,
                    conv_stage_int8_v5, conv_stage_int8_v6, conv_stage_int8_v4,
-                   conv_stage_int8_v3, conv_stage_int8_v2, dense_argmax_int8,
-                   dense_int8)
+                   conv_stage_int8_v3, conv_stage_int8_v2, conv_stage_int8_v1,
+                   dense_argmax_int8, dense_int8)
 
 
 def reset_launch_counts() -> None:
@@ -407,6 +419,7 @@ CONV_STAGES = {
     "v4": (conv_stage_int8_v4, conv_stage_int8_planes_plain, _planes),
     "v3": (conv_stage_int8_v3, conv_stage_int8_taps_plain, _taps),
     "v2": (conv_stage_int8_v2, conv_stage_int8_taps_plain, _taps),
+    "v1": (conv_stage_int8_v1, conv_stage_int8_v5_plain, _frames),
 }
 
 
@@ -416,9 +429,8 @@ def _conv_stage_fn(version: str, qw: Int8Weights):
     builds the folded conv1, so a model that breaks the fold's contract
     raises ``ValueError`` here rather than at its first batch."""
     if version not in CONV_STAGES:
-        raise NotImplementedError(
-            f"int8 kernel version {version!r} is not ported yet "
-            f"(ROADMAP.md, Queue 2); use one of {'/'.join(CONV_STAGES)}")
+        raise ValueError(f"unknown int8 kernel version {version!r}; "
+                         f"use one of {'/'.join(CONV_STAGES)}")
     if version in ("v9", "v10"):
         qw.w1f
     wrapper, plain, prologue = CONV_STAGES[version]
@@ -430,11 +442,8 @@ def _conv_stage_fn(version: str, qw: Int8Weights):
     return stage
 
 
-def make_int8_forward_v2(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
-    """v2 int8 forward, (B, 2, T) f32 -> (B, nc) f32 logits of the model's
-    own classes: the v2 conv stage, then the dense stage without the
-    argmax."""
-    stage = _conv_stage_fn("v2", qw)
+def _make_logits_forward(qw: Int8Weights, version: str):
+    stage = _conv_stage_fn(version, qw)
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         return dense_int8(stage(x), qw)[:, :qw.nc]
@@ -442,14 +451,29 @@ def make_int8_forward_v2(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tens
     return forward
 
 
+def make_int8_forward(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v1 int8 forward, (B, 2, T) f32 -> (B, nc) f32 logits of the model's
+    own classes: the v1 conv stage, then the dense stage without the
+    argmax (the JAX package's ``make_int8_forward``)."""
+    return _make_logits_forward(qw, "v1")
+
+
+def make_int8_forward_v2(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v2 int8 forward, (B, 2, T) f32 -> (B, nc) f32 logits of the model's
+    own classes: the v2 conv stage, then the dense stage without the
+    argmax."""
+    return _make_logits_forward(qw, "v2")
+
+
 def make_int8_predict(qw: Int8Weights, version: str = "v7") -> Callable[[torch.Tensor], torch.Tensor]:
     """Version-selectable int8 label predictor, (B, 2, T) f32 -> (B,) int32
     labels on the weights' device: the conv stage of ``version`` (v3, v4,
-    v5, v6, v7, v9 or v10), then the dense + argmax stage; for v2, the
-    argmax of ``make_int8_forward_v2``'s logits, ties to the lowest index
-    as ``jnp.argmax`` gives. Bit-exact against golden/quant.py."""
-    if version == "v2":
-        forward = make_int8_forward_v2(qw)
+    v5, v6, v7, v9 or v10), then the dense + argmax stage; for v1 and v2,
+    the argmax of ``make_int8_forward``'s or ``make_int8_forward_v2``'s
+    logits, ties to the lowest index as ``jnp.argmax`` gives. Bit-exact
+    against golden/quant.py. Any other name raises ``ValueError``."""
+    if version in ("v1", "v2"):
+        forward = _make_logits_forward(qw, version)
         return lambda x: argmax_lowest(forward(x))
     stage = _conv_stage_fn(version, qw)
 

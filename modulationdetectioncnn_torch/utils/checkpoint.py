@@ -1,23 +1,36 @@
-"""Restore of the float VT-CNN2 checkpoint the port reads.
+"""Save and restore of the float VT-CNN2 training state.
 
-The counterpart of ``modulationdetectioncnn_tpu/utils/checkpoint.py``'s
-restore, for the port's own layout: ``<checkpoint_dir>/<step>/params.npz``
-holding the Flax-layout parameters under ``Conv1/kernel``-style keys
-(``scripts/export_float_npz.py`` writes it from an Orbax checkpoint, which
-only JAX can read). ``restore`` returns the newest step's parameters as a
-``VTCNN2`` state dict (``models.vtcnn2.params_from_flax``), with the step.
-Saving and optimizer state come with training.
+The counterpart of ``modulationdetectioncnn_tpu/utils/checkpoint.py`` (Orbax,
+which only JAX can read), in the port's own layout:
+
+    <checkpoint_dir>/<step>/params.npz     Flax-layout parameters under
+                                           ``Conv1/kernel``-style keys
+    <checkpoint_dir>/<step>/opt_state.npz  the AdamW state: ``count`` and
+                                           ``mu/<name>``, ``nu/<name>`` per
+                                           parameter of the state dict
+
+``scripts/export_float_npz.py`` writes ``params.npz`` from an Orbax
+checkpoint. ``restore`` returns a step's parameters as a ``VTCNN2`` state
+dict (``models.vtcnn2.params_from_flax``), which ``eval``, ``quantize`` and
+the stream predictor read; ``restore_train_state`` also brings back the
+optimizer state, from which training resumes. ``save`` keeps the 3 newest
+steps (Orbax's ``max_to_keep=3`` in the JAX package) and writes each step
+into a temporary directory that it then renames, so an interrupted save
+never leaves a step that ``latest_step`` picks up.
 """
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
 import torch
 
-from modulationdetectioncnn_torch.models.vtcnn2 import params_from_flax
+from modulationdetectioncnn_torch.models.vtcnn2 import flax_params, params_from_flax
 
 PARAMS_FILE = "params.npz"
+OPT_FILE = "opt_state.npz"
+MAX_TO_KEEP = 3
 
 
 def latest_step(directory: str) -> int | None:
@@ -48,6 +61,60 @@ def restore(directory: str, step: int | None = None
         return None
     tree = load_flax_tree(os.path.join(directory, str(step), PARAMS_FILE))
     return params_from_flax(tree), step
+
+
+def save(directory: str, step: int, state: dict[str, torch.Tensor],
+         opt_state=None, max_to_keep: int = MAX_TO_KEEP) -> str:
+    """Write ``<directory>/<step>/`` (the parameters of the ``VTCNN2`` state
+    dict ``state`` and, when given, the ``train.loop.AdamState``), then
+    delete all but the ``max_to_keep`` newest steps. Returns the step's
+    directory."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, str(step))
+    tmp = os.path.join(directory, f".tmp-{step}-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    tree = flax_params(state)
+    np.savez(os.path.join(tmp, PARAMS_FILE),
+             **{f"{layer}/{k}": v for layer, d in tree.items() for k, v in d.items()})
+    if opt_state is not None:
+        arrays = {"count": np.asarray(opt_state.count, np.int64)}
+        for kind in ("mu", "nu"):
+            for name, t in getattr(opt_state, kind).items():
+                arrays[f"{kind}/{name}"] = t.detach().to("cpu", torch.float32).numpy()
+        np.savez(os.path.join(tmp, OPT_FILE), **arrays)
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    steps = sorted(int(d) for d in os.listdir(directory)
+                   if d.isdigit() and os.path.isfile(os.path.join(directory, d, PARAMS_FILE)))
+    for old in steps[:-max_to_keep]:
+        shutil.rmtree(os.path.join(directory, str(old)))
+    return final
+
+
+def restore_train_state(directory: str, step: int | None = None,
+                        device: str | torch.device = "cpu"):
+    """(state dict, ``train.loop.AdamState`` or None, step) of ``step``
+    (default: the newest) on ``device``, or None when the directory holds
+    no checkpoint. The optimizer state is None for a step saved without one
+    (an exported or a ``qat`` checkpoint)."""
+    from modulationdetectioncnn_torch.train.loop import AdamState
+
+    restored = restore(directory, step)
+    if restored is None:
+        return None
+    state, step = restored
+    state = {k: v.to(device) for k, v in state.items()}
+    path = os.path.join(directory, str(step), OPT_FILE)
+    if not os.path.isfile(path):
+        return state, None, step
+    with np.load(path) as z:
+        moments = {kind: {k.split("/", 1)[1]: torch.from_numpy(z[k]).to(device)
+                          for k in z.files if k.startswith(kind + "/")}
+                   for kind in ("mu", "nu")}
+        count = int(z["count"])
+    return state, AdamState(count=count, **moments), step
 
 
 def restore_model(directory: str, model_cfg, frame_len: int,

@@ -137,9 +137,9 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert banned not in src
     sources = _build._sources()
     assert [os.path.basename(s) for s in sources] == [
-        "conv_stage_int8.cu", "conv_stage_int8_v10.cu", "conv_stage_int8_v3.cu",
-        "conv_stage_int8_v5.cu", "conv_stage_int8_v6.cu", "correct_timing.cu",
-        "dense_argmax_int8.cu"]
+        "conv_stage_bf16_v4.cu", "conv_stage_int8.cu", "conv_stage_int8_v10.cu",
+        "conv_stage_int8_v3.cu", "conv_stage_int8_v5.cu", "conv_stage_int8_v6.cu",
+        "correct_timing.cu", "dense_argmax_bf16.cu", "dense_argmax_int8.cu"]
     assert [os.path.basename(s) for s in _build._headers()] == ["conv_stage_int8_mma.cuh"]
     for s in sources:
         with open(s) as f:
@@ -395,3 +395,81 @@ def test_new_paths_raise_without_cuda(argv):
 
     with pytest.raises(RuntimeError, match="device=cpu"):
         cli.main(argv)
+
+
+TRAIN_BLOCKED_RUN = r"""
+import os, sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from modulationdetectioncnn_torch import cli
+import modulationdetectioncnn_torch.train.loop, modulationdetectioncnn_torch.train.qat
+import modulationdetectioncnn_torch.ops.infer_bf16
+ck = {ck!r}
+tiny = ["device=cpu", "data.classes=BPSK,QPSK", "model.num_classes=2",
+        "model.conv1_filters=16", "model.conv2_filters=8", "model.dense_units=16",
+        "data.frames_per_class_per_snr=2", "data.snr_db_min=10", "data.snr_db_max=18",
+        "data.snr_db_step=8", "train.batch_size=8", "quant.calib_frames=12",
+        "eval.batch_size=16", "eval.results_path={tmp}/r.json", "train.checkpoint_dir=" + ck]
+assert cli.main(["train", *tiny, "train.num_steps=4", "train.warmup_steps=1",
+                 "train.eval_every=2", "train.checkpoint_every=2"]) == 0
+assert cli.main(["quantize", *tiny]) == 0
+assert cli.main(["eval", *tiny, "eval.backend=int8", "eval.int8_kernel=v1",
+                 "eval.int8_artifact=" + ck + "_int8"]) == 0
+assert cli.main(["qat", *tiny, "train.num_steps=2"]) == 0
+assert os.path.isfile(os.path.join(ck + "_qat", "0", "params.npz"))
+assert cli.main(["bench", "device=cpu", "pallas_bf16_v4", "bench.batch_size=8",
+                 "bench.warmup_iters=1", "bench.timed_iters=2",
+                 "bench.stream_extra=false"]) == 0
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_train_qat_v1_bf16_run_with_jax_blocked(tmp_path):
+    """train, quantize of what it wrote, eval with v1, qat, and the
+    pallas_bf16_v4 bench run with every JAX module blocked."""
+    code = TRAIN_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO, tmp=tmp_path,
+                                    ck=str(tmp_path / "ck"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [["train"],
+                                  ["qat", "train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5"],
+                                  ["eval", "eval.backend=int8", "eval.int8_kernel=v1"],
+                                  ["bench", "pallas_bf16_v4"]],
+                         ids=["train", "qat", "eval_v1", "bench_bf16_v4"])
+def test_train_qat_and_bf16_raise_without_cuda(argv):
+    """This slice's commands run on the card unless device=cpu is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the command would run on it")
+    from modulationdetectioncnn_torch import cli
+
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        cli.main(argv)
+
+
+def test_v1_and_bf16_wrappers_reject_what_the_kernel_does_not_take():
+    """v1 takes (B, 2, 128) float32 frames; the bf16 stages their own
+    shapes and dtypes; anything else, or a non-CUDA device, raises before a
+    launch."""
+    from modulationdetectioncnn_torch.ops import infer, infer_bf16
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    qw = load_int8(device="cpu")
+    frames = torch.zeros((1, 2, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        infer.conv_stage_int8_v1(frames, qw)
+    with pytest.raises(ValueError, match="expected"):
+        infer.conv_stage_int8_v1(torch.zeros((1, 8, 128), dtype=torch.int8, device="meta"), qw)
+    bw = infer_bf16.make_bf16_weights(VTCNN2().state_dict(), "cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        infer_bf16.conv_stage_bf16_v4(frames, bw)
+    with pytest.raises(ValueError, match="expected"):
+        infer_bf16.dense_argmax_bf16(torch.zeros((1, 9920), device="meta"), bw)
+    assert infer.conv_stage_int8_v1.launches == 0
+    assert infer_bf16.launch_counts() == {"conv_stage_bf16_v4": 0, "dense_argmax_bf16": 0}

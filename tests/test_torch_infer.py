@@ -152,11 +152,21 @@ def test_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
 
 
 @pytest.mark.parametrize("version", ["v1", "bf16"])
-def test_unported_versions_raise(qw, version):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_unported_versions_raise(qw, version, frames):
+    """Every int8 version of the JAX package is ported: v1 (the last one)
+    builds a classifier with golden's labels, and any other name (``bf16``)
+    raises ValueError, as the JAX package's ``make_int8_predict`` does."""
+    if version == "v1":
+        got = tinfer.make_int8_predict(qw, version)(torch.from_numpy(frames[:4])).numpy()
+        np.testing.assert_array_equal(
+            got, tinfer.make_int8_predict(qw, "v7")(torch.from_numpy(frames[:4])).numpy())
+        return
+    with pytest.raises(ValueError, match="unknown int8 kernel version"):
         tinfer.make_int8_predict(qw, version)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="unknown int8 kernel version"):
         tinfer.make_conv_stage(qw, version)
+    with pytest.raises(ValueError):
+        jinfer.make_int8_predict(None, version)
 
 
 def test_committed_npz_equals_orbax_artifact():
@@ -263,7 +273,7 @@ def test_folded_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
         "conv_stage_int8_v10": 0, "conv_stage_int8_v5": 0,
         "conv_stage_int8_v6": 0, "conv_stage_int8_v4": 0,
         "conv_stage_int8_v3": 0, "conv_stage_int8_v2": 0,
-        "dense_argmax_int8": 0, "dense_int8": 0}
+        "conv_stage_int8_v1": 0, "dense_argmax_int8": 0, "dense_int8": 0}
 
 
 # ---------------------------------------------------- v3 / v2 / dense
@@ -424,3 +434,88 @@ def test_fold_refused_model_runs_on_v3_and_v2(qm, frames):
     for v in ("v3", "v2"):
         np.testing.assert_array_equal(
             tinfer.make_int8_predict(refused, v)(torch.from_numpy(frames)).numpy(), want)
+
+
+# ------------------------------------------------------------------- v1
+
+
+def test_v1_conv_stage_matches_pallas_and_golden(qm, qw, frames):
+    """The whole valid v1 map (plain version on the CPU) equals golden's and
+    the JAX package's v1 conv kernel (``_conv_stage_int8_kernel``, interpret
+    mode): bit-exact."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    consts = [jnp.asarray(a) for a in (qm.w1p, qm.m1, qm.o1, qm.w2p, qm.m2, qm.o2)]
+    kern = functools.partial(jinfer._conv_stage_int8_kernel, chunk=4, t_in=128, c2=80,
+                             inv_sx=float(1.0 / qm.s_x))
+    want_pallas = np.asarray(pl.pallas_call(
+        kern, grid=(2,),
+        in_specs=[pl.BlockSpec((8, 2, 128), lambda i: (i, 0, 0))]
+        + [pl.BlockSpec(a.shape, (lambda i: (0,)) if a.ndim == 1 else (lambda i: (0, 0)))
+           for a in consts],
+        out_specs=pl.BlockSpec((8, 124, 80), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((16, 124, 80), jnp.int8), interpret=True,
+    )(jnp.asarray(frames), *consts))
+    a1 = gq.conv1_int8(gq.quantize_input(frames, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    want_golden = gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2)
+    got = tinfer.make_conv_stage(qw, "v1")(torch.from_numpy(frames)).numpy()
+    np.testing.assert_array_equal(want_pallas, want_golden)
+    np.testing.assert_array_equal(got, want_golden)
+    np.testing.assert_array_equal(
+        tinfer.conv_stage_int8_v1(torch.from_numpy(frames), qw).numpy(), want_golden)
+
+
+@pytest.mark.parametrize("n", [16, 5])
+def test_v1_logits_and_labels_match_pallas_and_golden(qm, qw, frames, n):
+    """v1's logits (``make_int8_forward``): bit for bit ``float32(acc4) *
+    s4`` then ``+ b4`` from golden's integer chain, and within 1 ulp of the
+    JAX package's interpret-mode forward (XLA's CPU backend fuses that
+    multiply-add); its labels equal golden's and the JAX v1 classifier's."""
+    x = frames[:n]
+    got = tinfer.make_int8_forward(qw)(torch.from_numpy(x)).numpy()
+    want = np.asarray(jinfer.make_int8_forward(qm, block_b=8, chunk=4, dense_block_b=8,
+                                               interpret=True)(jnp.asarray(x)))
+    assert got.shape == want.shape == (n, 11) and got.dtype == np.float32
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    a1 = gq.conv1_int8(gq.quantize_input(x, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    h = gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2).reshape(n, -1).astype(np.int64)
+    a3 = np.clip((h @ qm.w3.astype(np.int64) + qm.o3) >> qm.m3, 0, 127)
+    acc4 = (a3 @ qm.w4.astype(np.int64)).astype(np.float32)
+    np.testing.assert_array_equal(got, (acc4 * qm.s4).astype(np.float32) + qm.b4)
+    labels = tinfer.make_int8_predict(qw, "v1")(torch.from_numpy(x)).numpy()
+    assert labels.dtype == np.int32
+    np.testing.assert_array_equal(labels, gq.int8_predict(qm, x))
+    np.testing.assert_array_equal(
+        labels, np.asarray(jinfer.make_int8_predict(qm, "v1", interpret=True)(jnp.asarray(x))))
+
+
+def test_v1_on_a_narrow_padded_model(frames):
+    """A narrow model (conv1 32, conv2 16, dense 32, 2 classes) padded to
+    the kernels' widths: v1's map is the model's own 16 channels and its
+    logits its own 2 classes, both golden's."""
+    from modulationdetectioncnn_tpu.train.quant import quantize
+
+    model = VTCNN2(num_classes=2, conv1_filters=32, conv2_filters=16, dense_units=32,
+                   dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, model.init(jax.random.key(1), jnp.zeros((1, 2, 128))))
+    qm = quantize(model, params, frames)
+    qw = int8_weights_from_numpy(qm.tree(), device="cpu")
+    x = torch.from_numpy(frames)
+    a1 = gq.conv1_int8(gq.quantize_input(frames, qm.s_x), qm.w1p, qm.m1, qm.o1)
+    np.testing.assert_array_equal(tinfer.make_conv_stage(qw, "v1")(x).numpy(),
+                                  gq.conv2_int8(a1, qm.w2p, qm.m2, qm.o2))
+    assert tinfer.make_int8_forward(qw)(x).shape == (16, 2)
+    np.testing.assert_array_equal(tinfer.make_int8_predict(qw, "v1")(x).numpy(),
+                                  gq.int8_predict(qm, frames))
+
+
+def test_v1_cpu_wrapper_takes_the_plain_version_without_counting(qw, frames):
+    tinfer.reset_launch_counts()
+    x = torch.from_numpy(frames)
+    np.testing.assert_array_equal(tinfer.conv_stage_int8_v1(x, qw).numpy(),
+                                  tinfer.conv_stage_int8_v5_plain(x, qw).numpy())
+    tinfer.make_int8_predict(qw, "v1")(x)
+    assert tinfer.conv_stage_int8_v1.launches == 0 and tinfer.dense_int8.launches == 0
+    assert "conv_stage_int8_v1" in tinfer.launch_counts()

@@ -103,7 +103,7 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting(qw, frames):
     for stage in (tinfer.conv_stage_int8_v6, tinfer.conv_stage_int8_v4):
         np.testing.assert_array_equal(stage(xp, qw).numpy(), want)
     assert set(tinfer.launch_counts().values()) == {0}
-    assert len(tinfer.launch_counts()) == 10
+    assert len(tinfer.launch_counts()) == 11
 
 
 def test_make_conv_stage_defaults_to_v10(qm):
