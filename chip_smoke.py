@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ``stream``, ``bench``, ``eval``, ``quantize``,
-``train`` and ``qat`` paths on one NVIDIA GPU and check them.
+``train`` and ``qat`` paths and its bf16 forwards on one NVIDIA GPU and
+check them.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -26,16 +27,19 @@ Phases, each printing JSON lines (``"phase": ...``):
                stream bench's 4096 normalized frames with their own timing
                estimates, on the demo's 1024 frames, at B=1, on a ragged
                37-frame slice and at the wrap extremes of tau: 0 differing
-               floats. The bf16 v4 conv and dense kernels against their
-               plain versions for three float weight sets (the bench's
-               seeded model, the exported checkpoint, a narrow padded
-               model) on the bench's 4096 frames, the demo's 1024, B=1 and
-               37 frames: every map element within one bf16 ulp plus 1e-3
-               of the map's largest magnitude (largest difference and
-               bit-equal share printed), labels >= 99.9 % equal with every
-               difference a near-tie of the plain logits; the whole bf16
-               classifier over the exported checkpoint against the float
-               model on the eval phase's frames (>= 0.85, printed).
+               floats. The five bf16 kernels (the v4, v2 and f32-conv1
+               conv stages, the dense stage with labels and with logits)
+               against their plain versions for three float weight sets
+               (the bench's seeded model, the exported checkpoint, a
+               narrow padded model) on the bench's 4096 frames, the demo's
+               1024, B=1 and 37 frames: every map element within one bf16
+               ulp plus 1e-3 of the map's largest magnitude (largest
+               difference and bit-equal share printed), conv1 bit for bit
+               through probe weights (demo and 37 frames), the v2 map
+               equal to v4's bit for bit; labels >= 99.9 % equal with every
+               difference a near-tie of the plain logits, logits within one
+               bf16 ulp of every dense1 unit times |w4|, and the logits
+               kernel's argmax equal to the labels kernel's labels.
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -59,9 +63,11 @@ Phases, each printing JSON lines (``"phase": ...``):
                its defaults: cnn mode at B=4096 with calibration over v7 and
                v10 and the stream_extra line; then stream mode, and stream
                mode with ``stream.normalize_timing=true``; then the v9, v3
-               and v2 (``pallas_int8``) backends named explicitly, and the
-               bf16 v4 classifier (``pallas_bf16_v4``). Counters
-               zeroed before each run.
+               and v2 (``pallas_int8``) backends named explicitly, the
+               bf16 v4 classifier (``pallas_bf16_v4``) and the bf16 v2
+               forward (``bench.backend=pallas_bf16``: its conv and logits
+               kernels once per iteration each). Counters zeroed before
+               each run.
                Its stdout and stderr lines are printed as they came; the
                contract keys, ``fallback`` false, the winner among the
                candidates, every kernel of each run launched, and no
@@ -76,29 +82,34 @@ Phases, each printing JSON lines (``"phase": ...``):
                command line runs the same function); then ``eval.backend=flax``
                and ``golden`` on the exported float checkpoint (880 frames),
                with their label agreement.
-7. quantize -- ``quantize`` of the exported float checkpoint into a
+7. forwards -- the bf16 v4 classifier, ``make_bf16_forward_v2`` and
+               ``make_bf16_forward`` on the eval phase's frames with the
+               exported checkpoint, one call each with the counters zeroed
+               just before: their two kernels launched once, labels against
+               the torch float model's (>= 0.85, printed).
+8. quantize -- ``quantize`` of the exported float checkpoint into a
                temporary directory: agreement_vs_float, and per array the
                elements that differ from the committed artifact (reported).
-8. train    -- ``train`` at full width and the default batch of 1024 for
+9. train    -- ``train`` at full width and the default batch of 1024 for
                300 steps on 44,000 frames (0 to 18 dB) resident on the
                card, with checkpoints: records (samples/s), the loss
                falling, the checkpoints kept.
-9. canary   -- the 2-class canary of tests/test_accuracy_regression.py in
+10. canary  -- the 2-class canary of tests/test_accuracy_regression.py in
                bf16 (>= 0.85), and a resume from step 30 to 60 that logs
                exactly steps 31..60.
-10. trained_int8 -- ``quantize`` of what ``train`` wrote, then ``eval
+11. trained_int8 -- ``quantize`` of what ``train`` wrote, then ``eval
                eval.int8_kernel=v1`` on it, counters zeroed just before the
                eval: v1 and the logits dense stage launched, labels equal to
                the plain chain's.
-11. qat     -- ``qat`` (40 steps) on a copy of the exported checkpoint, then
+12. qat     -- ``qat`` (40 steps) on a copy of the exported checkpoint, then
                ``quantize`` of its ``_qat`` output and an int8 ``eval``
                beside the PTQ artifact's.
-12. profile -- torch.profiler over 10 iterations of the v10 classifier and
+13. profile -- torch.profiler over 10 iterations of the v10 classifier and
                of the stream chain at B=4096: device time by kernel and the
                device's busy share (reported, not checked).
 
-Then one ``{"kernels": [...]}`` line (rows 1-11, 15, 16 and 21 of PERF.md's
-kernel table) and, last, the contract line
+Then one ``{"kernels": [...]}`` line (rows 1-16 and 21 of PERF.md's kernel
+table) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before the
 last line. With no CUDA device, or outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -141,6 +152,9 @@ TPU_KERNELS = {
     "conv_stage_int8_v1": "modulationdetectioncnn_tpu/ops/infer.py:317",
     "conv_stage_bf16_v4": "modulationdetectioncnn_tpu/ops/infer.py:1819",
     "dense_argmax_bf16": "modulationdetectioncnn_tpu/ops/infer.py:1848",
+    "conv_stage_bf16_v2": "modulationdetectioncnn_tpu/ops/infer.py:199",
+    "dense_logits_bf16": "modulationdetectioncnn_tpu/ops/infer.py:107",
+    "conv_stage_bf16": "modulationdetectioncnn_tpu/ops/infer.py:82",
 }
 _CSRC = "modulationdetectioncnn_torch/csrc/"
 SOURCES = {
@@ -158,6 +172,9 @@ SOURCES = {
     "conv_stage_int8_v1": _CSRC + "conv_stage_int8_v5.cu",
     "conv_stage_bf16_v4": _CSRC + "conv_stage_bf16_v4.cu",
     "dense_argmax_bf16": _CSRC + "dense_argmax_bf16.cu",
+    "conv_stage_bf16_v2": _CSRC + "conv_stage_bf16_v4.cu",
+    "dense_logits_bf16": _CSRC + "dense_argmax_bf16.cu",
+    "conv_stage_bf16": _CSRC + "conv_stage_bf16_v4.cu",
 }
 # The kernel each wrapper launches, as the profiler names it.
 KERNEL_SYMBOLS = {
@@ -172,20 +189,27 @@ KERNEL_SYMBOLS = {
     "conv_stage_int8_v2": "conv_stage_int8_rows_kernel<false>",
     "dense_int8": "dense_argmax_int8_kernel<false>",
     "conv_stage_int8_v1": "conv_stage_int8_v5_kernel",    # v5's body
-    "conv_stage_bf16_v4": "conv_stage_bf16_v4_kernel",
-    "dense_argmax_bf16": "dense_argmax_bf16_kernel",
+    "conv_stage_bf16_v4": "conv_stage_bf16_kernel<0>",
+    "conv_stage_bf16_v2": "conv_stage_bf16_kernel<1>",
+    "conv_stage_bf16": "conv_stage_bf16_kernel<2>",
+    "dense_argmax_bf16": "dense_argmax_bf16_kernel<true>",
+    "dense_logits_bf16": "dense_argmax_bf16_kernel<false>",
 }
 CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2", "v1")
 INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2", "v1")   # no bf16 fold
 EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2", "v1")
 EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
-# The bf16 v4 map's tolerance against its plain version: one bf16 ulp
-# relative plus 1e-3 of the map's largest magnitude (elements next to the
-# ReLU edge); the dense stage's labels: >= 99.9 % equal, and every
-# difference a near-tie of the plain logits (top-2 gap < 1e-3 of the row's
-# largest logit).
+# The bf16 maps' tolerance against their plain versions (v4, v2 and the
+# f32-conv1 stage): one bf16 ulp relative plus 1e-3 of the map's largest
+# magnitude (elements next to the ReLU edge); the dense stage's labels:
+# >= 99.9 % equal, and every difference a near-tie of the plain logits
+# (top-2 gap < 1e-3 of the row's largest logit); its logits: within one bf16
+# ulp of every dense1 unit times |w4| (2^-7 * sum_d |d1_d| |w4_dc|) plus
+# 1e-6 of the largest logit, the padded classes -inf in both.
 BF16_RTOL, BF16_ATOL_OF_MAX = 2.0 ** -7, 1e-3
 BF16_LABEL_AGREEMENT, NEAR_TIE = 0.999, 1e-3
+BF16_LOGIT_ATOL_OF_MAX = 1e-6
+BF16_CONV = ("conv_stage_bf16_v4", "conv_stage_bf16_v2", "conv_stage_bf16")
 # The eval phase's dataset: 16 frames per class at each of the 20 SNRs.
 EVAL_DATA = ("data.frames_per_class_per_snr=16",)
 # The train phase's dataset (11 classes at the 10 SNRs from 0 to 18 dB) and
@@ -435,49 +459,119 @@ def timing_checks(demo: torch.Tensor, stream4096: torch.Tensor) -> tuple[list, d
     return checks, st
 
 
-def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
-                ) -> tuple[list, dict]:
-    """The bf16 v4 kernels against their plain versions, for three weight
-    sets (the bench's seeded torch VT-CNN2, the exported float checkpoint,
-    a narrow 2-class model padded to the kernels' widths), on the bench's
-    4096 frames, the stream demo's 1024, B=1 and a ragged 37-frame slice:
-    every map element within BF16_RTOL * |plain| + BF16_ATOL_OF_MAX *
-    max|plain|, the largest difference and the share of bit-equal elements
-    printed; the dense stage, given the plain map, with labels >= 99.9 %
-    equal and every difference a near-tie of the plain logits. Then the
-    whole bf16 classifier over the exported checkpoint on the eval phase's
-    frames against the torch float model's labels. Returns the check lines
-    and both kernels' stats."""
-    from modulationdetectioncnn_torch import cli
-    from modulationdetectioncnn_torch.config import AmcConfig, ModelConfig, apply_overrides
+def bf16_weight_sets() -> dict:
+    """The float weight sets the bf16 kernels are held on: the bench's
+    seeded torch VT-CNN2, the exported float checkpoint, a narrow 2-class
+    model padded to the kernels' widths (state dicts)."""
+    from modulationdetectioncnn_torch.config import ModelConfig
     from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
-    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
     from modulationdetectioncnn_torch.utils.checkpoint import restore_model
 
-    seeded = VTCNN2(generator=torch.Generator().manual_seed(0)).state_dict()
     narrow = VTCNN2.from_config(
         ModelConfig(num_classes=2, conv1_filters=32, conv2_filters=16, dense_units=32),
         generator=torch.Generator().manual_seed(SEED)).state_dict()
     ckpt_model = restore_model(FLOAT_CKPT, ModelConfig(), 128, "cuda")[0]
-    weights = {"bench_seeded": seeded, "float_checkpoint": ckpt_model.state_dict(),
-               "narrow_c32_c16_d32_nc2": narrow}
+    return {"bench_seeded": VTCNN2(generator=torch.Generator().manual_seed(0)).state_dict(),
+            "float_checkpoint": ckpt_model.state_dict(), "narrow_c32_c16_d32_nc2": narrow}
+
+
+def conv1_probe_mismatches(x: torch.Tensor, bw) -> dict[str, int]:
+    """conv1 of each bf16 conv kernel against its plain version, bit for
+    bit, seen through conv2: probe weights hold one 1.0 per output channel
+    co, on tap k (0 or 2) and conv1 channel p + co, and b2 = 0, so the
+    kernel's map is exactly ``a1[t + k, p + co]`` (one exact product, the
+    rest exact zeros, ReLU and bf16 of a non-negative bf16 value). Fourteen
+    probes (k, p) cover all 126 rows and 512 channels. Returns each
+    kernel's count of differing elements."""
+    import dataclasses
+
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+
+    xe = ib.expand_taps_bf16(x)
+    runs = {"conv_stage_bf16_v4": (ib.conv_stage_bf16_v4, x, ib.conv1_bf16_plain(x, bw)),
+            "conv_stage_bf16_v2": (ib.conv_stage_bf16_v2, xe, ib.conv1_bf16_rows_plain(xe, bw)),
+            "conv_stage_bf16": (ib.conv_stage_bf16, x,
+                                torch.relu(ib.conv1_f32_plain(x, bw)).to(torch.bfloat16))}
+    (n2, k1), c2 = bw.w2t.shape, bw.b2.shape[0]
+    co = torch.arange(c2, device=x.device)
+    mism = dict.fromkeys(runs, 0)
+    for k in (0, 2):
+        for p in range(0, k1, c2):
+            valid = p + co < k1
+            w2t = torch.zeros((n2, k1), dtype=torch.bfloat16, device=x.device)
+            w2t[k * c2 + co[valid], p + co[valid]] = 1.0
+            probe = dataclasses.replace(bw, w2t=w2t, b2=torch.zeros_like(bw.b2), c2=c2)
+            for kname, (wrapper, inp, a1) in runs.items():
+                t2 = a1.shape[1] - 2
+                want = torch.where(valid, a1[:, k:k + t2, (p + co).clamp(max=k1 - 1)], 0)
+                mism[kname] += int((wrapper(inp, probe) != want).sum())
+    return mism
+
+
+def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
+                ) -> tuple[list, dict]:
+    """The five bf16 kernels against their plain versions, for three weight
+    sets (``bf16_weight_sets``), on the bench's 4096 frames, the stream
+    demo's 1024, B=1 and a ragged 37-frame slice. The conv stages (v4; v2 on
+    the frames' tap rows; the f32-conv1 stage): every map element within
+    BF16_RTOL * |plain| + BF16_ATOL_OF_MAX * max|plain| (largest difference
+    and bit-equal share printed), and, on the demo's frames and the 37,
+    conv1 bit for bit (``conv1_probe_mismatches``); v2's map equal to v4's
+    bit for bit. The dense stages, given the plain map: labels >= 99.9 %
+    equal with every difference a near-tie of the plain logits; logits
+    within one bf16 ulp of every dense1 unit times |w4|; the argmax of the
+    logits kernel's logits equal to the labels kernel's labels. Returns the
+    check lines and the kernels' stats."""
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+
     inputs = {f"bench_frames_b{BATCH}": bench_x, "stream_frames": demo,
               "seeded_b1": x_seed[:1], "seeded_b37_at3": x_seed[3:40]}
+    probed = ("stream_frames", "seeded_b37_at3")
     checks = []
     st = {k: {"mismatches": 0, "max_abs_err": 0.0, "checked": 0}
-          for k in ("conv_stage_bf16_v4", "dense_argmax_bf16")}
-    for wname, params in weights.items():
+          for k in (*BF16_CONV, "dense_argmax_bf16", "dense_logits_bf16")}
+
+    def record(kname, bad, err):
+        st[kname]["mismatches"] += bad
+        st[kname]["checked"] += 1
+        st[kname]["max_abs_err"] = max(st[kname]["max_abs_err"], err)
+
+    for wname, params in bf16_weight_sets().items():
         bw = ib.make_bf16_weights(params, "cuda")
         for xname, x in inputs.items():
-            got = ib.conv_stage_bf16_v4(x, bw).float()
-            want = ib.conv_stage_bf16_v4_plain(x, bw)[..., :bw.c2].float()
+            xe = ib.expand_taps_bf16(x)
             plain_map = ib.conv_stage_bf16_v4_plain(x, bw)
+            maps = {"conv_stage_bf16_v4": (ib.conv_stage_bf16_v4(x, bw), plain_map),
+                    "conv_stage_bf16_v2": (ib.conv_stage_bf16_v2(xe, bw),
+                                           ib.conv_stage_bf16_v2_plain(xe, bw)),
+                    "conv_stage_bf16": (ib.conv_stage_bf16(x, bw),
+                                        ib.conv_stage_bf16_plain(x, bw))}
             labels = ib.dense_argmax_bf16(plain_map, bw)
+            logits_k = ib.dense_logits_bf16(plain_map, bw)
             logits = ib.dense_logits_bf16_plain(plain_map, bw)
+            d1 = ib.dense1_bf16_plain(plain_map, bw)
+            probe = conv1_probe_mismatches(x, bw) if xname in probed else {}
             torch.cuda.synchronize()
-            diff = (got - want).abs()
-            bound = BF16_RTOL * want.abs() + BF16_ATOL_OF_MAX * float(want.abs().max())
-            outside = int((diff > bound).sum())
+            for kname, (got, want) in maps.items():
+                got, want = got.float(), want[..., :bw.c2].float()
+                diff = (got - want).abs()
+                bound = BF16_RTOL * want.abs() + BF16_ATOL_OF_MAX * float(want.abs().max())
+                outside = int((diff > bound).sum())
+                conv1_bad = probe.get(kname, 0)
+                record(kname, outside + conv1_bad, float(diff.max()))
+                checks.append({"kernel": kname, "weights": wname, "input": xname,
+                               "n": int(x.shape[0]), "outside_tolerance": outside,
+                               "max_abs_diff": float(diff.max()),
+                               "max_abs_map": float(want.abs().max()),
+                               "bit_equal_share": float((got == want).float().mean()),
+                               "conv1_bit_mismatches": probe.get(kname)})
+                require(outside == 0 and conv1_bad == 0,
+                        f"bf16 {kname} {wname}/{xname}: {outside} elements outside "
+                        f"tolerance (max diff {float(diff.max())}), conv1 {conv1_bad} "
+                        "elements differ")
+                require(bool(torch.isfinite(got).all()), f"{kname} {wname}/{xname}: non-finite")
+            v2_vs_v4 = int((maps["conv_stage_bf16_v2"][0] != maps["conv_stage_bf16_v4"][0]).sum())
+            # The dense stages on the plain map: labels near-tie, logits.
             lab_p = ib.argmax_lowest(logits)
             differ = (labels != lab_p).nonzero().flatten()
             top2 = logits.topk(2, dim=-1).values
@@ -485,40 +579,34 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
                 torch.isinf(logits), 0).amax(-1).clamp_min(1e-30)
             not_tie = int((gap[differ] >= NEAR_TIE).sum())
             agree = float((labels == lab_p).float().mean())
-            c = st["conv_stage_bf16_v4"]
-            c["mismatches"] += outside
-            c["checked"] += 1
-            c["max_abs_err"] = max(c["max_abs_err"], float(diff.max()))
-            d = st["dense_argmax_bf16"]
-            d["mismatches"] += not_tie
-            d["checked"] += 1
-            d["max_abs_err"] = max(d["max_abs_err"],
-                                   int((labels - lab_p).abs().max()) if len(x) else 0)
-            checks.append({"kernel": "conv_stage_bf16_v4", "weights": wname, "input": xname,
-                           "n": int(x.shape[0]), "outside_tolerance": outside,
-                           "max_abs_diff": float(diff.max()),
-                           "max_abs_map": float(want.abs().max()),
-                           "bit_equal_share": float((got == want).float().mean())})
+            record("dense_argmax_bf16", not_tie,
+                   int((labels - lab_p).abs().max()) if len(x) else 0)
+            live = logits[:, :bw.nc]
+            ldiff = (logits_k[:, :bw.nc] - live).abs()
+            lbound = (BF16_RTOL * (d1.abs() @ bw.w4.float().abs())[:, :bw.nc]
+                      + BF16_LOGIT_ATOL_OF_MAX * float(live.abs().max()))
+            l_out = int((ldiff > lbound).sum()) + int(
+                (logits_k[:, bw.nc:] != float("-inf")).sum())
+            record("dense_logits_bf16", l_out, float(ldiff.max()))
+            argmax_vs_labels = int((ib.argmax_lowest(logits_k) != labels).sum())
             checks.append({"kernel": "dense_argmax_bf16", "weights": wname, "input": xname,
                            "n": int(x.shape[0]), "label_agreement": agree,
                            "differing": int(differ.numel()), "differing_not_near_tie": not_tie})
-            require(outside == 0, f"bf16 conv {wname}/{xname}: {outside} elements outside "
-                    f"tolerance, max diff {float(diff.max())}")
-            require(bool(torch.isfinite(got).all()), f"bf16 conv {wname}/{xname}: non-finite")
+            checks.append({"kernel": "dense_logits_bf16", "weights": wname, "input": xname,
+                           "n": int(x.shape[0]), "outside_tolerance": l_out,
+                           "max_abs_diff": float(ldiff.max()),
+                           "max_abs_logit": float(live.abs().max()),
+                           "bit_equal_share": float((logits_k[:, :bw.nc] == live).float().mean()),
+                           "argmax_vs_dense_argmax_labels": argmax_vs_labels,
+                           "v2_map_vs_v4_map": v2_vs_v4})
             require(agree >= BF16_LABEL_AGREEMENT and not_tie == 0,
                     f"bf16 dense {wname}/{xname}: agreement {agree}, {not_tie} "
                     "differences that are not near-ties")
-    # The whole classifier on the eval frames, against the float model.
-    x = torch.from_numpy(cli._build_dataset(apply_overrides(AmcConfig(), list(EVAL_DATA)))[0]).cuda()
-    classify = ib.make_bf16_classifier_v4(ckpt_model.state_dict(), "cuda")
-    with torch.no_grad():
-        flax_labels = torch.cat([ckpt_model(x[i:i + 1024]).argmax(-1)
-                                 for i in range(0, len(x), 1024)])
-    got = classify(x)
-    agree = float((got == flax_labels).float().mean())
-    checks.append({"classifier": "bf16_v4", "weights": "float_checkpoint", "frames": len(x),
-                   "label_agreement_vs_flax_model": agree})
-    require(agree >= 0.85, f"bf16 v4 classifier vs the float model: agreement {agree}")
+            require(l_out == 0, f"bf16 dense logits {wname}/{xname}: {l_out} outside "
+                    f"tolerance, max diff {float(ldiff.max())}")
+            require(argmax_vs_labels == 0 and v2_vs_v4 == 0,
+                    f"bf16 {wname}/{xname}: {argmax_vs_labels} argmax(logits kernel) != "
+                    f"labels kernel, {v2_vs_v4} v2 map elements != v4's")
     return checks, st
 
 
@@ -736,30 +824,47 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                  "library_call": "torch.matmul, (B, 2, 128, 17) unfolded frames x "
                                  "(B, 1, 17, 1) filters",
                  "batch": b, "f32_ops": t_ops, "bytes": t_bytes})
-    # The bf16 v4 stages on the bench's seeded float weights (what its
-    # pallas_bf16_v4 backend serves), at B=4096: operations over the bf16
-    # tensor-core peak (the function's MACs, counted as for rows 1, 3-9),
-    # bytes as for the int8 rows.
+    # The bf16 stages on the bench's seeded float weights (what its
+    # pallas_bf16_v4 and pallas_bf16 backends serve), at B=4096: operations
+    # over the peak for their type, bytes as for the int8 rows. The v4 and
+    # v2 conv stages and the dense stages count the function's MACs as bf16
+    # (the products are of bf16 values; counted as for rows 1, 3-9); the
+    # f32-conv1 stage's conv1 runs on the f32 pipes beside the tensor
+    # cores, so its operations time is the larger of conv2's bf16 MACs over
+    # the bf16 peak and conv1's f32 MACs over the f32 peak.
     from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
     from modulationdetectioncnn_torch.ops import infer_bf16 as ib
 
     bw = ib.make_bf16_weights(VTCNN2(generator=torch.Generator().manual_seed(0)).state_dict(),
                               "cuda")
     bmap = ib.conv_stage_bf16_v4_plain(x, bw)
+    xe = ib.expand_taps_bf16(x)
     a1b = ib.conv1_bf16_plain(x, bw).reshape(-1, 512)          # (B*126, 512) bf16
     w2_cm = bw.w2t.T                                            # (512, 240), column-major
     hb = bmap.reshape(b, -1)
-    bf16_peak = dev_info["bf16_flops_per_s"]
-    for kname, kernel, plain, lib, lib_what, arg, ops, nb in (
+    bf16_peak, f32_peak = dev_info["bf16_flops_per_s"], dev_info["f32_flops_per_s"]
+    conv1_f32_ops = 2 * b * 126 * 512 * 3
+    conv2_lib = (lambda: torch.matmul(a1b, w2_cm),
+                 "torch.matmul bf16, conv2 lane-packed (B*126, 512) x (512, 240)")
+    dense1_lib = (lambda: torch.matmul(hb, bw.w3t.T),
+                  "torch.matmul bf16, dense1 (B, 9920) x (9920, 256)")
+    dense_w = nbytes(bw.w3t, bw.b3, bw.w4, bw.b4)
+    for kname, kernel, plain, (lib, lib_what), arg, ops, f32_ops, nb in (
             ("conv_stage_bf16_v4", ib.conv_stage_bf16_v4, ib.conv_stage_bf16_v4_plain,
-             lambda: torch.matmul(a1b, w2_cm), "torch.matmul bf16, conv2 lane-packed "
-             "(B*126, 512) x (512, 240)", x, conv_ops,
+             conv2_lib, x, conv_ops, 0,
              frames_in + nbytes(bmap) + nbytes(bw.w1e, bw.w2t, bw.b2)),
             ("dense_argmax_bf16", ib.dense_argmax_bf16, ib.dense_argmax_bf16_plain,
-             lambda: torch.matmul(hb, bw.w3t.T), "torch.matmul bf16, dense1 (B, 9920) x "
-             "(9920, 256)", bmap, dense_ops,
-             nbytes(bmap) + b * 4 + nbytes(bw.w3t, bw.b3, bw.w4, bw.b4))):
-        t_ops, t_bytes = ops / bf16_peak * 1e3, nb / bw_peak * 1e3
+             dense1_lib, bmap, dense_ops, 0, nbytes(bmap) + b * 4 + dense_w),
+            ("conv_stage_bf16_v2", ib.conv_stage_bf16_v2, ib.conv_stage_bf16_v2_plain,
+             conv2_lib, xe, conv_ops, 0,
+             nbytes(xe) + nbytes(bmap) + nbytes(bw.w1e, bw.w2t, bw.b2)),
+            ("dense_logits_bf16", ib.dense_logits_bf16, ib.dense_logits_bf16_plain,
+             dense1_lib, bmap, dense_ops, 0, nbytes(bmap) + b * 11 * 4 + dense_w),
+            ("conv_stage_bf16", ib.conv_stage_bf16, ib.conv_stage_bf16_plain,
+             conv2_lib, x, conv_ops - conv1_f32_ops, conv1_f32_ops,
+             frames_in + nbytes(bmap) + nbytes(bw.w1p, bw.b1, bw.w2t, bw.b2))):
+        t_ops = max(ops / bf16_peak, f32_ops / f32_peak) * 1e3
+        t_bytes = nb / bw_peak * 1e3
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                      "replaces": TPU_KERNELS[kname], "launches": None,
                      "max_abs_err": stats[kname]["max_abs_err"],
@@ -770,13 +875,15 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "library_ms": time_ms(lib, iters=20), "library_call": lib_what,
-                     "batch": b, "bf16_ops": ops, "bytes": nb})
+                     "batch": b, "bf16_ops": ops, "f32_ops": f32_ops, "bytes": nb})
     prologue_ms = time_ms(lambda: infer.tap_planes(x, qw.inv_sx), iters=20)
     rows_ms = time_ms(lambda: infer.expand_taps(x, qw.inv_sx), iters=20)
     filters_ms = time_ms(lambda: normalize.timing_filters(
         normalize.estimate_timing(xt, sc.sps), sc.sps, sc.timing_phases), iters=20)
+    bf16_rows_ms = time_ms(lambda: ib.expand_taps_bf16(x), iters=20)
     emit({"phase": "kernels", "timed": rows,
           "tap_planes_prologue_ms": prologue_ms, "expand_taps_prologue_ms": rows_ms,
+          "expand_taps_bf16_prologue_ms": bf16_rows_ms,
           "timing_estimate_and_filters_ms": filters_ms})
     return rows
 
@@ -871,7 +978,9 @@ def run_bench(name: str, argv: list[str], path: tuple[str, ...]) -> tuple[dict, 
 def phase_bench() -> dict[str, int]:
     """The bench path: cnn mode at the defaults, stream mode with timing
     correction off (the default) and on, and v9, v3 and v2 (``pallas_int8``)
-    named explicitly. Returns the v9 and v10 launch counts on it."""
+    named explicitly, then the bf16 v4 classifier and the bf16 v2 forward
+    (``pallas_bf16``). Returns the launch counts of v10, v9 and the four bf16
+    kernels on it."""
     from modulationdetectioncnn_torch.config import BenchConfig
 
     cands = BenchConfig().calibration_candidates
@@ -904,9 +1013,21 @@ def phase_bench() -> dict[str, int]:
     res, _, v4 = run_bench("pallas_bf16_v4", ["pallas_bf16_v4", "bench.stream_extra=false"], bf16)
     require(res["backend"] == "pallas_bf16_v4"
             and sum(v4.values()) == sum(v4[k] for k in bf16), f"bench bf16 v4: {res} {v4}")
+    # The bf16 v2 forward (the JAX list's pallas_bf16): the tap-row prologue
+    # in torch, then the v2 conv stage and the logits dense stage, each
+    # launched once per iteration of the chained timing (a warm-up run of
+    # n2, then 5 pairs of n1 and n2) and nothing else.
+    bc = BenchConfig()
+    n1, n2 = bc.warmup_iters, bc.warmup_iters + bc.timed_iters
+    iters = n2 + 5 * (n1 + n2)
+    v2_path = ("conv_stage_bf16_v2", "dense_logits_bf16")
+    res, _, v2 = run_bench("pallas_bf16", ["bench.backend=pallas_bf16",
+                                           "bench.stream_extra=false"], v2_path)
+    require(res["backend"] == "pallas_bf16" and all(v2[k] == iters for k in v2_path)
+            and sum(v2.values()) == 2 * iters, f"bench bf16: {res} {v2}, want {iters} each")
     return {"conv_stage_int8_v10": cnn["conv_stage_int8_v10"],
             "conv_stage_int8_v9": v9["conv_stage_int8_v9"],
-            **{k: v4[k] for k in bf16}}
+            **{k: v4[k] for k in bf16}, **{k: v2[k] for k in v2_path}}
 
 
 def phase_profile() -> None:
@@ -1032,6 +1153,48 @@ def phase_eval(tmp: str) -> dict[str, int]:
     emit({"phase": "eval", "frames": len(float_labels["flax"]),
           "flax_vs_golden_label_agreement": agree})
     return launches
+
+
+def phase_forwards() -> dict[str, int]:
+    """The bf16 family on the eval phase's 3520 frames with the exported
+    float checkpoint, against the torch float model's labels: the v4
+    classifier, ``make_bf16_forward_v2`` and ``make_bf16_forward`` (argmax
+    of their logits), each called once on all the frames with the counters
+    zeroed just before and read just after: its two kernels launched once
+    each and nothing else, agreement >= 0.85 (printed). Returns the counts
+    of the ``make_bf16_forward`` run."""
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig, ModelConfig, apply_overrides
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+    from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+    model = restore_model(FLOAT_CKPT, ModelConfig(), 128, "cuda")[0]
+    x = torch.from_numpy(cli._build_dataset(apply_overrides(AmcConfig(), list(EVAL_DATA)))[0]).cuda()
+    with torch.no_grad():
+        want = torch.cat([model(x[i:i + 1024]).argmax(-1) for i in range(0, len(x), 1024)])
+    sd = model.state_dict()
+    fwd_v2, fwd = ib.make_bf16_forward_v2(sd, "cuda"), ib.make_bf16_forward(sd, "cuda")
+    runs = {"bf16_v4_classifier": (ib.make_bf16_classifier_v4(sd, "cuda"),
+                                   ("conv_stage_bf16_v4", "dense_argmax_bf16")),
+            "make_bf16_forward_v2": (lambda xb: ib.argmax_lowest(fwd_v2(xb)),
+                                     ("conv_stage_bf16_v2", "dense_logits_bf16")),
+            "make_bf16_forward": (lambda xb: ib.argmax_lowest(fwd(xb)),
+                                  ("conv_stage_bf16", "dense_logits_bf16"))}
+    counts = {}
+    for name, (classify, path) in runs.items():
+        reset_counts()
+        got = classify(x)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        agree = float((got == want).float().mean())
+        emit({"phase": "forwards", "run": name, "weights": "float_checkpoint",
+              "frames": len(x), "label_agreement_vs_float_model": agree,
+              "launches": counts[name]})
+        require(all(counts[name][k] == 1 for k in path)
+                and sum(counts[name].values()) == len(path),
+                f"forwards {name}: launches {counts[name]}")
+        require(agree >= 0.85, f"forwards {name} vs the float model: agreement {agree}")
+    return counts["make_bf16_forward"]
 
 
 def phase_quantize(tmp: str) -> None:
@@ -1271,9 +1434,11 @@ def main() -> int:
             phase_stream("resample_timing", ["stream.resample_up=1", "stream.resample_down=2",
                                              "stream.normalize_timing=true"],
                          timing, check_tops=False)
-            launches.update(phase_bench())          # the bench path: v9, v10
+            launches.update(phase_bench())          # the bench path: v9, v10, bf16
             # The eval path: v5, v6, v4, v3, v2 and v2's dense stage.
             launches.update(phase_eval(tmp))
+            # The bf16 forwards: make_bf16_forward's conv stage.
+            launches["conv_stage_bf16"] = phase_forwards()["conv_stage_bf16"]
             phase_quantize(tmp)
             # This slice: train, the canary and resume, the trained
             # checkpoint through quantize and eval with v1, qat.

@@ -11,21 +11,23 @@ roofline against the H100's data-sheet peaks, and, in cnn mode, the
     python -m modulationdetectioncnn_torch.bench                 # cnn mode
     python -m modulationdetectioncnn_torch.bench stream          # stream mode
     python -m modulationdetectioncnn_torch.bench pallas_int8_v9  # one backend
-    python -m modulationdetectioncnn_torch.bench pallas_bf16_v4  # the bf16 kernels
+    python -m modulationdetectioncnn_torch.bench pallas_bf16     # the bf16 v2 forward
+    python -m modulationdetectioncnn_torch.bench pallas_bf16_v4  # the bf16 v4 classifier
     python -m modulationdetectioncnn_torch.bench device=cpu bench.batch_size=64
 
 Backends keep the JAX package's names, so an override means the same in
 both packages: ``pallas_int8_v3`` .. ``pallas_int8_v10`` name the port's
 CUDA counterparts of those Pallas classifiers, ``pallas_int8`` the v2
-forward's logits and their argmax, ``xla_int8`` the int8 chain
-from library ops (``ops/infer_xla.py``: ``torch._int_mm``, no kernel of the
-port) and ``xla_bf16`` the torch VT-CNN2 in bf16 (cuBLAS/cuDNN);
-``pallas_bf16_v4`` the bf16 v4 classifier of the same float weights
-(``ops/infer_bf16.py``, two CUDA kernels). As in the JAX package,
-``pallas_int8_v5`` and ``pallas_bf16_v4`` are accepted by name but left out
-of ``BACKENDS``. A name the JAX package does not know raises ``ValueError``;
-``pallas_bf16``, which it knows and the port has not ported yet, raises
-``NotImplementedError``. Weights are random (a ``torch.Generator`` seeded 0) and, for
+forward's logits and their argmax, ``pallas_bf16`` the argmax of the bf16
+v2 forward's logits (``ops/infer_bf16.py::make_bf16_forward_v2``: the
+tap-row prologue in plain torch, then two CUDA kernels), ``xla_int8`` the
+int8 chain from library ops (``ops/infer_xla.py``: ``torch._int_mm``, no
+kernel of the port) and ``xla_bf16`` the torch VT-CNN2 in bf16
+(cuBLAS/cuDNN); ``pallas_bf16_v4`` the bf16 v4 classifier (two CUDA
+kernels). Both bf16 backends serve the float weights unquantized. As in the
+JAX package, ``pallas_int8_v5`` and ``pallas_bf16_v4`` are accepted by name
+but left out of ``BACKENDS``, and a name it does not know raises
+``ValueError``. Weights are random (a ``torch.Generator`` seeded 0) and, for
 the int8 backends, quantized by the port's PTQ on 256 seeded frames:
 throughput does not depend on weight values.
 
@@ -52,13 +54,12 @@ INT8_BACKENDS = {"pallas_int8_v7": "v7", "pallas_int8_v9": "v9",
                  "pallas_int8_v10": "v10", "pallas_int8_v6": "v6",
                  "pallas_int8_v4": "v4", "pallas_int8_v5": "v5",
                  "pallas_int8_v3": "v3", "pallas_int8": "v2"}
-# The JAX package's list, less the backend not ported yet: v5 and bf16 v4
-# are accepted by name but not listed.
+# The JAX package's list; v5 and bf16 v4 are accepted by name but not
+# listed.
 BACKENDS = ("pallas_int8_v10", "pallas_int8_v7", "pallas_int8_v9",
             "pallas_int8_v6", "pallas_int8_v4", "pallas_int8_v3",
-            "pallas_int8", "xla_bf16", "xla_int8")
+            "pallas_int8", "pallas_bf16", "xla_bf16", "xla_int8")
 NAMED_ONLY = ("pallas_int8_v5", "pallas_bf16_v4")
-NOT_PORTED = ("pallas_bf16",)
 
 
 def device_name(dev: torch.device) -> str:
@@ -95,12 +96,8 @@ def make_int8_weights(cfg: AmcConfig, batch: int):
 
 def make_classifier(cfg: AmcConfig, backend: str, batch: int):
     """(classifier, (input batch,)) for a named backend, on ``cfg.device``."""
-    from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+    from modulationdetectioncnn_torch.ops.infer import argmax_lowest, make_int8_predict
 
-    if backend in NOT_PORTED:
-        raise NotImplementedError(
-            f"bench backend {backend!r} is not ported yet (ROADMAP.md, "
-            f"Queue 2); ported: {', '.join(BACKENDS + NAMED_ONLY)}")
     if backend not in BACKENDS and backend not in NAMED_ONLY:
         raise ValueError(f"unknown bench backend {backend!r}; use one of "
                          f"{', '.join(BACKENDS + NAMED_ONLY)}")
@@ -116,6 +113,12 @@ def make_classifier(cfg: AmcConfig, backend: str, batch: int):
 
         x, _, model = _frames_and_model(cfg, batch)
         return make_bf16_classifier_v4(model.state_dict(), x.device), (x,)
+    if backend == "pallas_bf16":
+        from modulationdetectioncnn_torch.ops.infer_bf16 import make_bf16_forward_v2
+
+        x, _, model = _frames_and_model(cfg, batch)
+        fwd = make_bf16_forward_v2(model.state_dict(), x.device)
+        return (lambda xb: argmax_lowest(fwd(xb))), (x,)
     qw, x = make_int8_weights(cfg, batch)
     if backend == "xla_int8":
         from modulationdetectioncnn_torch.ops.infer_xla import make_int8_predict_xla

@@ -40,6 +40,7 @@ Overrides use the JAX package's names, plus ``device=``:
     python -m modulationdetectioncnn_torch qat train.checkpoint_dir=/tmp/ck \
         train.num_steps=50 data.classes=BPSK,QPSK model.num_classes=2
     python -m modulationdetectioncnn_torch bench pallas_bf16_v4
+    python -m modulationdetectioncnn_torch bench bench.backend=pallas_bf16
     python -m modulationdetectioncnn_torch eval eval.backend=int8 eval.int8_kernel=v5
     python -m modulationdetectioncnn_torch eval \\
         train.checkpoint_dir=modulationdetectioncnn_torch/assets/ckpt_rml11_r5

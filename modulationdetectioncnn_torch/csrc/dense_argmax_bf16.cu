@@ -1,18 +1,27 @@
-// Fused bf16 dense1 -> ReLU -> dense2 -> class mask -> argmax, for Hopper
-// (sm_90a).
+// Fused bf16 dense1 -> ReLU -> dense2 -> class mask [-> argmax], for
+// Hopper (sm_90a). One templated body, two C entry points:
 //
 // Replaces: modulationdetectioncnn_tpu/ops/infer.py::_dense_argmax_bf16_kernel
 //   (ops/infer.py:1848, reached by pl.pallas_call in make_bf16_classifier_v4,
-//   ops/infer.py:1940) with amc_dense_argmax_bf16.
+//   ops/infer.py:1940) with amc_dense_argmax_bf16, and
+// Replaces: modulationdetectioncnn_tpu/ops/infer.py::_dense_stage_bf16_kernel
+//   (ops/infer.py:107, the dense stage of make_bf16_forward and
+//   make_bf16_forward_v2, ops/infer.py:172 and :292) with amc_dense_bf16,
+//   which stops at the logits and writes them, (B, 11) f32.
 //
 // Computes, per frame of h (B, 9920) bf16 (the conv map flattened t*80+c):
 //   d1[d]    = bf16_rn(relu(sum_k h[k] * w3t[d, k] + b3[d]))    f32 sums
 //   logit[c] = sum_d d1[d] * w4[d, c] + b4[c]                    f32
 //   logit[c] = -inf for c >= nc (the model's own classes)
 //   label    = argmax, ties to the lowest index                 int32
-// w3t (256, 9920), w4 (256, 11) bf16; b3, b4 f32. The TPU kernel read a
-// (B, 128*128) map whose padded rows and lanes met zero rows of its W3;
-// this one reads the compact map.
+//              (amc_dense_argmax_bf16; amc_dense_bf16 writes the logits)
+// w3t (256, 9920), w4 (256, 11) bf16; b3, b4 f32. The TPU kernels read a
+// (B, 128*128) map whose padded rows and lanes met zero rows of their W3
+// (v4) or the compact (B, 9920) map (the forwards), and the forwards wrote
+// 128 logits of which the caller kept the model's own; this one reads the
+// compact map and writes 11, the padded ones at -inf as the plain version
+// does. Both entries share the logits, so the argmax of amc_dense_bf16's
+// logits is amc_dense_argmax_bf16's label.
 //
 // Bound on the H100 SXM at B = 4096: the map read once, 4096*9920*2 =
 // 81.3 MB (~0.024 ms at 3.35 TB/s), against 2*B*(9920*256 + 256*11) ~
@@ -20,13 +29,14 @@
 //
 // Design (simple and right first): a block owns 32 frames and all 256
 // dense1 outputs, so dense2 and the argmax finish in shared memory and only
-// the label leaves the block. dense1 runs on the tensor cores (bf16
-// mma.sync.m16n8k16, f32 sums), each warp 16 frames x 64 outputs; K walks
-// in chunks of 32 through two shared-memory buffers fed by cp.async, the
-// next chunk in flight while the current one is multiplied. W3 (5.1 MB)
-// is read by every block and stays in the 50 MB L2; the map is read from
-// device memory once. dense2 is 352 scalar dot products of 256 exact bf16
-// products per block, summed in order; the argmax is a strict ">" scan.
+// the label (or the 11 logits) leaves the block. dense1 runs on the tensor
+// cores (bf16 mma.sync.m16n8k16, f32 sums), each warp 16 frames x 64
+// outputs; K walks in chunks of 32 through two shared-memory buffers fed
+// by cp.async, the next chunk in flight while the current one is
+// multiplied. W3 (5.1 MB) is read by every block and stays in the 50 MB
+// L2; the map is read from device memory once. dense2 is 352 scalar dot
+// products of 256 exact bf16 products per block, summed in order; the
+// argmax is a strict ">" scan.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,13 +107,15 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* __restrict__ h,
   cp_async_commit();
 }
 
+// ARGMAX: labels (B,) int32 into out; else the logits (B, NC) f32.
+template <bool ARGMAX>
 __global__ void __launch_bounds__(THREADS)
 dense_argmax_bf16_kernel(const __nv_bfloat16* __restrict__ h, long long n,
                          const __nv_bfloat16* __restrict__ w3t,
                          const float* __restrict__ b3,
                          const __nv_bfloat16* __restrict__ w4,
                          const float* __restrict__ b4, int nc,
-                         int* __restrict__ out) {
+                         void* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ws = hs + 2 * HS_ELEMS;
@@ -167,20 +179,42 @@ dense_argmax_bf16_kernel(const __nv_bfloat16* __restrict__ h, long long n,
     for (int d = 0; d < D; ++d)
       s = __fadd_rn(s, __fmul_rn(__bfloat162float(d1s[r * DSTRIDE + d]),
                                  __bfloat162float(w4[d * NC + c])));
-    logits[r * NC + c] = c < nc ? __fadd_rn(s, b4[c]) : -INFINITY;
+    const float v = c < nc ? __fadd_rn(s, b4[c]) : -INFINITY;
+    if constexpr (ARGMAX)
+      logits[r * NC + c] = v;
+    else if (f0 + r < n)
+      static_cast<float*>(out)[(f0 + r) * NC + c] = v;
   }
-  __syncthreads();
-  if (tid < BM && f0 + tid < n) {
-    int best = 0;
-    float bv = logits[tid * NC];
-    for (int c = 1; c < NC; ++c) {
-      if (logits[tid * NC + c] > bv) {  // strict: ties keep the lowest index
-        bv = logits[tid * NC + c];
-        best = c;
+  if constexpr (ARGMAX) {
+    __syncthreads();
+    if (tid < BM && f0 + tid < n) {
+      int best = 0;
+      float bv = logits[tid * NC];
+      for (int c = 1; c < NC; ++c) {
+        if (logits[tid * NC + c] > bv) {  // strict: ties keep the lowest index
+          bv = logits[tid * NC + c];
+          best = c;
+        }
       }
+      static_cast<int*>(out)[f0 + tid] = best;
     }
-    out[f0 + tid] = best;
   }
+}
+
+template <bool ARGMAX>
+int launch(const void* h, long long n, const void* w3t, const void* b3,
+           const void* w4, const void* b4, int nc, void* out, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_argmax_bf16_kernel<ARGMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (n + BM - 1) / BM;
+  dense_argmax_bf16_kernel<ARGMAX><<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(h), n, static_cast<const __nv_bfloat16*>(w3t),
+      static_cast<const float*>(b3), static_cast<const __nv_bfloat16*>(w4),
+      static_cast<const float*>(b4), nc, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -188,14 +222,11 @@ dense_argmax_bf16_kernel(const __nv_bfloat16* __restrict__ h, long long n,
 extern "C" int amc_dense_argmax_bf16(const void* h, long long n, const void* w3t,
                                      const void* b3, const void* w4, const void* b4,
                                      int nc, void* out, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_argmax_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (n + BM - 1) / BM;
-  dense_argmax_bf16_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(h), n, static_cast<const __nv_bfloat16*>(w3t),
-      static_cast<const float*>(b3), static_cast<const __nv_bfloat16*>(w4),
-      static_cast<const float*>(b4), nc, static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(h, n, w3t, b3, w4, b4, nc, out, stream);
+}
+
+extern "C" int amc_dense_bf16(const void* h, long long n, const void* w3t,
+                              const void* b3, const void* w4, const void* b4, int nc,
+                              void* out, void* stream) {
+  return launch<false>(h, n, w3t, b3, w4, b4, nc, out, stream);
 }

@@ -61,9 +61,15 @@ _SIGNATURES = {
     "amc_dense_int8": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P],
     # x, n, w1e, w2t, b2, out, stream
     "amc_conv_stage_bf16_v4": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P],
+    # xe, n, w1e, w2t, b2, out, stream
+    "amc_conv_stage_bf16_v2": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P],
+    # x, n, w1p, b1, w2t, b2, out, stream
+    "amc_conv_stage_bf16": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P],
     # h, n, w3t, b3, w4, b4, nc, labels, stream
     "amc_dense_argmax_bf16": [_P, ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int,
                               _P, _P],
+    # h, n, w3t, b3, w4, b4, nc, logits, stream
+    "amc_dense_bf16": [_P, ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int, _P, _P],
     # x, rows, t_len, c, taps, out, stream
     "amc_correct_timing_fir": [_P, ctypes.c_longlong, ctypes.c_int, _P,
                                ctypes.c_int, _P, _P],

@@ -121,17 +121,22 @@ def conv_stage_int8_planes_plain(xp: torch.Tensor, qw: Int8Weights) -> torch.Ten
     return _conv2_plain(requantize(acc1, qw.m1, qw.o1), qw)
 
 
-def expand_taps(x: torch.Tensor, inv_sx: float) -> torch.Tensor:
-    """The v2/v3 prologue, (B, 2, T) f32 -> (B, T-2, 8) int8 tap rows:
-    quantize, then lane 3h+k of row t holds ``xq[:, h, t+k]`` and lanes 6
-    and 7 are zero (the JAX package's quantize + ``expand_taps``, which it
-    ran in XLA; the transpose of ``tap_planes`` without its two tail
-    columns). Plain torch ops."""
-    xq = quantize_input(x, inv_sx)
-    t1 = xq.shape[-1] - 2
-    cols = [xq[:, h, k:k + t1] for h in range(2) for k in range(3)]
+def tap_rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, 2, T) -> (B, T-2, 8) of x's dtype: lane 3h+k of row t holds
+    ``x[:, h, t+k]``, lanes 6 and 7 are zero (the JAX package's
+    ``expand_taps``)."""
+    t1 = x.shape[-1] - 2
+    cols = [x[:, h, k:k + t1] for h in range(2) for k in range(3)]
     zero = torch.zeros_like(cols[0])
     return torch.stack(cols + [zero, zero], dim=-1)
+
+
+def expand_taps(x: torch.Tensor, inv_sx: float) -> torch.Tensor:
+    """The v2/v3 prologue, (B, 2, T) f32 -> (B, T-2, 8) int8 tap rows:
+    quantize, then ``tap_rows`` (the JAX package's quantize +
+    ``expand_taps``, which it ran in XLA; the transpose of ``tap_planes``
+    without its two tail columns). Plain torch ops."""
+    return tap_rows(quantize_input(x, inv_sx))
 
 
 def conv_stage_int8_taps_plain(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:

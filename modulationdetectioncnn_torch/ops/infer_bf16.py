@@ -1,24 +1,40 @@
-"""The bf16 v4 VT-CNN2 classifier: float weights in, labels out.
+"""The bf16 VT-CNN2 forwards and classifier: float weights in, logits or
+labels out.
 
-Counterpart of ``modulationdetectioncnn_tpu/ops/infer.py::
-make_bf16_classifier_v4``, which serves the float weights that ``train`` and
-``qat`` write (the bench's ``pallas_bf16_v4`` backend). Two stages, each a
-wrapper, a plain version and a CUDA kernel, as in ``ops/infer.py``:
+Counterparts of the JAX package's bf16 family in ``ops/infer.py``:
+
+- ``make_bf16_classifier_v4`` (the bench's ``pallas_bf16_v4`` backend):
+  ``conv_stage_bf16_v4`` then ``dense_argmax_bf16``, labels out;
+- ``make_bf16_forward_v2`` (the bench's ``pallas_bf16``): the plain-torch
+  tap-row prologue ``expand_taps_bf16``, ``conv_stage_bf16_v2``, then
+  ``dense_logits_bf16``, logits out;
+- ``make_bf16_forward``: ``conv_stage_bf16`` then ``dense_logits_bf16``.
+
+Each stage is a wrapper, a plain version and a CUDA kernel, as in
+``ops/infer.py``:
 
 - ``conv_stage_bf16_v4``: (B, 2, 128) f32 frames -> (B, 124, c2) bf16 map:
   the frame rounded to bf16, conv1 (its three taps and its bias, all bf16,
   summed in f32 in a fixed order) -> ReLU -> bf16 -> conv2 (bf16 products,
-  f32 sums) -> shift-add + b2 -> ReLU -> bf16 (``csrc/conv_stage_bf16_v4.cu``);
+  f32 sums) -> shift-add + b2 -> ReLU -> bf16;
+- ``conv_stage_bf16_v2``: the same function from (B, 126, 8) bf16 tap rows
+  whose lane 6 carries 1.0 for conv1's bias (v4's map, bit for bit, on the
+  rows of the same frames);
+- ``conv_stage_bf16``: conv1 in f32 on the unrounded frame with f32 taps
+  and bias (the JAX ``conv1_accumulate`` order), then v4's conv2
+  (``csrc/conv_stage_bf16_v4.cu``, one body for the three conv stages);
 - ``dense_argmax_bf16``: the map -> dense1 (f32 sums) + b3 -> ReLU -> bf16 ->
   dense2 + b4 -> classes >= nc masked to -inf -> argmax, ties to the lowest
-  index (``csrc/dense_argmax_bf16.cu``).
+  index; ``dense_logits_bf16`` stops at the masked logits
+  (``csrc/dense_argmax_bf16.cu``, one body for the two).
 
 On a CUDA tensor a wrapper launches its kernel and counts the launch in its
 ``launches`` attribute, or raises; on a CPU tensor it runs the plain
 version. There is no fallback. The JAX package's TPU layout (the (B, 8, T)
-bf16 tap planes its XLA prologue built, the (B, 128, 128) padded map and
-the zero rows of ``pack_dense1_weights_v3``) is not reproduced: the conv
-kernel rounds the frames itself and both stages read the compact map.
+bf16 tap planes v4's XLA prologue built, the (B, 128, 128) padded map, the
+128 padded logits and the zero rows of ``pack_dense1_weights_v3``) is not
+reproduced: the v4 and f32 conv kernels read the frames, every stage reads
+the compact map, and the logits keep 11 classes.
 
 The kernels are compiled for the full-width model (T = 128, conv1 256,
 conv2 80, dense 256, 11 classes). A narrower model is zero-padded to those
@@ -37,7 +53,7 @@ import torch
 
 from modulationdetectioncnn_torch.device import resolve_device
 from modulationdetectioncnn_torch.ops import _build
-from modulationdetectioncnn_torch.ops.infer import argmax_lowest
+from modulationdetectioncnn_torch.ops.infer import argmax_lowest, tap_rows
 from modulationdetectioncnn_torch.quant import C1, C2, DENSE, FRAME_LEN, N_CLASSES, T2
 
 
@@ -48,6 +64,8 @@ class Bf16Weights:
     c2: int                  # the model's own conv2 filters (<= b2's length)
     nc: int                  # the model's own classes (<= b4's length)
     w1e: torch.Tensor        # (8, 2*C1) bf16: rows 3h+k taps, row 6 bias, row 7 zero
+    w1p: torch.Tensor        # (3, C1) f32 conv1 taps (conv_stage_bf16)
+    b1: torch.Tensor         # (2*C1,) f32 conv1 bias, duplicated over the planes
     w2t: torch.Tensor        # (3*C2, 2*C1) bf16, [k*C2 + co, h*C1 + c]
     b2: torch.Tensor         # (C2,) f32
     w3t: torch.Tensor        # (D, T2*C2) bf16, dense1 transposed, K in t*C2+c order
@@ -73,12 +91,14 @@ def _flax_tree(params: Any) -> Mapping[str, Mapping[str, np.ndarray]]:
 
 
 def make_bf16_weights(params: Any, device: str | torch.device = "cuda") -> Bf16Weights:
-    """Pack a float VT-CNN2 (state dict or Flax tree) for the bf16 v4
-    classifier, as the JAX package's ``make_bf16_classifier_v4`` does:
-    conv1's taps in the (8, 2*C1) tap-plane layout with its bias as row 6,
-    conv2's and the dense weights rounded to bf16 (round to nearest even),
-    the biases b2, b3, b4 in f32. A model narrower than the kernels' widths
-    is zero-padded to them."""
+    """Pack a float VT-CNN2 (state dict or Flax tree) for the bf16 stages, as
+    the JAX package's ``make_bf16_classifier_v4``, ``make_bf16_forward_v2``
+    and ``make_bf16_forward`` do: conv1's taps in the (8, 2*C1) tap-plane
+    layout with its bias as row 6 in bf16 (v4, v2), and as (3, C1) f32 taps
+    with the bias duplicated to (2*C1,) f32 (``conv_stage_bf16``); conv2's
+    and the dense weights rounded to bf16 (round to nearest even), the
+    biases b2, b3, b4 in f32. A model narrower than the kernels' widths is
+    zero-padded to them."""
     dev = resolve_device(device)
     p = _flax_tree(params)
     w1 = np.asarray(p["Conv1"]["kernel"], np.float32).reshape(3, -1)   # (3, c1)
@@ -114,7 +134,8 @@ def make_bf16_weights(params: Any, device: str | torch.device = "cuda") -> Bf16W
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
     return Bf16Weights(
-        c2=c2, nc=nc, w1e=t(w1e, torch.bfloat16), w2t=t(w2t, torch.bfloat16),
+        c2=c2, nc=nc, w1e=t(w1e, torch.bfloat16), w1p=t(w1, torch.float32),
+        b1=t(np.concatenate([b1, b1]), torch.float32), w2t=t(w2t, torch.bfloat16),
         b2=t(pad(b2, (c2p,)), torch.float32), w3t=t(w3.T, torch.bfloat16),
         b3=t(pad(b3, (dp,)), torch.float32), w4=t(pad(w4, (dp, ncp)), torch.bfloat16),
         b4=t(pad(b4, (ncp,)), torch.float32))
@@ -123,45 +144,104 @@ def make_bf16_weights(params: Any, device: str | torch.device = "cuda") -> Bf16W
 # ------------------------------------------------------- plain versions
 
 
-def conv1_bf16_plain(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
-    """(B, 2, T) f32 -> (B, T-2, 2*C1) bf16, channel h*C1 + c: the frame
-    rounded to bf16, then per channel ``((x[t]*w0 + x[t+1]*w1) + x[t+2]*w2)
-    + b`` in f32 (each product of two bf16 values is exact), ReLU, bf16 --
-    the order the kernel sums in, and the order of the JAX kernel's K = 8
-    dot, whose other lanes add exact zeros."""
-    xb = x.to(torch.bfloat16).to(torch.float32)
+def expand_taps_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The v2 prologue, (B, 2, T) f32 -> (B, T-2, 8) bf16 tap rows: the
+    frame rounded to bf16, ``tap_rows``, lane 6 set to 1.0 (conv1's bias
+    lane) and lane 7 zero -- the XLA ops ``make_bf16_forward_v2`` runs
+    before its kernel. Plain torch ops."""
+    xe = tap_rows(x.to(torch.bfloat16))
+    xe[..., 6] = 1.0
+    return xe
+
+
+def conv1_bf16_rows_plain(xe: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """(B, T-2, 8) bf16 tap rows -> (B, T-2, 2*C1) bf16, channel h*C1 + c:
+    per channel ``((xe[3h]*w0 + xe[3h+1]*w1) + xe[3h+2]*w2) + xe[6]*b`` in
+    f32 (each product of two bf16 values is exact), ReLU, bf16 -- the order
+    the kernel sums in, and the order of the JAX kernel's K = 8 dot, whose
+    other lanes meet zeros of the block-diagonal ``w1e`` and add exact
+    zeros."""
+    xf = xe.to(torch.float32)
     w = bw.w1e.to(torch.float32)
-    c1, t1 = w.shape[1] // 2, x.shape[-1] - 2
+    c1 = w.shape[1] // 2
     halves = []
     for h in range(2):
         wh = w[:, h * c1:(h + 1) * c1]
-        acc = xb[:, h, 0:t1, None] * wh[3 * h]
-        acc = acc + xb[:, h, 1:1 + t1, None] * wh[3 * h + 1]
-        acc = acc + xb[:, h, 2:2 + t1, None] * wh[3 * h + 2]
-        halves.append(acc + wh[6])
+        acc = xf[..., 3 * h, None] * wh[3 * h]
+        acc = acc + xf[..., 3 * h + 1, None] * wh[3 * h + 1]
+        acc = acc + xf[..., 3 * h + 2, None] * wh[3 * h + 2]
+        halves.append(acc + xf[..., 6, None] * wh[6])
     return torch.relu(torch.cat(halves, dim=-1)).to(torch.bfloat16)
 
 
-def conv_stage_bf16_v4_plain(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
-    """The plain version of the bf16 v4 conv stage, (B, 2, T) f32 ->
-    (B, T-4, C2) bf16 at the packed width: conv1, then per tap k the f32
-    product ``z_k = a1 . w2[k]``, ``z0[t] + z1[t+1] + z2[t+2] + b2``, ReLU,
-    bf16 (the JAX kernel's order)."""
-    a1 = conv1_bf16_plain(x, bw).to(torch.float32)               # (B, t1, 2C1)
+def conv1_bf16_plain(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """(B, 2, T) f32 -> (B, T-2, 2*C1) bf16: v4's conv1, the rows of the
+    frame rounded to bf16 through ``conv1_bf16_rows_plain`` (lane 6 is 1.0,
+    so the bias adds as it is)."""
+    return conv1_bf16_rows_plain(expand_taps_bf16(x), bw)
+
+
+def conv1_f32_plain(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """(B, 2, T) f32 -> (B, T-2, 2*C1) f32 before ReLU, channel h*C1 + c:
+    conv1 of ``conv_stage_bf16`` on the unrounded frame with the f32 taps,
+    ``((x[t]*w0 + x[t+1]*w1) + x[t+2]*w2) + b1``, each product and sum
+    rounded on its own (the JAX ``conv1_accumulate`` then ``+ b1``)."""
+    w = bw.w1p
+    t1 = x.shape[-1] - 2
+    halves = []
+    for h in range(2):
+        acc = x[:, h, 0:t1, None] * w[0]
+        acc = acc + x[:, h, 1:1 + t1, None] * w[1]
+        halves.append(acc + x[:, h, 2:2 + t1, None] * w[2])
+    return torch.cat(halves, dim=-1) + bw.b1
+
+
+def _conv2_plain(a1: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """(B, T-2, 2*C1) bf16 -> (B, T-4, C2) bf16 at the packed width: per tap
+    k the f32 product ``z_k = a1 . w2[k]``, ``z0[t] + z1[t+1] + z2[t+2] +
+    b2``, ReLU, bf16 (the JAX kernels' order)."""
+    a1 = a1.to(torch.float32)
     c2, t2 = bw.b2.shape[0], a1.shape[1] - 2
     w2 = bw.w2t.to(torch.float32)
     z = [torch.matmul(a1[:, k:k + t2], w2[k * c2:(k + 1) * c2].T) for k in range(3)]
     return torch.relu(z[0] + z[1] + z[2] + bw.b2).to(torch.bfloat16)
 
 
+def conv_stage_bf16_v4_plain(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """The plain version of the bf16 v4 conv stage, (B, 2, T) f32 ->
+    (B, T-4, C2) bf16 at the packed width: ``conv1_bf16_plain``, then
+    conv2."""
+    return _conv2_plain(conv1_bf16_plain(x, bw), bw)
+
+
+def conv_stage_bf16_v2_plain(xe: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """The plain version of the bf16 v2 conv stage, (B, T-2, 8) bf16 tap
+    rows -> (B, T-4, C2) bf16 at the packed width: ``conv1_bf16_rows_plain``,
+    then conv2. On ``expand_taps_bf16(x)`` it equals
+    ``conv_stage_bf16_v4_plain(x)`` bit for bit."""
+    return _conv2_plain(conv1_bf16_rows_plain(xe, bw), bw)
+
+
+def conv_stage_bf16_plain(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """The plain version of the bf16 conv stage of ``make_bf16_forward``,
+    (B, 2, T) f32 -> (B, T-4, C2) bf16 at the packed width:
+    ``conv1_f32_plain``, ReLU, bf16, then conv2."""
+    return _conv2_plain(torch.relu(conv1_f32_plain(x, bw)).to(torch.bfloat16), bw)
+
+
+def dense1_bf16_plain(h: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """(B, T2*C2) or (B, T2, C2) bf16 map -> (B, D) dense1 activations,
+    bf16 values as f32: dense1 (f32 product) + b3, ReLU, bf16."""
+    d1 = torch.relu(torch.matmul(h.flatten(1).to(torch.float32),
+                                 bw.w3t.to(torch.float32).T) + bw.b3)
+    return d1.to(torch.bfloat16).to(torch.float32)
+
+
 def dense_logits_bf16_plain(h: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
-    """(B, T2*C2) or (B, T2, C2) bf16 map -> (B, NC) f32 logits at the
-    packed width, classes >= nc at -inf: dense1 (f32 product) + b3, ReLU,
-    bf16, dense2 (f32 product) + b4."""
-    h = h.reshape(h.shape[0], -1).to(torch.float32)
-    d1 = torch.relu(torch.matmul(h, bw.w3t.to(torch.float32).T) + bw.b3)
-    d1 = d1.to(torch.bfloat16).to(torch.float32)
-    logits = torch.matmul(d1, bw.w4.to(torch.float32)) + bw.b4
+    """The plain version of the bf16 dense stage: (B, T2*C2) or (B, T2, C2)
+    bf16 map -> (B, NC) f32 logits at the packed width, classes >= nc at
+    -inf: ``dense1_bf16_plain``, then dense2 (f32 product) + b4."""
+    logits = torch.matmul(dense1_bf16_plain(h, bw), bw.w4.to(torch.float32)) + bw.b4
     lane = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(lane < bw.nc, logits, float("-inf"))
 
@@ -176,25 +256,34 @@ def dense_argmax_bf16_plain(h: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
 
 # Per wrapper: its C entry point, the weights it reads in argument order,
 # its input's trailing shape and dtype, and its output's.
+_MAP_IN = ((T2 * C2,), torch.bfloat16)
+_MAP_OUT = ((T2, C2), torch.bfloat16)
 _ENTRIES = {
     "conv_stage_bf16_v4": ("amc_conv_stage_bf16_v4", ("w1e", "w2t", "b2"),
-                           ((2, FRAME_LEN), torch.float32), ((T2, C2), torch.bfloat16)),
+                           ((2, FRAME_LEN), torch.float32), _MAP_OUT),
+    "conv_stage_bf16_v2": ("amc_conv_stage_bf16_v2", ("w1e", "w2t", "b2"),
+                           ((FRAME_LEN - 2, 8), torch.bfloat16), _MAP_OUT),
+    "conv_stage_bf16": ("amc_conv_stage_bf16", ("w1p", "b1", "w2t", "b2"),
+                        ((2, FRAME_LEN), torch.float32), _MAP_OUT),
     "dense_argmax_bf16": ("amc_dense_argmax_bf16", ("w3t", "b3", "w4", "b4"),
-                          ((T2 * C2,), torch.bfloat16), ((), torch.int32)),
+                          _MAP_IN, ((), torch.int32)),
+    "dense_logits_bf16": ("amc_dense_bf16", ("w3t", "b3", "w4", "b4"),
+                          _MAP_IN, ((N_CLASSES,), torch.float32)),
 }
 # The shapes the kernels are compiled for.
-_WEIGHT_SHAPES = {"w1e": (8, 2 * C1), "w2t": (3 * C2, 2 * C1), "b2": (C2,),
-                  "w3t": (DENSE, T2 * C2), "b3": (DENSE,), "w4": (DENSE, N_CLASSES),
-                  "b4": (N_CLASSES,)}
-_WEIGHT_DTYPES = {"w1e": torch.bfloat16, "w2t": torch.bfloat16, "b2": torch.float32,
-                  "w3t": torch.bfloat16, "b3": torch.float32, "w4": torch.bfloat16,
-                  "b4": torch.float32}
+_WEIGHT_SHAPES = {"w1e": (8, 2 * C1), "w1p": (3, C1), "b1": (2 * C1,),
+                  "w2t": (3 * C2, 2 * C1), "b2": (C2,), "w3t": (DENSE, T2 * C2),
+                  "b3": (DENSE,), "w4": (DENSE, N_CLASSES), "b4": (N_CLASSES,)}
+_WEIGHT_DTYPES = {"w1e": torch.bfloat16, "w1p": torch.float32, "b1": torch.float32,
+                  "w2t": torch.bfloat16, "b2": torch.float32, "w3t": torch.bfloat16,
+                  "b3": torch.float32, "w4": torch.bfloat16, "b4": torch.float32}
 
 
 def _launch(wrapper, inp: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
     """Check the arguments, launch ``wrapper``'s CUDA entry point on the
     current stream, count the launch on ``wrapper``; returns the
-    (B, 124, 80) bf16 map or the (B,) int32 labels."""
+    (B, 124, 80) bf16 map, the (B,) int32 labels or the (B, 11) f32
+    logits."""
     name = wrapper.__name__
     entry, keys, (shape, dtype), (out_shape, out_dtype) = _ENTRIES[name]
     weights = {k: getattr(bw, k) for k in keys}
@@ -205,7 +294,7 @@ def _launch(wrapper, inp: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
                              f"{tuple(t.shape)} {t.dtype}; a model wider than the "
                              "kernels' widths runs on the CPU only")
     b = inp.shape[0]
-    if inp.dtype == torch.bfloat16 and inp.dim() > 2:
+    if (shape, dtype) == _MAP_IN and inp.dim() > 2:
         inp = inp.reshape(b, -1)
     if inp.dtype != dtype or tuple(inp.shape[1:]) != shape:
         raise ValueError(f"{name}: expected (B, {', '.join(map(str, shape))}) "
@@ -224,7 +313,7 @@ def _launch(wrapper, inp: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
             raise ValueError(f"{name}: {key} is misaligned")
     lib = _build.load_library()
     args = [inp.data_ptr(), b, *(t.data_ptr() for t in weights.values())]
-    if name == "dense_argmax_bf16":
+    if name.startswith("dense"):
         args.append(bw.nc)
     with torch.cuda.device(inp.device):
         code = getattr(lib, entry)(*args, out.data_ptr(),
@@ -243,9 +332,23 @@ def _run(wrapper, plain, inp: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
 
 def conv_stage_bf16_v4(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
     """bf16 v4 conv stage, (B, 2, 128) f32 -> (B, 124, c2) bf16. Launches
-    ``csrc/conv_stage_bf16_v4.cu`` on a CUDA tensor; plain version on the
-    CPU."""
+    ``csrc/conv_stage_bf16_v4.cu``'s v4 entry on a CUDA tensor; plain
+    version on the CPU."""
     return _run(conv_stage_bf16_v4, conv_stage_bf16_v4_plain, x, bw)[..., :bw.c2]
+
+
+def conv_stage_bf16_v2(xe: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """bf16 v2 conv stage, (B, 126, 8) bf16 tap rows (``expand_taps_bf16``)
+    -> (B, 124, c2) bf16. Launches ``csrc/conv_stage_bf16_v4.cu``'s v2 entry
+    on a CUDA tensor; plain version on the CPU."""
+    return _run(conv_stage_bf16_v2, conv_stage_bf16_v2_plain, xe, bw)[..., :bw.c2]
+
+
+def conv_stage_bf16(x: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """bf16 conv stage of ``make_bf16_forward``, (B, 2, 128) f32 -> (B, 124,
+    c2) bf16, conv1 in f32. Launches ``csrc/conv_stage_bf16_v4.cu``'s f32
+    entry on a CUDA tensor; plain version on the CPU."""
+    return _run(conv_stage_bf16, conv_stage_bf16_plain, x, bw)[..., :bw.c2]
 
 
 def dense_argmax_bf16(h: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
@@ -255,7 +358,16 @@ def dense_argmax_bf16(h: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
     return _run(dense_argmax_bf16, dense_argmax_bf16_plain, h, bw)
 
 
-KERNEL_WRAPPERS = (conv_stage_bf16_v4, dense_argmax_bf16)
+def dense_logits_bf16(h: torch.Tensor, bw: Bf16Weights) -> torch.Tensor:
+    """bf16 dense stage, the packed-width (B, 124, 80) or (B, 9920) bf16 map
+    -> (B, 11) f32 logits, classes >= nc at -inf. Launches
+    ``csrc/dense_argmax_bf16.cu``'s logits entry on a CUDA tensor; plain
+    version on the CPU."""
+    return _run(dense_logits_bf16, dense_logits_bf16_plain, h, bw)
+
+
+KERNEL_WRAPPERS = (conv_stage_bf16_v4, dense_argmax_bf16, conv_stage_bf16_v2,
+                   dense_logits_bf16, conv_stage_bf16)
 
 
 def reset_launch_counts() -> None:
@@ -270,6 +382,10 @@ def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
+def _frames(x, bw: Bf16Weights) -> torch.Tensor:
+    return torch.as_tensor(x).to(device=bw.device, dtype=torch.float32).contiguous()
+
+
 def make_bf16_classifier_v4(params: Any, device: str | torch.device = "cuda"
                             ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The fused bf16 classifier, (B, 2, T) f32 -> (B,) int32 labels on
@@ -278,8 +394,39 @@ def make_bf16_classifier_v4(params: Any, device: str | torch.device = "cuda"
     bw = make_bf16_weights(params, device)
 
     def classify(x: torch.Tensor) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=bw.device, dtype=torch.float32).contiguous()
+        x = _frames(x, bw)
         return dense_argmax_bf16(
             _run(conv_stage_bf16_v4, conv_stage_bf16_v4_plain, x, bw), bw)
 
     return classify
+
+
+def make_bf16_forward_v2(params: Any, device: str | torch.device = "cuda"
+                         ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The bf16 forward of the bench's ``pallas_bf16`` backend, (B, 2, T)
+    f32 -> (B, nc) f32 logits on ``device``, from a float VT-CNN2 (state
+    dict or Flax tree): the tap rows (plain torch), the v2 conv stage, then
+    the dense stage, each a CUDA kernel on the card."""
+    bw = make_bf16_weights(params, device)
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        xe = expand_taps_bf16(_frames(x, bw))
+        conv = _run(conv_stage_bf16_v2, conv_stage_bf16_v2_plain, xe, bw)
+        return dense_logits_bf16(conv, bw)[:, :bw.nc]
+
+    return forward
+
+
+def make_bf16_forward(params: Any, device: str | torch.device = "cuda"
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The bf16 forward with conv1 in f32, (B, 2, T) f32 -> (B, nc) f32
+    logits on ``device``, from a float VT-CNN2 (state dict or Flax tree):
+    the f32-conv1 conv stage, then the dense stage, each a CUDA kernel on
+    the card."""
+    bw = make_bf16_weights(params, device)
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        conv = _run(conv_stage_bf16, conv_stage_bf16_plain, _frames(x, bw), bw)
+        return dense_logits_bf16(conv, bw)[:, :bw.nc]
+
+    return forward

@@ -114,18 +114,15 @@ def test_cli_bench_prints_contract_and_stream_extra(capsys):
 
 @pytest.mark.parametrize("backend", ["pallas_bf16_v4", "pallas_bf16", "frobnicate"])
 def test_unported_backend_raises(backend, capsys):
-    """``pallas_bf16_v4`` is ported (a contract line naming it); the JAX
-    backend not ported yet raises NotImplementedError pointing at the
-    roadmap; a name the JAX bench does not know raises ValueError, as it
-    does there."""
+    """No JAX backend is left unported: ``pallas_bf16_v4`` and
+    ``pallas_bf16`` print a contract line naming them, with no fallback;
+    a name the JAX bench does not know raises ValueError, as it does
+    there."""
     cfg = _cfg("bench.stream_extra=false")
-    if backend == "pallas_bf16_v4":
+    if backend.startswith("pallas_bf16"):
         res = bench.run(cfg, backend=backend)
         assert set(res) == KEYS and res["backend"] == backend and res["fallback"] is False
-        return
-    if backend == "pallas_bf16":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            bench.run(cfg, backend=backend)
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
         return
     with pytest.raises(ValueError, match="unknown bench backend"):
         bench.run(cfg, backend=backend)
@@ -166,12 +163,11 @@ def test_bad_override_exits():
 
 
 def test_backend_list_matches_jax():
-    """The JAX bench's BACKENDS, less what is not ported yet; v5 is accepted
-    by name but, as there, not listed."""
+    """The JAX bench's whole BACKENDS list, in its order; v5 is accepted by
+    name but, as there, not listed."""
     import bench as jbench
 
-    ported = [b for b in jbench.BACKENDS if b != "pallas_bf16"]
-    assert list(bench.BACKENDS) == ported
+    assert list(bench.BACKENDS) == list(jbench.BACKENDS)
     assert "pallas_int8_v5" not in bench.BACKENDS and "pallas_int8_v5" not in jbench.BACKENDS
     classify, (x,) = bench.make_classifier(_cfg(), "pallas_int8_v5", 8)
     assert classify(x).shape == (8,)
@@ -213,3 +209,22 @@ def test_stream_bench_with_timing_and_resampling(capsys, extra):
     from modulationdetectioncnn_torch.dsp import pipeline
 
     assert err["frames_per_iter"] == pipeline.total_frames(sc, err["block_samples"]) * 4
+
+
+def test_pallas_bf16_classifies_as_the_plain_v2_forward():
+    """``pallas_bf16`` is the argmax of the bf16 v2 forward's logits (JAX
+    bench.py:63-66, 100-102), on the seeded float model unquantized: on 8
+    frames it gives the labels of the plain tap rows -> v2 conv stage ->
+    dense logits chain."""
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+
+    cfg = _cfg()
+    classify, (x,) = bench.make_classifier(cfg, "pallas_bf16", 8)
+    x2, _, model = bench._frames_and_model(cfg, 8)
+    assert torch.equal(x, x2)
+    bw = ib.make_bf16_weights(model.state_dict(), "cpu")
+    logits = ib.dense_logits_bf16_plain(
+        ib.conv_stage_bf16_v2_plain(ib.expand_taps_bf16(x), bw), bw)
+    got = classify(x)
+    assert got.dtype == torch.int32 and got.shape == (8,)
+    assert torch.equal(got, ib.argmax_lowest(logits[:, :bw.nc]))

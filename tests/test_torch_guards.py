@@ -472,4 +472,38 @@ def test_v1_and_bf16_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="expected"):
         infer_bf16.dense_argmax_bf16(torch.zeros((1, 9920), device="meta"), bw)
     assert infer.conv_stage_int8_v1.launches == 0
-    assert infer_bf16.launch_counts() == {"conv_stage_bf16_v4": 0, "dense_argmax_bf16": 0}
+    assert infer_bf16.launch_counts() == dict.fromkeys(
+        ("conv_stage_bf16_v4", "dense_argmax_bf16", "conv_stage_bf16_v2",
+         "dense_logits_bf16", "conv_stage_bf16"), 0)
+
+
+BF16_BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import numpy as np, torch
+from modulationdetectioncnn_torch import bench
+from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+from modulationdetectioncnn_torch.ops import infer_bf16
+x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 2, 128)).astype(np.float32))
+sd = VTCNN2().state_dict()
+for make in (infer_bf16.make_bf16_forward_v2, infer_bf16.make_bf16_forward):
+    assert tuple(make(sd, "cpu")(x).shape) == (3, 11)
+classify, (xb,) = bench.make_classifier(
+    apply_overrides(AmcConfig(), ["device=cpu"]), "pallas_bf16", 3)
+assert tuple(classify(xb).shape) == (3,)
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_bf16_forwards_and_pallas_bf16_run_with_jax_blocked():
+    """Both bf16 forwards and the pallas_bf16 bench classifier run with
+    every JAX module blocked."""
+    code = BF16_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
