@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ``stream``, ``bench``, ``eval``, ``quantize``,
-``train`` and ``qat`` paths and its bf16 forwards on one NVIDIA GPU and
-check them.
+``train`` and ``qat`` paths, its bf16 forwards and its ``parallel/`` paths
+on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -108,7 +108,28 @@ Phases, each printing JSON lines (``"phase": ...``):
                of the stream chain at B=4096: device time by kernel and the
                device's busy share (reported, not checked).
 
-Then one ``{"kernels": [...]}`` line (rows 1-16 and 21 of PERF.md's kernel
+The phases of ``parallel/`` and of rows 17-20 of the kernel table:
+
+- cnn_kernels (after kernels) -- the four ``ops/cnn_kernels.py`` kernels
+               against their plain versions on the bench's 4096 frames, the
+               demo's 1024, B=1, 37 frames and two odd shapes (T 40, C 33,
+               Co 7; T 300, C 48, Co 100): float conv1 (bf16 and float32 out) and both int8
+               kernels bit for bit, float conv2 within 1e-5 of the map's
+               largest magnitude (float32) or the bf16 map tolerance; row 19
+               -> row 20 equal to v7's map and, through the dense stage, its
+               labels; times at B=4096 beside bound, plain and library.
+- parallel (after stream) -- world size 1 on NCCL: the sharded v7 stream
+               equal to the single-process labels with rows 1-2 launched,
+               ``dryrun_multichip(1)``, ``train`` on a 1x1x1 mesh.
+- parallel_gloo (before profile) -- two processes on the card in a gloo
+               group (``--gloo-rank``): halo values, sharded labels equal to
+               single-process labels with rows 1-2 launched in each, the
+               (data=1, model=2) forward within 1e-5 (TF32 off); then,
+               reported, what gloo's point-to-point does with a tensor on
+               the card and what NCCL does with two ranks on it
+               (``--probe-rank``).
+
+Then one ``{"kernels": [...]}`` line (rows 1-21 of PERF.md's kernel
 table) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before the
 last line. With no CUDA device, or outside a checkout of the repository, it
@@ -155,6 +176,10 @@ TPU_KERNELS = {
     "conv_stage_bf16_v2": "modulationdetectioncnn_tpu/ops/infer.py:199",
     "dense_logits_bf16": "modulationdetectioncnn_tpu/ops/infer.py:107",
     "conv_stage_bf16": "modulationdetectioncnn_tpu/ops/infer.py:82",
+    "conv1_stacked": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:78",
+    "conv2_stacked": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:129",
+    "conv1_stacked_int8": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:223",
+    "conv2_stacked_int8": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:268",
 }
 _CSRC = "modulationdetectioncnn_torch/csrc/"
 SOURCES = {
@@ -175,6 +200,10 @@ SOURCES = {
     "conv_stage_bf16_v2": _CSRC + "conv_stage_bf16_v4.cu",
     "dense_logits_bf16": _CSRC + "dense_argmax_bf16.cu",
     "conv_stage_bf16": _CSRC + "conv_stage_bf16_v4.cu",
+    "conv1_stacked": _CSRC + "cnn_kernels.cu",
+    "conv2_stacked": _CSRC + "cnn_kernels.cu",
+    "conv1_stacked_int8": _CSRC + "cnn_kernels.cu",
+    "conv2_stacked_int8": _CSRC + "cnn_kernels.cu",
 }
 # The kernel each wrapper launches, as the profiler names it.
 KERNEL_SYMBOLS = {
@@ -194,7 +223,12 @@ KERNEL_SYMBOLS = {
     "conv_stage_bf16": "conv_stage_bf16_kernel<2>",
     "dense_argmax_bf16": "dense_argmax_bf16_kernel<true>",
     "dense_logits_bf16": "dense_argmax_bf16_kernel<false>",
+    "conv1_stacked": "conv1_f32_kernel<__nv_bfloat16>",
+    "conv2_stacked": "conv2_kernel<0",                     # bf16 in, tensor cores
+    "conv1_stacked_int8": "conv1_int8_kernel",
+    "conv2_stacked_int8": "conv2_kernel<1",
 }
+CNN_KERNELS = ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8")
 CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2", "v1")
 INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2", "v1")   # no bf16 fold
 EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2", "v1")
@@ -639,7 +673,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               f"bench_frames_b{BATCH}": bench_x}
 
     checks, stats = [], {n: {"mismatches": 0, "max_abs_err": 0, "checked": 0}
-                         for n in TPU_KERNELS}
+                         for n in TPU_KERNELS if n not in CNN_KERNELS}
     for wname, qw in weights.items():
         versions = CONV_VERSIONS if wname != "fold_refused" else INTEGER_VERSIONS
         for xname, x in inputs.items():
@@ -886,6 +920,450 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
           "expand_taps_bf16_prologue_ms": bf16_rows_ms,
           "timing_estimate_and_filters_ms": filters_ms})
     return rows
+
+
+def float_conv_weights(state: dict) -> tuple:
+    """(w1p (3, C1), b1, w2p (2*C1, 3*C2) tap-packed, b2), float32 on the
+    card, from a VT-CNN2 state dict: ``w1p[k, c] = conv1[c, 0, 0, k]``,
+    ``w2p[h*C1 + cin, k*C2 + co] = conv2[co, cin, h, k]``."""
+    w2 = state["conv2.weight"]
+    return (state["conv1.weight"][:, 0, 0, :].T.contiguous().float().cuda(),
+            state["conv1.bias"].float().cuda(),
+            w2.permute(2, 1, 3, 0).reshape(2 * w2.shape[1], 3 * w2.shape[0])
+            .contiguous().float().cuda(),
+            state["conv2.bias"].float().cuda())
+
+
+def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
+    """Rows 17-20 (``ops/cnn_kernels.py``) against their plain versions on
+    the bench's 4096 seeded frames, the stream demo's 1024, B=1 and a
+    ragged 37-frame slice, and on two odd shapes with seeded weights (T 40,
+    C 33, Co 7; and T 300, C 48, Co 100, where conv2 takes three row tiles
+    and two channel tiles): rows 17 (bf16 and float32 out), 19 and 20 bit for bit,
+    row 18 within 1e-5 of the map's largest magnitude in float32 and within
+    the bf16 map tolerance in bf16. Float weights: the bench's seeded model
+    and the exported checkpoint; int8: the committed artifact. On the
+    quantized frames row 19 -> row 20 must equal v7's map (row 1) bit for
+    bit and, through the int8 dense stage, v7's labels. Then times at
+    B=4096. Returns the rows of the kernels line."""
+    from modulationdetectioncnn_torch import bench
+    from modulationdetectioncnn_torch.config import AmcConfig, ModelConfig
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.ops.requant import quantize_input
+    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel, load_int8
+    from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+    ck.reset_launch_counts()
+    bench_x, _, bench_model = bench._frames_and_model(AmcConfig(), BATCH)
+    ckpt_model = restore_model(FLOAT_CKPT, ModelConfig(), 128, "cuda")[0]
+    float_sets = {"bench_seeded": float_conv_weights(bench_model.state_dict()),
+                  "float_checkpoint": float_conv_weights(ckpt_model.state_dict())}
+    art = QuantizedModel.from_npz(DEFAULT_ARTIFACT)
+    i8 = tuple(torch.from_numpy(np.asarray(getattr(art, k))).cuda()
+               for k in ("w1p", "m1", "o1", "w2p", "m2", "o2"))
+    qw = load_int8(device="cuda")
+    inputs = {f"bench_frames_b{BATCH}": bench_x, "stream_frames": demo,
+              "bench_b1": bench_x[:1], "bench_b37_at3": bench_x[3:40]}
+    r = np.random.default_rng(SEED + 3)
+    odd_shapes = {}      # seeded weights at widths the main path never gives
+    for nb, nt, nc, nco in ((37, 40, 33, 7), (5, 300, 48, 100)):   # B, T, C, Co
+        odd_shapes[f"t{nt}_c{nc}_co{nco}"] = (
+            tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+                r.standard_normal((nb, 2, nt)), r.standard_normal((3, nc)) / np.sqrt(3),
+                0.1 * r.standard_normal(nc),
+                r.standard_normal((2 * nc, 3 * nco)) / np.sqrt(6 * nc),
+                0.1 * r.standard_normal(nco))),
+            tuple(torch.from_numpy(a).cuda() for a in (
+                r.integers(-127, 128, (nb, 2, nt)).astype(np.int8),
+                r.integers(-127, 128, (3, nc)).astype(np.int8),
+                r.integers(4, 10, 2 * nc).astype(np.int32),
+                r.integers(-2000, 2000, 2 * nc).astype(np.int32),
+                r.integers(-127, 128, (2 * nc, 3 * nco)).astype(np.int8),
+                r.integers(10, 16, nco).astype(np.int32),
+                r.integers(-20000, 20000, nco).astype(np.int32))))
+    stats = {k: {"mismatches": 0, "max_abs_err": 0.0, "checked": 0} for k in CNN_KERNELS}
+    checks = []
+
+    def record(kname, case, got, want, rtol=0.0, atol_of_max=0.0):
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{kname} {case}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+                f"{want.dtype}")
+        g, w = got.double(), want.double()
+        diff = (g - w).abs()
+        bad = int((diff > rtol * w.abs() + atol_of_max * float(w.abs().max())).sum()) \
+            if rtol or atol_of_max else int((g != w).sum())
+        st = stats[kname]
+        st["mismatches"] += bad
+        st["checked"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], float(diff.max()) if diff.numel() else 0.0)
+        checks.append({"kernel": kname, "case": case, "shape": list(got.shape),
+                       "dtype": str(got.dtype), "outside_tolerance": bad,
+                       "max_abs_diff": float(diff.max()) if diff.numel() else 0.0,
+                       "bit_equal_share": float((g == w).double().mean())})
+        require(bool(torch.isfinite(g).all()), f"{kname} {case}: non-finite output")
+
+    def float_pair(case, x, w1p, b1, w2p, b2):
+        for out in (torch.bfloat16, torch.float32):
+            a1 = ck.conv1_stacked(x, w1p, b1, out_dtype=out)
+            record("conv1_stacked", f"{case}/{str(out)[6:]}", a1,
+                   ck.conv1_stacked_plain(x, w1p, b1, out))
+            w2 = w2p.to(out).contiguous()
+            got = ck.conv2_stacked(a1, w2, b2, out_dtype=out)
+            want = ck.conv2_stacked_plain(a1, w2, b2, out)
+            if out == torch.bfloat16:
+                record("conv2_stacked", f"{case}/bf16", got, want, BF16_RTOL, BF16_ATOL_OF_MAX)
+            else:
+                record("conv2_stacked", f"{case}/float32", got, want, 0.0, 1e-5)
+
+    def int8_pair(case, xq, w1p, m1, o1, w2p, m2, o2):
+        a1 = ck.conv1_stacked_int8(xq, w1p, m1, o1)
+        record("conv1_stacked_int8", case, a1, ck.conv1_stacked_int8_plain(xq, w1p, m1, o1))
+        a2 = ck.conv2_stacked_int8(a1, w2p, m2, o2)
+        record("conv2_stacked_int8", case, a2, ck.conv2_stacked_int8_plain(a1, w2p, m2, o2))
+        return a2
+
+    chain = {}
+    for xname, x in inputs.items():
+        for wname, fw in float_sets.items():
+            float_pair(f"{wname}/{xname}", x, *fw)
+        a2 = int8_pair(f"artifact/{xname}", quantize_input(x, qw.inv_sx), *i8)
+        v7_map = infer.conv_stage_int8_v7(x, qw)
+        labels = infer.dense_argmax_int8(a2, qw)
+        v7_labels = infer.make_int8_predict(qw, "v7")(x)
+        torch.cuda.synchronize()
+        chain[xname] = {"map_vs_v7": int((a2 != v7_map).sum()),
+                        "labels_vs_v7": int((labels != v7_labels).sum()), "n": int(x.shape[0])}
+    for name, (fl, i8_odd) in odd_shapes.items():
+        float_pair(name, *fl)
+        int8_pair(name, *i8_odd)
+    check_launches = ck.launch_counts()
+    for c in checks:
+        emit({"phase": "cnn_kernels.check", **c})
+    emit({"phase": "cnn_kernels.chain", "row19_row20_vs_v7": chain})
+    for kname, st in stats.items():
+        require(st["mismatches"] == 0, f"{kname}: {st['mismatches']} elements outside "
+                "tolerance of the plain version")
+    require(all(c["map_vs_v7"] == 0 and c["labels_vs_v7"] == 0 for c in chain.values()),
+            f"row 19 -> row 20 differs from v7: {chain}")
+
+    # Times at B=4096: rows 17-18 with the bench's seeded float model, rows
+    # 19-20 with the artifact. Bound: inputs read once, outputs written once,
+    # over 3.35 TB/s; operations over the peak for their type.
+    import torch.nn.functional as F
+
+    x = bench_x
+    w1p, b1, w2p, b2 = float_sets["bench_seeded"]
+    w2b = w2p.to(torch.bfloat16)
+    a1b = ck.conv1_stacked(x, w1p, b1)
+    a1f = ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32)
+    xq = quantize_input(x, qw.inv_sx)
+    a1q = ck.conv1_stacked_int8(xq, *i8[:3])
+    w2q_cm = i8[3].t().contiguous().t()                     # column-major for _int_mm
+    conv1_w = bench_model.conv1.weight.float()
+    conv1_b = bench_model.conv1.bias.float()
+    b, t1 = x.shape[0], x.shape[-1] - 2
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    conv1_ops = 2 * b * t1 * 512 * 3
+    conv2_ops = 2 * b * (t1 - 2) * 80 * 1536
+    bw = dev_info["bytes_per_s"]
+    peaks = {"f32": dev_info["f32_flops_per_s"], "bf16": dev_info["bf16_flops_per_s"],
+             "int8": dev_info["int8_ops_per_s"]}
+    plans = (  # name, kernel, plain, library (call, what) or None, (ops, type), bytes
+        ("conv1_stacked", lambda: ck.conv1_stacked(x, w1p, b1),
+         lambda: ck.conv1_stacked_plain(x, w1p, b1),
+         (lambda: F.relu(F.conv2d(x[:, None], conv1_w, conv1_b)),
+          "F.conv2d + ReLU, f32 NCHW out (B, 256, 2, 126): another layout"),
+         (conv1_ops, "f32"), nbytes(x, w1p, b1, a1b)),
+        ("conv2_stacked", lambda: ck.conv2_stacked(a1b, w2b, b2),
+         lambda: ck.conv2_stacked_plain(a1b, w2b, b2),
+         (lambda: torch.matmul(a1b.reshape(-1, 512), w2b),
+          "torch.matmul bf16, z = (B*126, 512) x (512, 240)"),
+         (conv2_ops, "bf16"), nbytes(a1b, w2b, b2) + b * (t1 - 2) * 80 * 2),
+        ("conv1_stacked_int8", lambda: ck.conv1_stacked_int8(xq, *i8[:3]),
+         lambda: ck.conv1_stacked_int8_plain(xq, *i8[:3]), None,
+         (conv1_ops, "int8"), nbytes(xq, *i8[:3], a1q)),
+        ("conv2_stacked_int8", lambda: ck.conv2_stacked_int8(a1q, *i8[3:]),
+         lambda: ck.conv2_stacked_int8_plain(a1q, *i8[3:]),
+         (lambda: torch._int_mm(a1q.reshape(-1, 512), w2q_cm),
+          "torch._int_mm, z = (B*126, 512) x (512, 240)"),
+         (conv2_ops, "int8"), nbytes(a1q, *i8[3:]) + b * (t1 - 2) * 80),
+    )
+    rows = []
+    for kname, kernel, plain, lib, (ops, kind), nb in plans:
+        t_ops, t_bytes = ops / peaks[kind] * 1e3, nb / bw * 1e3
+        rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
+                     "replaces": TPU_KERNELS[kname], "launches": None,
+                     "check_launches": check_launches[kname],
+                     "max_abs_err": stats[kname]["max_abs_err"],
+                     "mismatches": stats[kname]["mismatches"],
+                     "ms": time_ms(kernel, iters=20),
+                     "device_ms": device_ms(kernel, KERNEL_SYMBOLS[kname]),
+                     "plain_ms": time_ms(plain, iters=2, warmup=1, reps=3),
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": time_ms(lib[0], iters=20) if lib else None,
+                     "library_call": lib[1] if lib else None,
+                     "batch": b, f"{kind}_ops": ops, "bytes": nb})
+    # Row 18's float32 form (CUDA cores), beside its bf16 row.
+    f32_ops_ms = conv2_ops / peaks["f32"] * 1e3
+    f32_bytes = nbytes(a1f, w2p, b2) + b * (t1 - 2) * 80 * 4
+    rows[1]["float32"] = {
+        "ms": time_ms(lambda: ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32), iters=5),
+        "device_ms": device_ms(lambda: ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32),
+                               "conv2_kernel<2", iters=5),
+        "bound_ms": max(f32_ops_ms, f32_bytes / bw * 1e3),
+        "bound_by": "operations" if f32_ops_ms >= f32_bytes / bw * 1e3 else "bytes",
+        "library_ms": time_ms(lambda: torch.matmul(a1f.reshape(-1, 512), w2p), iters=5),
+        "library_call": "torch.matmul f32 (TF32 off), z = (B*126, 512) x (512, 240)"}
+    rows[0]["float32_out_ms"] = time_ms(
+        lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32), iters=20)
+    emit({"phase": "cnn_kernels", "timed": rows, "check_launches": check_launches})
+    ck.reset_launch_counts()          # from here on: the main path's launches
+    return rows
+
+
+def _demo_labels_sharded(tm, predict) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """(sharded labels, whole-stream labels, the sharded run's launch
+    counts: zeroed just before it, read just after) of the stream demo's
+    signal."""
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.dsp import framer, pipeline
+    from modulationdetectioncnn_torch.parallel import halo
+
+    cfg = AmcConfig()
+    wide, _ = pipeline.make_demo_signal(cfg)
+    x = framer.to_planes(wide, "cuda")
+    reset_counts()
+    got = halo.classify_stream_sharded(x, predict, cfg.stream, tm)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    return got, pipeline.classify_stream(x, predict, cfg.stream), counts
+
+
+def _labels_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """tests/test_halo.py's check: equal up to the sharded path's last frame."""
+    f = got.shape[1]
+    return got.shape[0] == want.shape[0] and f >= want.shape[1] - 1 \
+        and torch.equal(got, want[:, :f])
+
+
+def phase_parallel() -> dict[str, int]:
+    """``parallel/`` at world size 1 on NCCL: ``classify_stream_sharded``
+    with the v7 classifier on the stream demo's signal equals
+    ``classify_stream`` (counters zeroed just before it: rows 1 and 2
+    launched); ``dryrun_multichip(1)`` (one training step on a 1x1 mesh,
+    then ``halo.dryrun``'s float and int8 streams, which it holds to the
+    single-rank labels); ``train`` for two steps on a 1x1x1 mesh. Returns
+    the sharded stream's launch counts."""
+    import torch.distributed as dist
+
+    from modulationdetectioncnn_torch.config import AmcConfig, MeshConfig, apply_overrides
+    from modulationdetectioncnn_torch.data import synthetic
+    from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+    from modulationdetectioncnn_torch.parallel import dryrun, halo
+    from modulationdetectioncnn_torch.parallel import mesh as pmesh
+    from modulationdetectioncnn_torch.quant import load_int8
+    from modulationdetectioncnn_torch.train import loop
+
+    pmesh.ensure_process_group("cuda")
+    try:
+        backend, world = dist.get_backend(), dist.get_world_size()
+        require(backend == "nccl" and world == 1, f"parallel: {backend}, world {world}")
+        predict = make_int8_predict(load_int8(device="cuda"), "v7")
+        tm = halo.time_mesh(1, "cuda")
+        t0 = time.perf_counter()
+        got, want, counts = _demo_labels_sharded(tm, predict)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss = dryrun.dryrun_multichip(1, "cuda")
+        dryrun_s = time.perf_counter() - t0
+        cfg = apply_overrides(AmcConfig(), [*CANARY, "train.num_steps=2", "train.warmup_steps=1",
+                                            "train.eval_every=1"])
+        x, y, _ = synthetic.make_dataset(cfg.data)
+        _, history = loop.train(cfg, (x, y), mesh=pmesh.make_mesh(MeshConfig(), "cuda"))
+        emit({"phase": "parallel", "backend": backend, "world": world,
+              "sharded_shape": list(got.shape), "single_shape": list(want.shape),
+              "sharded_equals_single": _labels_equal(got, want),
+              "wall_s_sharded_and_single": wall,
+              "launches": counts, "dryrun_multichip_loss": loss, "dryrun_s": dryrun_s,
+              "train_records": history})
+        require(_labels_equal(got, want), "parallel: sharded labels != single-process labels")
+        require(counts["conv_stage_int8_v7"] > 0 and counts["dense_argmax_int8"] > 0,
+                f"parallel: rows 1-2 not launched: {counts}")
+        require([h["step"] for h in history] == [1, 2]
+                and all(np.isfinite(h["loss"]) for h in history), f"parallel train: {history}")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+GLOO_RANKS = 2
+GLOO_TIME_LIMIT_S = 300
+
+
+def gloo_rank(rank: int, world: int, store: str, out_dir: str) -> int:
+    """One rank of phase parallel_gloo (a process of its own, on card 0,
+    gloo from a file store): the exchanged halo, the sharded v7 labels of
+    the stream demo against the single-process labels with the launch
+    counts, and the (data=1, model=2) forward against the unsharded one
+    with TF32 off. Writes ``out_dir/gloo_rank<rank>.json``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from modulationdetectioncnn_torch.config import MeshConfig
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+    from modulationdetectioncnn_torch.parallel import halo
+    from modulationdetectioncnn_torch.parallel import mesh as pmesh
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    torch.cuda.set_device(0)
+    # The comparison of two float forwards must not run cuDNN's convolutions
+    # in TF32 (its default); matmuls are full float32 by default, stated.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=120))
+    try:
+        tm = halo.time_mesh(world, "cuda")
+        t_local, h = 16, 3
+        x = torch.arange(world * t_local, dtype=torch.float32, device="cuda")
+        got = halo.left_halo_exchange(x[rank * t_local:(rank + 1) * t_local], h,
+                                      tm.get_group("time")).cpu()
+        want = torch.cat([torch.zeros(h) if rank == 0 else
+                          torch.arange(rank * t_local - h, rank * t_local, dtype=torch.float32),
+                          torch.arange(rank * t_local, (rank + 1) * t_local,
+                                       dtype=torch.float32)])
+        predict = make_int8_predict(load_int8(device="cuda"), "v7")
+        labels, single, counts = _demo_labels_sharded(tm, predict)
+        mesh = pmesh.make_mesh(MeshConfig(data=1, model=2), "cuda")
+        model = VTCNN2(dtype="float32", generator=torch.Generator().manual_seed(SEED)).cuda()
+        xf = torch.from_numpy(np.random.default_rng(SEED).standard_normal((256, 2, 128))
+                              .astype(np.float32)).cuda()
+        with torch.no_grad():
+            ref = model.eval()(xf)
+            tp = pmesh.shard_params(model, mesh).eval()(xf)
+        res = {"rank": rank, "backend": dist.get_backend(), "device": str(xf.device),
+               "halo_equal": bool(torch.equal(got, want)),
+               "sharded_equals_single": _labels_equal(labels, single),
+               "labels_shape": list(labels.shape), "launches": counts,
+               "tp_max_abs_diff": float((tp - ref).abs().max()),
+               "tp_within_1e-5": bool(((tp - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()),
+               "max_abs_logit": float(ref.abs().max())}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"gloo_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def probe_rank(backend: str, rank: int, store: str, out_dir: str) -> int:
+    """One of two processes on card 0 that test the premises of the gloo
+    staging (reported, not checked): on ``gloo``, a point-to-point send of
+    a tensor on the card; on ``nccl``, an all-reduce of two ranks sharing
+    the card. Writes ``out_dir/probe_<backend><rank>.json`` with what
+    happened."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    res = {"backend": backend, "rank": rank}
+    try:
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                world_size=2, timeout=timedelta(seconds=30))
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        if backend == "gloo":
+            work = dist.isend(t, 1) if rank == 0 else dist.irecv(t, 0)
+            work.wait(timeout=timedelta(seconds=10))
+        else:
+            dist.all_reduce(t)
+        torch.cuda.synchronize()
+        res["outcome"] = "completed"
+        res["values"] = t.tolist()
+    except Exception as e:  # noqa: BLE001 -- the probe reports whatever it raises
+        res["outcome"] = f"{type(e).__name__}: {str(e)[:300]}"
+    with open(os.path.join(out_dir, f"probe_{backend}{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _run_ranks(argvs: list[list[str]], tmp: str, tag: str, limit_s: float
+               ) -> list[int | None]:
+    """One ``chip_smoke.py`` process per argument list, joined within
+    ``limit_s``; what is left then is killed. Returns the exit codes (None
+    for a process that had to be killed); logs in ``tmp/<tag><i>.log``."""
+    logs = [open(os.path.join(tmp, f"{tag}{i}.log"), "w") for i in range(len(argvs))]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv], cwd=REPO,
+                              stdin=subprocess.DEVNULL, stdout=log, stderr=subprocess.STDOUT)
+             for argv, log in zip(argvs, logs)]
+    codes = []
+    try:
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, limit_s - (time.perf_counter() - t0))))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return codes
+
+
+def phase_parallel_gloo(tmp: str) -> None:
+    """Two processes sharing the one card in a gloo group (``gloo_rank``),
+    joined within GLOO_TIME_LIMIT_S: in each, the halo equals the left
+    neighbour's tail, the sharded labels equal the single-process labels,
+    rows 1 and 2 were launched, and the (data=1, model=2) forward is within
+    1e-5 of the unsharded one. Then the premises of the staging through
+    host memory, reported: two more pairs (``probe_rank``) try gloo's
+    point-to-point on a tensor on the card and NCCL with two ranks on it."""
+    store = os.path.join(tmp, "gloo_store")
+    t0 = time.perf_counter()
+    codes = _run_ranks([["--gloo-rank", str(r), str(GLOO_RANKS), store, tmp]
+                        for r in range(GLOO_RANKS)], tmp, "gloo_rank", GLOO_TIME_LIMIT_S)
+    wall = time.perf_counter() - t0
+    results = []
+    for r, code in enumerate(codes):
+        with open(os.path.join(tmp, f"gloo_rank{r}.log")) as f:
+            log_tail = f.read()[-3000:]
+        require(code == 0, f"parallel_gloo rank {r} exited {code} (None: killed after "
+                f"{GLOO_TIME_LIMIT_S} s): {log_tail}")
+        with open(os.path.join(tmp, f"gloo_rank{r}.json")) as f:
+            results.append(json.load(f))
+    premises = {}
+    for backend in ("gloo", "nccl"):
+        codes = _run_ranks([["--probe-rank", backend, str(r), os.path.join(tmp, f"{backend}_probe"),
+                             tmp] for r in range(2)], tmp, f"probe_{backend}", 90)
+        premises[backend] = []
+        for r, code in enumerate(codes):
+            path = os.path.join(tmp, f"probe_{backend}{r}.json")
+            if os.path.isfile(path):
+                with open(path) as f:
+                    premises[backend].append(json.load(f))
+            else:
+                premises[backend].append({"rank": r, "exit": code})
+    emit({"phase": "parallel_gloo", "ranks": results, "wall_s": wall,
+          "premises_two_ranks_one_card": premises})
+    for res in results:
+        require(res["backend"] == "gloo" and res["device"].startswith("cuda"),
+                f"parallel_gloo: {res}")
+        require(res["halo_equal"] and res["sharded_equals_single"] and res["tp_within_1e-5"],
+                f"parallel_gloo rank {res['rank']}: {res}")
+        require(res["launches"]["conv_stage_int8_v7"] > 0
+                and res["launches"]["dense_argmax_int8"] > 0,
+                f"parallel_gloo rank {res['rank']}: rows 1-2 not launched {res['launches']}")
 
 
 def phase_stream(name: str, overrides: list[str], path: tuple[str, ...],
@@ -1415,12 +1893,20 @@ def main() -> int:
     # The plain folded conv1 is a float32 product that must be exact: keep
     # TF32 off for matmuls (PyTorch's default, stated here).
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:2] == ["--gloo-rank"]:        # one rank of phase parallel_gloo
+        return gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--probe-rank"]:       # one process of its premises' probe
+        return probe_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5])
     t_start = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             dev = phase_device()
             phase_build()
-            rows = phase_kernels(dev, demo_frames())
+            demo = demo_frames()
+            rows = phase_kernels(dev, demo)
+            # Rows 17-20: no product path calls them (0 launches on the main
+            # path, read at the end); their checks count their own.
+            rows += phase_cnn_kernels(dev, demo)
             int8 = ("dense_argmax_int8",)
             # The stream path: v7 + dense.
             launches = phase_stream("v7", [], ("conv_stage_int8_v7", *int8))
@@ -1434,6 +1920,9 @@ def main() -> int:
             phase_stream("resample_timing", ["stream.resample_up=1", "stream.resample_down=2",
                                              "stream.normalize_timing=true"],
                          timing, check_tops=False)
+            # parallel/ at world size 1 (NCCL): the sharded stream, the
+            # dryrun, train on a 1x1x1 mesh.
+            phase_parallel()
             launches.update(phase_bench())          # the bench path: v9, v10, bf16
             # The eval path: v5, v6, v4, v3, v2 and v2's dense stage.
             launches.update(phase_eval(tmp))
@@ -1446,7 +1935,11 @@ def main() -> int:
             phase_canary(tmp)
             launches["conv_stage_int8_v1"] = phase_trained_int8(tmp, ck)["conv_stage_int8_v1"]
             phase_qat(tmp)
+            phase_parallel_gloo(tmp)                # two gloo ranks on the card
             phase_profile()
+        from modulationdetectioncnn_torch.ops import cnn_kernels
+
+        launches.update(cnn_kernels.launch_counts())
         for row in rows:
             row["launches"] = launches[row["name"]]
     except CheckFailed as e:

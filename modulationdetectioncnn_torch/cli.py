@@ -60,6 +60,15 @@ Overrides use the JAX package's names, plus ``device=``:
 
 Every command runs on the card unless ``device=cpu`` is given. The JAX
 package's ``scaling`` command is not ported yet (ROADMAP.md).
+
+Under ``torchrun`` with more than one rank the process group is initialized
+from its environment, and ``train`` runs on the mesh that ``mesh.data``,
+``mesh.model`` (and ``mesh.time``) give, one rank per process:
+
+    torchrun --nproc-per-node 4 -m modulationdetectioncnn_torch train \
+        mesh.data=2 mesh.model=2 data.classes=BPSK,QPSK model.num_classes=2
+    torchrun --nproc-per-node 2 -m modulationdetectioncnn_torch train device=cpu \
+        mesh.data=2 data.classes=BPSK,QPSK model.num_classes=2
 """
 from __future__ import annotations
 
@@ -250,8 +259,19 @@ def main(argv: list[str] | None = None) -> int:
     if cmd in ("train", "qat"):      # their progress records, on stderr
         logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                             format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    {"train": cmd_train, "eval": cmd_eval, "quantize": cmd_quantize, "qat": cmd_qat,
-     "stream": cmd_stream}[cmd](cfg)
+    # Under torchrun with more than one rank: the process group (NCCL on the
+    # cards, gloo with device=cpu), which train's mesh.* needs.
+    import torch.distributed as dist
+
+    from modulationdetectioncnn_torch.parallel.mesh import init_from_env
+
+    owned = init_from_env(cfg.device)
+    try:
+        {"train": cmd_train, "eval": cmd_eval, "quantize": cmd_quantize, "qat": cmd_qat,
+         "stream": cmd_stream}[cmd](cfg)
+    finally:
+        if owned:
+            dist.destroy_process_group()
     return 0
 
 

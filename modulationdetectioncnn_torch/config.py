@@ -3,8 +3,8 @@
 The port's own copy of the fields of ``modulationdetectioncnn_tpu/config.py``
 that its ported paths read, with the same names and defaults, so that an
 override such as ``stream.num_subbands=8`` or ``bench.backend=pallas_int8_v10``
-means the same thing to both packages. Fields of paths not ported yet (the
-mesh, the DCN block floor) are absent.
+means the same thing to both packages. Every field of the JAX package's
+``AmcConfig`` is here; ``device`` is the port's own.
 """
 from __future__ import annotations
 
@@ -92,8 +92,17 @@ class TrainConfig:
 @dataclass(frozen=True)
 class QuantConfig:
     """Post-training int8 quantization (``quantize`` and the bench's PTQ)."""
+    # Per-output-channel weight scales, the only scheme of either package's
+    # quantizer (the JAX package's field, which it does not read either);
+    # False is refused rather than ignored.
+    weight_per_channel: bool = True
     act_percentile: float = 99.99     # calibration clip percentile
     calib_frames: int = 4096
+
+    def __post_init__(self):
+        if not self.weight_per_channel:
+            raise ValueError("quant.weight_per_channel=false: the quantizer has "
+                             "per-channel weight scales only")
 
 
 @dataclass(frozen=True)
@@ -110,7 +119,11 @@ class StreamConfig:
     fir_taps: int = 33
     frame_len: int = 128              # classification frame length
     frame_hop: int = 128              # must divide frame_len
-    block_len: int = 1 << 15          # overlap-save block length
+    block_len: int = 1 << 15          # overlap-save block length (per rank)
+    # Per-rank block length floor once the time axis spans hosts
+    # (``dsp/pipeline.py::effective_block_len``): the halo is ~112 samples,
+    # so large blocks cost nothing locally and amortize each hop's latency.
+    block_len_dcn_floor: int = 1 << 20
     normalize_cfo: bool = True
     cfo_pad_factor: int = 4           # DFT size = frame_len * pad_factor
     # Per-frame Oerder & Meyr timing estimate and polyphase fractional-delay
@@ -119,6 +132,14 @@ class StreamConfig:
     normalize_timing: bool = False
     timing_phases: int = 32
     sps: int = 8                      # samples per symbol at the frame rate
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh of ranks (``parallel/mesh.py``): data x model x time."""
+    data: int = 1                     # data parallelism over frames/batch
+    model: int = 1                    # channel sharding (tensor parallelism)
+    time: int = 1                     # time-block sharding of the stream
 
 
 @dataclass(frozen=True)
@@ -168,6 +189,7 @@ class AmcConfig:
     quant: QuantConfig = field(default_factory=QuantConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     bench: BenchConfig = field(default_factory=BenchConfig)
     device: str = "cuda"              # "cpu" runs the plain PyTorch versions
 

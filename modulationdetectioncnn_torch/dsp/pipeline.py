@@ -14,8 +14,8 @@ upsampled-rate inputs of history), the channelizer (its FIR history) and
 the framer (overlapping frames' reach).
 
 The classifier is the int8 artifact through the CUDA kernels, or the float
-model of a checkpoint that has no artifact yet (``_make_predictor``). Not
-ported yet: the time-sharded path (ROADMAP.md, Queue 1).
+model of a checkpoint that has no artifact yet (``_make_predictor``). The
+time-sharded path across ranks is ``parallel/halo.py``.
 """
 from __future__ import annotations
 
@@ -79,6 +79,32 @@ def plan_frontend(sc: StreamConfig) -> FrontEndPlan:
     trim_res = halo_in * up // down - h_y
     return FrontEndPlan(m, up, down, f, hop, halo_in, trim_res, n_hist_sub,
                         (f - hop) // hop)
+
+
+def n_hosts() -> int:
+    """The hosts of this run (the JAX package's ``jax.process_count()``):
+    ``WORLD_SIZE // LOCAL_WORLD_SIZE`` under an initialized process group
+    started by ``torchrun``, else 1. Ranks on one host are not counted."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    world = dist.get_world_size()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    return max(1, world // max(1, local))
+
+
+def effective_block_len(sc: StreamConfig, n_processes: int = 1) -> int:
+    """Per-rank overlap-save block length under the multi-host policy.
+
+    Within one host the configured ``block_len`` stands. Once the time axis
+    spans hosts (``n_processes`` > 1, counted by ``n_hosts``), blocks are
+    floored at ``block_len_dcn_floor``, so each hop's latency between hosts
+    amortizes over a long block; the halo (~112 samples) is unchanged, and
+    larger blocks cost nothing locally."""
+    if n_processes <= 1:
+        return sc.block_len
+    return max(sc.block_len, sc.block_len_dcn_floor)
 
 
 def design_resampler(sc: StreamConfig) -> np.ndarray:
@@ -178,10 +204,12 @@ def classify_stream_blocked(x: torch.Tensor, predict_fn: Predictor,
     h = h if h is not None else design_prototype(sc.num_subbands, sc.taps_per_branch)
     plan = plan_frontend(sc)
     m = sc.num_subbands
-    check_block_alignment(sc, sc.block_len)
+    # The block floor between hosts is enforced here, not only documented.
+    block = effective_block_len(sc, n_hosts())
+    check_block_alignment(sc, block)
     hr = design_resampler(sc) if (plan.up, plan.down) != (1, 1) else None
     # (2, nb, halo+block) -> (nb, 2, halo+block)
-    blocks = framer.overlap_save_blocks(x, sc.block_len, plan.halo_in).transpose(0, 1)
+    blocks = framer.overlap_save_blocks(x, block, plan.halo_in).transpose(0, 1)
     fr = block_frontend(blocks, h, hr, sc, plan)       # (nb, M, F_b, 2, f)
     nb, _, fb = fr.shape[:3]
     labels = predict_fn(fr.reshape(nb * m * fb, 2, fr.shape[-1]))

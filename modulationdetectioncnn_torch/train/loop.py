@@ -1,11 +1,19 @@
 """Training loop: AdamW under a warmup-cosine schedule, softmax cross-entropy,
 the whole training split resident on the device.
 
-Counterpart of ``modulationdetectioncnn_tpu/train/loop.py`` on one device
-(a mesh comes with ``parallel/``). The JAX package leaves training to XLA
-and has no Pallas kernel on this path; the port trains with PyTorch's own
-ops (autograd, cuDNN/cuBLAS), the model in ``cfg.model.dtype`` with float32
-parameters.
+Counterpart of ``modulationdetectioncnn_tpu/train/loop.py``. The JAX
+package leaves training to XLA and has no Pallas kernel on this path; the
+port trains with PyTorch's own ops (autograd, cuDNN/cuBLAS), the model in
+``cfg.model.dtype`` with float32 parameters.
+
+On a mesh (``cfg.mesh`` of more than one rank, or ``mesh=``; one process
+per rank, ``parallel/mesh.py``) the step is data-parallel over ``data`` and
+channel-sharded over ``model`` (``ShardedVTCNN2``): every rank draws the
+same global batch indices and the same full-width dropout masks from the
+shared seeded generators and keeps its slice, so the run does not depend on
+the mesh but for the order of float sums; gradients are averaged over
+``data``. The eval and the checkpoint see the whole model, gathered: rank 0
+writes the usual format, and a resume slices it again.
 
 What carries over unchanged, so a run follows the JAX one step for step:
 
@@ -130,46 +138,94 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _step(model: VTCNN2, opt: AdamW, opt_state: AdamState, x: torch.Tensor,
-          y: torch.Tensor, generator: torch.Generator | None):
+          y: torch.Tensor, generator: torch.Generator | None, shard=None):
+    """One step. ``shard``: None, or (this rank's rows, the global batch
+    size, the data group) on a mesh, where ``x``, ``y`` are those rows."""
     model.train()
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    logits = model(x, generator=generator)
+    if shard is None:
+        logits = model(x, generator=generator)
+    else:
+        logits = model(x, generator=generator, rows=shard[0], total=shard[1])
     loss = cross_entropy(logits, y)
     loss.backward()
-    opt.update(params, {k: p.grad for k, p in params.items()}, opt_state)
+    grads = {k: p.grad for k, p in params.items()}
+    if shard is not None:
+        grads = _average_over(grads, shard[2])
+    opt.update(params, grads, opt_state)
     acc = (logits.detach().argmax(-1) == y).to(torch.float32).mean()
     return loss.detach(), acc
 
 
-def make_train_step(model: VTCNN2, opt: AdamW):
+def _average_over(tensors: dict[str, torch.Tensor], group) -> dict[str, torch.Tensor]:
+    """The mean of each tensor over the ranks of ``group``, in one
+    all-reduce of their concatenation (every rank's slice of the batch has
+    the same size, so the mean of the slices' mean gradients is the
+    global batch's)."""
+    import torch.distributed as dist
+
+    from modulationdetectioncnn_torch.parallel.mesh import all_reduce_sum
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return tensors
+    flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors.values()]), group) / n
+    out, i = {}, 0
+    for k, t in tensors.items():
+        out[k] = flat[i:i + t.numel()].view_as(t)
+        i += t.numel()
+    return out
+
+
+def _mesh_shard(mesh, batch_size: int):
+    """(rows, batch_size, data group) of this rank on ``mesh``, or None."""
+    if mesh is None:
+        return None
+    from modulationdetectioncnn_torch.parallel import mesh as pmesh
+
+    return (pmesh.batch_sharding(mesh).rows(batch_size), batch_size,
+            mesh.get_group("data"))
+
+
+def make_train_step(model: VTCNN2, opt: AdamW, mesh=None):
     """The host-batch step: ``step(opt_state, (x, y), generator) -> (loss,
     acc)``, 0-d tensors on the model's device (not synchronised), the model
     and ``opt_state`` updated in place. ``x``, ``y`` may be NumPy; dropout
-    masks come from ``generator``."""
+    masks come from ``generator``. On a ``mesh`` (``model`` a
+    ``ShardedVTCNN2``) the batch is the global one and each rank takes its
+    rows; loss and accuracy are this rank's."""
     dev = next(model.parameters()).device
 
     def train_step(opt_state: AdamState, batch, generator: torch.Generator | None = None):
-        x, y = (torch.as_tensor(b).to(dev) for b in batch)
-        return _step(model, opt, opt_state, x.to(torch.float32), y, generator)
+        x, y = (torch.as_tensor(b) for b in batch)
+        shard = _mesh_shard(mesh, x.shape[0])
+        if shard is not None:
+            x, y = x[shard[0]], y[shard[0]]
+        return _step(model, opt, opt_state, x.to(dev, torch.float32), y.to(dev),
+                     generator, shard)
 
     return train_step
 
 
-def make_device_train_step(model: VTCNN2, opt: AdamW, batch_size: int):
+def make_device_train_step(model: VTCNN2, opt: AdamW, batch_size: int, mesh=None):
     """The device-resident step: ``step(opt_state, data_x, data_y,
     idx_generator, dropout_generator) -> (loss, acc)``. The whole split
     lives on the device; each step draws ``batch_size`` indices uniformly
     with replacement from ``idx_generator`` and gathers its batch there, so
-    no batch crosses from the host."""
+    no batch crosses from the host. On a ``mesh`` each rank gathers its rows
+    of the global batch."""
+    shard = _mesh_shard(mesh, batch_size)
 
     def train_step(opt_state: AdamState, data_x: torch.Tensor, data_y: torch.Tensor,
                    idx_generator: torch.Generator, dropout_generator: torch.Generator):
         idx = torch.randint(0, data_x.shape[0], (batch_size,), generator=idx_generator,
                             device=data_x.device)
+        if shard is not None:
+            idx = idx[shard[0]]
         return _step(model, opt, opt_state, data_x.index_select(0, idx),
-                     data_y.index_select(0, idx), dropout_generator)
+                     data_y.index_select(0, idx), dropout_generator, shard)
 
     return train_step
 
@@ -251,7 +307,7 @@ def step_generators(seed: int, step: int, device: torch.device
 
 def train(cfg: AmcConfig, train_data: tuple[np.ndarray, np.ndarray],
           eval_data: tuple[np.ndarray, np.ndarray] | None = None,
-          device_data: bool = True) -> tuple[VTCNN2, list[dict]]:
+          device_data: bool = True, mesh=None) -> tuple[VTCNN2, list[dict]]:
     """Run the training loop on ``cfg.device``; returns (the trained model
     in eval mode, the records). With ``train.checkpoint_dir`` it resumes
     from the newest checkpoint there and saves every
@@ -259,10 +315,21 @@ def train(cfg: AmcConfig, train_data: tuple[np.ndarray, np.ndarray],
 
     ``device_data=True`` keeps the whole training split on the device and
     draws batches there (uniform with replacement); False feeds shuffled
-    host batches (``batch_iterator``), for a split larger than the device."""
+    host batches (``batch_iterator``), for a split larger than the device.
+
+    ``mesh``: a ``parallel.mesh.make_mesh`` mesh that every rank passes
+    with the same arguments; without one, ``cfg.mesh`` of more than one rank
+    makes it. On a mesh every rank returns the whole gathered model and the
+    same records; rank 0 writes the checkpoints and ``train.log_jsonl``,
+    and every rank reads the checkpoint directory to resume."""
     from modulationdetectioncnn_torch.utils import checkpoint as ckpt
 
     tc = cfg.train
+    mc = cfg.mesh
+    if mesh is None and mc.data * mc.model * mc.time > 1:
+        from modulationdetectioncnn_torch.parallel import mesh as pmesh
+
+        mesh = pmesh.make_mesh(mc, cfg.device)
     dev = resolve_device(cfg.device)
     model = VTCNN2.from_config(cfg.model, cfg.data.frame_len,
                                generator=torch.Generator().manual_seed(tc.seed)).to(dev)
@@ -277,21 +344,40 @@ def train(cfg: AmcConfig, train_data: tuple[np.ndarray, np.ndarray],
             if r_opt is not None:
                 opt_state = r_opt
             log.info("resumed from checkpoint step %d", start_step)
+    leader = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from modulationdetectioncnn_torch.parallel import mesh as pmesh
+
+        model = pmesh.shard_params(model, mesh)
+        opt_state = AdamState(opt_state.count, pmesh.shard_tensors(opt_state.mu, mesh),
+                              pmesh.shard_tensors(opt_state.nu, mesh))
+        data_group = mesh.get_group("data")
+        leader = dist.get_rank() == 0
     idx_gen, drop_gen = step_generators(tc.seed, start_step, dev)
 
-    eval_step = make_eval_step(model)
     if device_data:
-        train_step = make_device_train_step(model, opt, tc.batch_size)
+        train_step = make_device_train_step(model, opt, tc.batch_size, mesh)
         data_x = torch.as_tensor(np.asarray(train_data[0], np.float32)).to(dev)
         data_y = torch.as_tensor(np.asarray(train_data[1], np.int64)).to(dev)
     else:
-        train_step = make_train_step(model, opt)
+        train_step = make_train_step(model, opt, mesh)
         batches = batch_iterator(*train_data, tc.batch_size, tc.seed)
     if eval_data is not None:
         sub = eval_subsample(len(eval_data[0]), tc.eval_max_frames, tc.seed)
         if sub is not None:
             eval_data = (eval_data[0][sub], eval_data[1][sub])
-    jlog = JsonlLogger(tc.log_jsonl)
+    jlog = JsonlLogger(tc.log_jsonl if leader else None)
+
+    def whole_state():
+        """(the whole model, the whole optimizer state) of this step."""
+        if mesh is None:
+            return model, opt_state
+        group = mesh.get_group("model")
+        return pmesh.gather_model(model), AdamState(
+            opt_state.count, pmesh.gather_tensors(opt_state.mu, group),
+            pmesh.gather_tensors(opt_state.nu, group))
 
     history = []
     t_start = time.time()
@@ -304,6 +390,8 @@ def train(cfg: AmcConfig, train_data: tuple[np.ndarray, np.ndarray],
             loss, acc = train_step(opt_state, next(batches), drop_gen)
         samples_done += tc.batch_size
         if step % tc.eval_every == 0 or step == tc.num_steps:
+            if mesh is not None:                        # the global batch's means
+                loss, acc = _average_over({"l": loss, "a": acc}, data_group).values()
             loss_v, acc_v = float(loss), float(acc)     # synchronises the device
             # samples_per_sec is the rate over the current log window;
             # samples_per_sec_avg the cumulative one.
@@ -312,12 +400,15 @@ def train(cfg: AmcConfig, train_data: tuple[np.ndarray, np.ndarray],
                    "samples_per_sec": round((samples_done - samples_last) / (now - t_last)),
                    "samples_per_sec_avg": round(samples_done / (now - t_start))}
             if eval_data is not None:
-                rec["eval_acc"] = round(evaluate(eval_step, *eval_data), 5)
+                rec["eval_acc"] = round(evaluate(make_eval_step(whole_state()[0]),
+                                                 *eval_data), 5)
             t_last, samples_last = time.time(), samples_done  # eval time stays out
             log.info("%s", rec)
             jlog.write(**rec)
             history.append(rec)
         if tc.checkpoint_dir and (step % tc.checkpoint_every == 0 or step == tc.num_steps):
-            ckpt.save(tc.checkpoint_dir, step, model.state_dict(), opt_state)
+            whole, whole_opt = whole_state()
+            if leader:
+                ckpt.save(tc.checkpoint_dir, step, whole.state_dict(), whole_opt)
     jlog.close()
-    return model.eval(), history
+    return whole_state()[0].eval(), history

@@ -137,7 +137,7 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert banned not in src
     sources = _build._sources()
     assert [os.path.basename(s) for s in sources] == [
-        "conv_stage_bf16_v4.cu", "conv_stage_int8.cu", "conv_stage_int8_v10.cu",
+        "cnn_kernels.cu", "conv_stage_bf16_v4.cu", "conv_stage_int8.cu", "conv_stage_int8_v10.cu",
         "conv_stage_int8_v3.cu", "conv_stage_int8_v5.cu", "conv_stage_int8_v6.cu",
         "correct_timing.cu", "dense_argmax_bf16.cu", "dense_argmax_int8.cu"]
     assert [os.path.basename(s) for s in _build._headers()] == ["conv_stage_int8_mma.cuh"]
@@ -146,6 +146,7 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
             cu = f.read()
         assert "torch/extension.h" not in cu and 'extern "C"' in cu
         assert ("Replaces: modulationdetectioncnn_tpu/ops/infer.py::" in cu
+                or "Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::" in cu
                 or "Replaces: modulationdetectioncnn_tpu/dsp/normalize.py::" in cu)
     # Every C entry point a wrapper calls is declared with its argument types.
     entries = set()
@@ -507,3 +508,85 @@ def test_bf16_forwards_and_pallas_bf16_run_with_jax_blocked():
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK []" in proc.stdout
+
+
+PARALLEL_BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import numpy as np, torch
+from modulationdetectioncnn_torch.ops import cnn_kernels
+from modulationdetectioncnn_torch.parallel import dryrun, halo, mesh
+x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 2, 40)).astype(np.float32))
+assert tuple(cnn_kernels.conv1_stacked(x, torch.ones(3, 5), torch.zeros(5)).shape) == (2, 38, 10)
+assert dryrun.main(["device=cpu"]) == 0         # one rank, gloo
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_parallel_and_cnn_kernels_run_with_jax_blocked():
+    """ops/cnn_kernels.py and parallel/ (the dryrun on one gloo rank: a
+    training step on a 1x1 mesh, then the sharded float and int8 streams)
+    run with every JAX module blocked."""
+    code = PARALLEL_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO, stdin=subprocess.DEVNULL)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+    assert '"dryrun_multichip": "ok"' in proc.stdout
+
+
+def test_parallel_paths_raise_without_cuda():
+    """The sharded stream, its meshes and the dryrun run on the card unless
+    given device=cpu; nothing initializes a process group first."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the paths would run on it")
+    import torch.distributed as dist
+
+    from modulationdetectioncnn_torch.config import MeshConfig
+    from modulationdetectioncnn_torch.parallel import dryrun, halo, mesh
+
+    for call in (lambda: mesh.make_mesh(MeshConfig()), lambda: halo.time_mesh(),
+                 lambda: halo.dryrun(), lambda: dryrun.dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="device=cpu"):
+            call()
+    assert not dist.is_initialized()
+
+
+def test_cnn_kernel_wrappers_reject_what_the_kernel_does_not_take():
+    """Rows 17-20 take float32 frames and conv1 weights, a bf16 or float32
+    conv2 input with a weight of its type, int8 activations with int32
+    shifts and offsets, of consistent shapes; anything else, or a non-CUDA
+    device, raises before a launch and counts nothing."""
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+
+    ck.reset_launch_counts()
+
+    def meta(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    i8, i32, bf = torch.int8, torch.int32, torch.bfloat16
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.conv1_stacked(meta((2, 2, 40)), meta((3, 5)), meta((5,)))
+    with pytest.raises(ValueError, match="expected"):
+        ck.conv1_stacked(meta((2, 2, 40), bf), meta((3, 5)), meta((5,)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.conv2_stacked(meta((2, 38, 10), bf), meta((10, 21), bf), meta((7,)))
+    with pytest.raises(ValueError, match="expected"):
+        ck.conv2_stacked(meta((2, 38, 10), bf), meta((10, 21)), meta((7,)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.conv1_stacked_int8(meta((2, 2, 40), i8), meta((3, 5), i8), meta((10,), i32),
+                              meta((10,), i32))
+    with pytest.raises(ValueError, match="expected"):
+        ck.conv1_stacked_int8(meta((2, 2, 40), i8), meta((3, 5), i8), meta((10,)),
+                              meta((10,), i32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.conv2_stacked_int8(meta((2, 38, 10), i8), meta((10, 21), i8), meta((7,), i32),
+                              meta((7,), i32))
+    with pytest.raises(ValueError, match="expected"):
+        ck.conv2_stacked_int8(meta((2, 38), i8), meta((10, 21), i8), meta((7,), i32),
+                              meta((7,), i32))
+    assert ck.launch_counts() == dict.fromkeys(
+        ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8"), 0)
