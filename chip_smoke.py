@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ``stream``, ``bench``, ``eval``, ``quantize``,
-``train`` and ``qat`` paths, its bf16 forwards and its ``parallel/`` paths
-on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's ``stream``, ``bench``, ``scaling``, ``eval``,
+``quantize``, ``train`` and ``qat`` paths, its bf16 forwards, its
+``parallel/`` paths and its per-stage breakdown on one NVIDIA GPU and check
+them.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -106,7 +107,8 @@ Phases, each printing JSON lines (``"phase": ...``):
                beside the PTQ artifact's.
 13. profile -- torch.profiler over 10 iterations of the v10 classifier and
                of the stream chain at B=4096: device time by kernel and the
-               device's busy share (reported, not checked).
+               device's busy share, counting device work alone (kernels and
+               copies; reported, not checked).
 
 The phases of ``parallel/`` and of rows 17-20 of the kernel table:
 
@@ -118,9 +120,28 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                largest magnitude (float32) or the bf16 map tolerance; row 19
                -> row 20 equal to v7's map and, through the dense stage, its
                labels; times at B=4096 beside bound, plain and library.
+- probe_kernels (after cnn_kernels) -- the two kernels of the JAX
+               package's probe suite that no product kernel computes
+               (``ops/probe_kernels.py``: the copy and the int8 prologue
+               alone) against their plain versions bit for bit, on the
+               probe's (4096, 16384) int8 and odd byte counts, and on the
+               bench's, the demo's, B=1, 37 and T=40 frames and exact ties
+               past the clip; times beside bound, plain and library; 0
+               launches on the main path.
 - parallel (after stream) -- world size 1 on NCCL: the sharded v7 stream
                equal to the single-process labels with rows 1-2 launched,
                ``dryrun_multichip(1)``, ``train`` on a 1x1x1 mesh.
+- scaling (after bench) -- ``python -m modulationdetectioncnn_torch
+               scaling`` through ``cli.main``: the bench's calibration over
+               v7 and v10 for the measured rate, then the report: the JAX
+               report's keys (plus the devices and the links), a halo of
+               112 samples, a rate > 0 under the card's name, the default
+               policy's 2-host projection >= 0.85, rows 1, 3, 2 launched.
+- breakdown (after scaling) -- ``scripts/bench_breakdown.py`` into
+               ``chiprun_out/bench_breakdown.json``: v7 and v9 in full, the
+               v9 conv stage (row 4) and the dense + argmax stage (row 2)
+               on their own, against the int8 ceiling measured in the same
+               run; every stage's time > 0, shares summing to 1 within 1 %.
 - parallel_gloo (before profile) -- two processes on the card in a gloo
                group (``--gloo-rank``): halo values, sharded labels equal to
                single-process labels with rows 1-2 launched in each, the
@@ -130,7 +151,7 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                (``--probe-rank``).
 
 Then one ``{"kernels": [...]}`` line (rows 1-21 of PERF.md's kernel
-table) and, last, the contract line
+table and the two probe kernels of row 22) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before the
 last line. With no CUDA device, or outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -180,6 +201,8 @@ TPU_KERNELS = {
     "conv2_stacked": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:129",
     "conv1_stacked_int8": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:223",
     "conv2_stacked_int8": "modulationdetectioncnn_tpu/ops/cnn_kernels.py:268",
+    "copy_bytes": "scripts/probe.py:1044",
+    "quantize_tap_planes": "scripts/probe.py:2061",
 }
 _CSRC = "modulationdetectioncnn_torch/csrc/"
 SOURCES = {
@@ -204,6 +227,8 @@ SOURCES = {
     "conv2_stacked": _CSRC + "cnn_kernels.cu",
     "conv1_stacked_int8": _CSRC + "cnn_kernels.cu",
     "conv2_stacked_int8": _CSRC + "cnn_kernels.cu",
+    "copy_bytes": _CSRC + "probe_kernels.cu",
+    "quantize_tap_planes": _CSRC + "probe_kernels.cu",
 }
 # The kernel each wrapper launches, as the profiler names it.
 KERNEL_SYMBOLS = {
@@ -227,8 +252,11 @@ KERNEL_SYMBOLS = {
     "conv2_stacked": "conv2_kernel<0",                     # bf16 in, tensor cores
     "conv1_stacked_int8": "conv1_int8_kernel",
     "conv2_stacked_int8": "conv2_kernel<1",
+    "copy_bytes": "copy_bytes_kernel",
+    "quantize_tap_planes": "tap_planes_kernel",
 }
 CNN_KERNELS = ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8")
+PROBE_KERNELS = ("copy_bytes", "quantize_tap_planes")
 CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2", "v1")
 INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2", "v1")   # no bf16 fold
 EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2", "v1")
@@ -277,20 +305,9 @@ def time_ms(fn, iters: int, warmup: int = 3, reps: int = 5) -> float:
     timed with one pair of CUDA events, per launch. Launches queue behind
     each other, so the host's time to issue one is hidden as long as it is
     shorter than the device's time to run one."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / iters)
-    return statistics.median(times)
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    return statistics.median(launch_ms_samples(fn, iters, warmup, reps))
 
 
 def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
@@ -673,7 +690,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               f"bench_frames_b{BATCH}": bench_x}
 
     checks, stats = [], {n: {"mismatches": 0, "max_abs_err": 0, "checked": 0}
-                         for n in TPU_KERNELS if n not in CNN_KERNELS}
+                         for n in TPU_KERNELS if n not in CNN_KERNELS + PROBE_KERNELS}
     for wname, qw in weights.items():
         versions = CONV_VERSIONS if wname != "fold_refused" else INTEGER_VERSIONS
         for xname, x in inputs.items():
@@ -1127,6 +1144,88 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     return rows
 
 
+def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
+    """The two probe kernels (``ops/probe_kernels.py``) against their plain
+    versions, bit for bit: the copy on the probe's (4096, 16384) int8, the
+    bench's frames, 1,000,003 and 37 bytes and an empty tensor; the
+    prologue on the bench's 4096 frames (with the artifact's and with the
+    bench's input scale), the demo's 1024, B=1, 37 frames, T=40, and on
+    exact halves and out-of-range values (scale 2: exact products, ties
+    and clipping). Then times at the probe's sizes. Returns the rows of the
+    kernels line."""
+    from modulationdetectioncnn_torch import bench
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.ops import probe_kernels as pk
+    from modulationdetectioncnn_torch.ops.infer import tap_planes
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    pk.reset_launch_counts()
+    qw = load_int8(device="cuda")
+    bench_qw, bench_x = bench.make_int8_weights(AmcConfig(), BATCH)
+    r = np.random.default_rng(SEED + 5)
+    h16k = torch.from_numpy(r.integers(-128, 128, (BATCH, 16384)).astype(np.int8)).cuda()
+    ties = torch.from_numpy(((np.arange(2 * 2 * 128) - 256) / 2.0).astype(np.float32)
+                            .reshape(2, 2, 128) * np.float32(1.5)).cuda()
+    stats = {k: {"mismatches": 0, "checked": 0} for k in PROBE_KERNELS}
+    checks = []
+
+    def record(kname, case, got, want):
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{kname} {case}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)}")
+        bad = int((got != want).sum())
+        stats[kname]["mismatches"] += bad
+        stats[kname]["checked"] += 1
+        checks.append({"kernel": kname, "case": case, "shape": list(got.shape),
+                       "dtype": str(got.dtype), "mismatches": bad})
+
+    for case, t in (("probe_b4096_16384_int8", h16k), ("bench_frames", bench_x),
+                    ("bytes_1000003", h16k.reshape(-1)[:1_000_003]),
+                    ("bytes_37", h16k.reshape(-1)[:37]), ("empty", h16k[:0])):
+        record("copy_bytes", case, pk.copy_bytes(t), t.clone())
+    frames = {f"bench_frames_b{BATCH}": bench_x, "stream_frames": demo,
+              "bench_b1": bench_x[:1], "bench_b37_at3": bench_x[3:40],
+              "t40_b5": torch.from_numpy(r.standard_normal((5, 2, 40)).astype(np.float32)).cuda()}
+    for case, x in frames.items():
+        for sname, inv in (("artifact", qw.inv_sx), ("bench_ptq", bench_qw.inv_sx)):
+            record("quantize_tap_planes", f"{sname}/{case}", pk.quantize_tap_planes(x, inv),
+                   tap_planes(x, inv))
+    record("quantize_tap_planes", "ties_and_clipping_scale2",
+           pk.quantize_tap_planes(ties, 2.0), tap_planes(ties, 2.0))
+    check_launches = pk.launch_counts()
+    for c in checks:
+        emit({"phase": "probe_kernels.check", **c})
+    for kname, st in stats.items():
+        require(st["mismatches"] == 0, f"{kname}: {st['mismatches']} elements differ "
+                "from the plain version")
+
+    bw = dev_info["bytes_per_s"]
+    out16k = torch.empty_like(h16k)
+    plans = (  # name, kernel, plain, library (call, what) or None, bytes
+        ("copy_bytes", lambda: pk.copy_bytes(h16k), lambda: h16k.clone(),
+         (lambda: out16k.copy_(h16k), "Tensor.copy_ into a preallocated tensor"),
+         2 * h16k.numel()),
+        ("quantize_tap_planes", lambda: pk.quantize_tap_planes(bench_x, qw.inv_sx),
+         lambda: tap_planes(bench_x, qw.inv_sx), None,
+         bench_x.numel() * 4 + BATCH * 8 * 128),
+    )
+    rows = []
+    for kname, kernel, plain, lib, nb in plans:
+        rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
+                     "replaces": TPU_KERNELS[kname], "launches": None,
+                     "check_launches": check_launches[kname], "max_abs_err": 0.0,
+                     "mismatches": stats[kname]["mismatches"],
+                     "ms": time_ms(kernel, iters=20),
+                     "device_ms": device_ms(kernel, KERNEL_SYMBOLS[kname]),
+                     "plain_ms": time_ms(plain, iters=20),
+                     "bound_ms": nb / bw * 1e3, "bound_by": "bytes",
+                     "library_ms": time_ms(lib[0], iters=20) if lib else None,
+                     "library_call": lib[1] if lib else None, "bytes": nb})
+    emit({"phase": "probe_kernels", "timed": rows, "check_launches": check_launches})
+    pk.reset_launch_counts()          # from here on: the main path's launches
+    return rows
+
+
 def _demo_labels_sharded(tm, predict) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """(sharded labels, whole-stream labels, the sharded run's launch
     counts: zeroed just before it, read just after) of the stream demo's
@@ -1520,6 +1619,7 @@ def phase_profile() -> None:
     from modulationdetectioncnn_torch.config import AmcConfig
     from modulationdetectioncnn_torch.dsp import pipeline
     from modulationdetectioncnn_torch.dsp.channelizer import design_prototype
+    from modulationdetectioncnn_torch.utils.profiler import device_events
 
     cfg = AmcConfig()
     sc = cfg.stream
@@ -1550,12 +1650,16 @@ def phase_profile() -> None:
                     x = step(x)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        ev = device_events(prof)
         busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
         top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
         emit({"phase": "profile", "window": name, "iterations": 10,
               "wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "device_busy_share": busy_ms / wall_ms if ev else "not visible",
+              # The sum over every entry, operators included: it counts an
+              # operator's kernels twice (reported beside, not used).
+              "all_entries_ms": sum(e.self_device_time_total
+                                    for e in prof.key_averages()) / 1e3,
               "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
                                 for e in top}})
 
@@ -1673,6 +1777,86 @@ def phase_forwards() -> dict[str, int]:
                 f"forwards {name}: launches {counts[name]}")
         require(agree >= 0.85, f"forwards {name} vs the float model: agreement {agree}")
     return counts["make_bf16_forward"]
+
+
+# The JAX package's scaling report's keys (eval/scaling.py); the port adds
+# the devices of its measured rates and the physical links.
+SCALING_KEYS = {"measured_1chip_samples_per_sec", "measured_inputs", "assumptions",
+                "projected"}
+SCALING_INPUTS = {"train_samples_per_sec", "train_batch", "train_step_time_s",
+                  "param_count", "device", "train_rate_device"}
+SCALING_ASSUMPTIONS = {"ici_bw_Bps", "dcn_bw_Bps", "ici_lat_s", "dcn_lat_s",
+                       "block_samples_per_device", "halo_samples", "grad_bytes",
+                       "block_samples_per_device_dcn_policy", "links"}
+SCALING_PROJECTED = {f"stream_eff_{link}_block_{b}" for link in ("2chip_ici", "2host_dcn")
+                     for b in (1 << 15, 1 << 20, 1 << 22)} | {
+    "stream_eff_2host_dcn_at_default_policy", "train_dp_eff_8chip_ici",
+    "train_dp_eff_2host_dcn", "_note"}
+
+
+def phase_scaling() -> dict[str, int]:
+    """``python -m modulationdetectioncnn_torch scaling`` on the card
+    (``cli.main``): the bench's calibration over v7 and v10 for the
+    measured rate, then the report. Requires the JAX report's keys, the
+    composed halo of 112 samples, a measured rate under the card's name and
+    the default policy's projected 2-host efficiency >= 0.85; rows 1, 3 and
+    2 launched. Returns the launch counts."""
+    from modulationdetectioncnn_torch import cli
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, lines = quiet(cli.main, ["scaling"])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    report = json.loads("\n".join(lines))
+    emit({"phase": "scaling", "rc": rc, "wall_s": wall, "report": report,
+          "launches": launches})
+    name = torch.cuda.get_device_name(0)
+    require(rc == 0 and set(report) == SCALING_KEYS
+            and set(report["measured_inputs"]) == SCALING_INPUTS
+            and set(report["assumptions"]) == SCALING_ASSUMPTIONS
+            and set(report["projected"]) == SCALING_PROJECTED,
+            f"scaling: keys {sorted(report)}")
+    require(report["assumptions"]["halo_samples"] == 112, "scaling: halo")
+    require(report["measured_1chip_samples_per_sec"] > 0
+            and report["measured_inputs"]["device"].startswith(name),
+            f"scaling: rate {report['measured_1chip_samples_per_sec']} on "
+            f"{report['measured_inputs']['device']}")
+    require(report["projected"]["stream_eff_2host_dcn_at_default_policy"] >= 0.85,
+            "scaling: default DCN policy below 0.85")
+    require(all(launches[k] > 0 for k in
+                ("conv_stage_int8_v7", "conv_stage_int8_v10", "dense_argmax_int8")),
+            f"scaling: kernel not launched: {launches}")
+    return launches
+
+
+def phase_breakdown() -> dict[str, int]:
+    """``scripts/bench_breakdown.py`` at B=4096 into
+    ``chiprun_out/bench_breakdown.json``: v7 and v9 in full, the v9 conv
+    stage (row 4) and the dense + argmax stage (row 2) on their own.
+    Requires every stage's time > 0, shares of the v9 forward that sum to 1
+    within 1 %, and rows 1, 4 and 2 launched. Returns the launch counts."""
+    from modulationdetectioncnn_torch.scripts import bench_breakdown
+
+    out_path = os.path.join(REPO, "chiprun_out", "bench_breakdown.json")
+    reset_counts()
+    rc, _ = quiet(bench_breakdown.main, [out_path])
+    launches = launch_counts()
+    with open(out_path) as f:
+        res = json.load(f)
+    res.pop("samples_ms")
+    emit({"phase": "breakdown", "rc": rc, "out": os.path.relpath(out_path, REPO),
+          **res, "launches": launches})
+    stages = res["stages"]
+    require(rc == 0 and all(stages[k]["ms"] > 0 for k in
+                            ("v7_full", "v9_full", "conv_stage_v9", "dense_argmax_stage")),
+            f"breakdown: stage times {stages}")
+    require(abs(sum(res["stage_shares_of_v9_full"].values()) - 1) <= 0.01,
+            f"breakdown: shares {res['stage_shares_of_v9_full']}")
+    require(all(launches[k] > 0 for k in
+                ("conv_stage_int8_v7", "conv_stage_int8_v9", "dense_argmax_int8")),
+            f"breakdown: kernel not launched: {launches}")
+    return launches
 
 
 def phase_quantize(tmp: str) -> None:
@@ -1907,6 +2091,8 @@ def main() -> int:
             # Rows 17-20: no product path calls them (0 launches on the main
             # path, read at the end); their checks count their own.
             rows += phase_cnn_kernels(dev, demo)
+            # The two probe kernels: no product path calls them either.
+            rows += phase_probe_kernels(dev, demo)
             int8 = ("dense_argmax_int8",)
             # The stream path: v7 + dense.
             launches = phase_stream("v7", [], ("conv_stage_int8_v7", *int8))
@@ -1924,6 +2110,11 @@ def main() -> int:
             # dryrun, train on a 1x1x1 mesh.
             phase_parallel()
             launches.update(phase_bench())          # the bench path: v9, v10, bf16
+            # This slice: the scaling command (rows 1, 3, 2 through the
+            # bench's calibration) and the per-stage breakdown (rows 4, 2
+            # on their own).
+            phase_scaling()
+            phase_breakdown()
             # The eval path: v5, v6, v4, v3, v2 and v2's dense stage.
             launches.update(phase_eval(tmp))
             # The bf16 forwards: make_bf16_forward's conv stage.
@@ -1939,7 +2130,10 @@ def main() -> int:
             phase_profile()
         from modulationdetectioncnn_torch.ops import cnn_kernels
 
+        from modulationdetectioncnn_torch.ops import probe_kernels
+
         launches.update(cnn_kernels.launch_counts())
+        launches.update(probe_kernels.launch_counts())
         for row in rows:
             row["launches"] = launches[row["name"]]
     except CheckFailed as e:

@@ -27,7 +27,12 @@ Commands:
   ``stream.resample_up/down`` the wideband resampler in front, with
   ``stream.normalize_timing=true`` the per-frame timing correction);
 - ``bench``: the port's benchmark (``bench.py``: one JSON contract line on
-  stdout, calibration and the stream chain's rate on stderr).
+  stdout, calibration and the stream chain's rate on stderr);
+- ``scaling``: the bench's measured one-card rate (quietly, by default the
+  v7/v10 calibration), then ``eval/scaling.py::scaling_report``: the stream
+  and data-parallel training efficiency over cards and hosts projected from
+  that rate, the card's training rate and the H100's link constants,
+  printed as indented JSON.
 
 Overrides use the JAX package's names, plus ``device=``:
 
@@ -57,9 +62,13 @@ Overrides use the JAX package's names, plus ``device=``:
     python -m modulationdetectioncnn_torch bench pallas_int8_v9
     python -m modulationdetectioncnn_torch bench pallas_int8   # v2 logits + argmax
     python -m modulationdetectioncnn_torch bench device=cpu bench.batch_size=64
+    python -m modulationdetectioncnn_torch scaling
+    python -m modulationdetectioncnn_torch scaling device=cpu bench.batch_size=64
 
-Every command runs on the card unless ``device=cpu`` is given. The JAX
-package's ``scaling`` command is not ported yet (ROADMAP.md).
+Every command runs on the card unless ``device=cpu`` is given. As in the
+JAX package, words without ``=`` are ignored (with a warning on stderr),
+except by ``bench``, which reads a bare word as a backend name or as
+``stream`` (``bench.py::parse_args``).
 
 Under ``torchrun`` with more than one rank the process group is initialized
 from its environment, and ``train`` runs on the mesh that ``mesh.data``,
@@ -82,7 +91,7 @@ import torch
 from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
 from modulationdetectioncnn_torch.device import resolve_device
 
-COMMANDS = ("train", "eval", "quantize", "qat", "stream", "bench")
+COMMANDS = ("train", "eval", "quantize", "qat", "stream", "bench", "scaling")
 EVAL_BACKENDS = ("flax", "golden", "int8")
 
 
@@ -240,6 +249,18 @@ def cmd_stream(cfg: AmcConfig):
     return pipeline.run_stream_demo(cfg)
 
 
+def cmd_scaling(cfg: AmcConfig) -> dict:
+    """The bench's rate on ``cfg.device``, then the scaling report from it,
+    printed as indented JSON; returns the report."""
+    from modulationdetectioncnn_torch import bench
+    from modulationdetectioncnn_torch.eval.scaling import scaling_report
+
+    rate = bench.run(cfg, quiet=True)["value"]
+    report = scaling_report(cfg, measured_chip_rate=float(rate))
+    print(json.dumps(report, indent=1))
+    return report
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):
@@ -252,8 +273,11 @@ def main(argv: list[str] | None = None) -> int:
         from modulationdetectioncnn_torch import bench
 
         return bench.main(overrides)
+    bare = [o for o in overrides if "=" not in o]
+    if bare:
+        print(f"ignoring {' '.join(bare)}: overrides are key=value", file=sys.stderr)
     try:
-        cfg = apply_overrides(AmcConfig(), overrides)
+        cfg = apply_overrides(AmcConfig(), [o for o in overrides if "=" in o])
     except (KeyError, ValueError, TypeError) as e:
         raise SystemExit(f"bad override: {e}") from e
     if cmd in ("train", "qat"):      # their progress records, on stderr
@@ -268,7 +292,7 @@ def main(argv: list[str] | None = None) -> int:
     owned = init_from_env(cfg.device)
     try:
         {"train": cmd_train, "eval": cmd_eval, "quantize": cmd_quantize, "qat": cmd_qat,
-         "stream": cmd_stream}[cmd](cfg)
+         "stream": cmd_stream, "scaling": cmd_scaling}[cmd](cfg)
     finally:
         if owned:
             dist.destroy_process_group()

@@ -14,7 +14,15 @@ from __future__ import annotations
 import numpy as np
 from scipy import signal as sp_signal
 
-from modulationdetectioncnn_torch.config import ChannelConfig, DataConfig
+from modulationdetectioncnn_torch.config import ChannelConfig, DataConfig, RML_CLASSES
+
+MODULATIONS = RML_CLASSES
+
+# The JAX package's generator version, which this copy reproduces frame for
+# frame; a dataset cache keyed on it is invalidated when the generated
+# statistics change. v3: CFO/SRO drawn from the bounded random walk's
+# equilibrium (N(0, sigma) clipped) and Rician K=4 multipath.
+GENERATOR_VERSION = 3
 
 
 # Constellations for the linear digital modulations (unit average power).

@@ -1,6 +1,8 @@
 """Device selection shared by every entry point of the port."""
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -15,3 +17,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def describe(dev: torch.device) -> str:
+    """The device a measurement ran on, to print beside it: ``"cpu"``, or
+    the card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit`` reads them (a card set below its maximum runs slower)."""
+    if dev.type != "cuda":
+        return "cpu"
+    index = torch.device(dev).index or 0
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"

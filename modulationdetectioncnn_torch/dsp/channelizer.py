@@ -84,3 +84,10 @@ def channelize(x: torch.Tensor, h: np.ndarray, num_subbands: int) -> torch.Tenso
         start = taps - 1 - t                                  # xp[n-t]
         v = v + h_poly[t] * xpad[..., start:start + n_blocks, :]
     return dft_iq(v)
+
+
+def subband_center_freqs(num_subbands: int) -> np.ndarray:
+    """Centre frequency of each subband in cycles/sample (FFT convention)."""
+    f = np.arange(num_subbands) / num_subbands
+    f[f > 0.5] -= 1.0
+    return f

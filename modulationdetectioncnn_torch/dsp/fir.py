@@ -126,3 +126,24 @@ def fir_resample_iq(xiq: torch.Tensor, h: np.ndarray, up: int, down: int) -> tor
         halo)).to(x.device)
     y = torch.matmul(windows, wmat).reshape(b, n_tiles * r_tile * up)
     return y[:, :out_len].reshape(lead + (out_len,))
+
+
+def _to_iq(x) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    return torch.stack([x.real, x.imag], dim=-2).to(torch.float32)
+
+
+def _from_iq(xiq: torch.Tensor) -> torch.Tensor:
+    return torch.complex(xiq[..., 0, :], xiq[..., 1, :]).to(torch.complex64)
+
+
+def fir_filter(x, h: np.ndarray) -> torch.Tensor:
+    """Complex (..., T) -> complex64 (..., T): ``fir_filter_iq`` on the
+    I/Q planes of ``x`` (a complex tensor or array)."""
+    return _from_iq(fir_filter_iq(_to_iq(x), h))
+
+
+def fir_resample(x, h: np.ndarray, up: int, down: int) -> torch.Tensor:
+    """Complex (..., T) -> complex64 (..., ceil(T*up/down)):
+    ``fir_resample_iq`` on the I/Q planes of ``x``."""
+    return _from_iq(fir_resample_iq(_to_iq(x), h, up, down))

@@ -26,6 +26,12 @@ def trim_halo(blocks: torch.Tensor, halo: int) -> torch.Tensor:
     return blocks[..., halo:]
 
 
+def concat_blocks(blocks: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Inverse of ``overlap_save_blocks`` then ``trim_halo``: (..., NB, B)
+    -> the stream (..., out_len)."""
+    return blocks.reshape(blocks.shape[:-2] + (-1,))[..., :out_len]
+
+
 def frames_from_stream(x: torch.Tensor, frame_len: int,
                        hop: int | None = None) -> torch.Tensor:
     """(..., T) -> (..., n_frames, frame_len), frame i starting at i*hop;
@@ -37,8 +43,19 @@ def frames_from_stream(x: torch.Tensor, frame_len: int,
     return x.unfold(-1, frame_len, hop)
 
 
+def iq_frames(frames: torch.Tensor) -> torch.Tensor:
+    """Complex frames (..., N, T) -> float32 (..., N, 2, T) classifier input."""
+    return torch.stack([frames.real, frames.imag], dim=-2).to(torch.float32)
+
+
 def to_planes(x, device: str | torch.device = "cpu") -> torch.Tensor:
     """Complex (..., T) -> I/Q planes (..., 2, T) float32 (host boundary)."""
     x = np.asarray(x)
     planes = np.stack([x.real, x.imag], axis=-2).astype(np.float32)
     return torch.from_numpy(planes).to(device)
+
+
+def from_planes(xiq) -> np.ndarray:
+    """I/Q planes (..., 2, T) -> complex64 (..., T) on the host."""
+    xiq = xiq.cpu().numpy() if isinstance(xiq, torch.Tensor) else np.asarray(xiq)
+    return (xiq[..., 0, :] + 1j * xiq[..., 1, :]).astype(np.complex64)

@@ -107,6 +107,12 @@ def effective_block_len(sc: StreamConfig, n_processes: int = 1) -> int:
     return max(sc.block_len, sc.block_len_dcn_floor)
 
 
+def halo_wideband(sc: StreamConfig) -> int:
+    """Wideband input samples of history a block needs for seamless
+    streaming through the full front end (resample, channelize, frame)."""
+    return plan_frontend(sc).halo_in
+
+
 def design_resampler(sc: StreamConfig) -> np.ndarray:
     """Anti-alias lowpass for the wideband up/down resampler (gain = up)."""
     cutoff = 0.5 / max(sc.resample_up, sc.resample_down)

@@ -43,3 +43,35 @@ def roofline(samples_per_sec: float) -> Roofline:
         pct_of_bf16_peak=100 * ops / H100_PEAK_BF16_FLOPS,
         pct_of_int8_peak=100 * ops / H100_PEAK_INT8_OPS,
     )
+
+
+def device_events(prof) -> list:
+    """The entries of ``prof.key_averages()`` that are work on the card
+    (kernels, copies, memsets), each counted once, as torch's own total
+    counts them: an operator's entry repeats the device time of the kernels
+    it launched, so a sum over every entry counts those twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms_per_call(fn, iters: int = 10) -> float | None:
+    """The card's busy time per call of ``fn``: the device time of every
+    kernel and copy under ``torch.profiler`` over ``iters`` calls after a
+    warm-up, per call. None when the profiler records no device time (it
+    then cannot see the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in device_events(prof))
+    return total_us / iters / 1e3 if total_us > 0 else None

@@ -52,3 +52,29 @@ def measure_per_iter_chained_samples(body: Callable[[Any], Any],
             t2 = _run_seconds(body, carry0, n2)
             samples.append((t2 - t1) / (n2 - n1))
     return samples
+
+
+def launch_ms_samples(fn: Callable[[], Any], iters: int = 20, warmup: int = 3,
+                      reps: int = 5) -> list[float]:
+    """Milliseconds per call of ``fn`` on the card, one sample per run of
+    ``iters`` back-to-back calls between two CUDA events on the current
+    stream (``reps`` runs after ``warmup`` calls). Stream order runs the
+    calls one after another; a sample is the longer of the device's time
+    and the host's time to issue the calls."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("launch timing needs a CUDA device")
+    with torch.no_grad():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            stop.record()
+            stop.synchronize()
+            samples.append(start.elapsed_time(stop) / iters)
+    return samples

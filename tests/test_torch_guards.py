@@ -139,7 +139,8 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
     assert [os.path.basename(s) for s in sources] == [
         "cnn_kernels.cu", "conv_stage_bf16_v4.cu", "conv_stage_int8.cu", "conv_stage_int8_v10.cu",
         "conv_stage_int8_v3.cu", "conv_stage_int8_v5.cu", "conv_stage_int8_v6.cu",
-        "correct_timing.cu", "dense_argmax_bf16.cu", "dense_argmax_int8.cu"]
+        "correct_timing.cu", "dense_argmax_bf16.cu", "dense_argmax_int8.cu",
+        "probe_kernels.cu"]
     assert [os.path.basename(s) for s in _build._headers()] == ["conv_stage_int8_mma.cuh"]
     for s in sources:
         with open(s) as f:
@@ -147,7 +148,8 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         assert "torch/extension.h" not in cu and 'extern "C"' in cu
         assert ("Replaces: modulationdetectioncnn_tpu/ops/infer.py::" in cu
                 or "Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::" in cu
-                or "Replaces: modulationdetectioncnn_tpu/dsp/normalize.py::" in cu)
+                or "Replaces: modulationdetectioncnn_tpu/dsp/normalize.py::" in cu
+                or "Replaces: scripts/probe.py::" in cu)
     # Every C entry point a wrapper calls is declared with its argument types.
     entries = set()
     for s in sources:
@@ -590,3 +592,53 @@ def test_cnn_kernel_wrappers_reject_what_the_kernel_does_not_take():
                               meta((7,), i32))
     assert ck.launch_counts() == dict.fromkeys(
         ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8"), 0)
+
+
+SCALING_BLOCKED_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import torch
+import modulationdetectioncnn_torch as pkg
+assert not torch.cuda.is_initialized()
+assert pkg.MODULATIONS and pkg.VTCNN2 and pkg.make_dataset and pkg.AmcConfig
+from modulationdetectioncnn_torch import cli
+from modulationdetectioncnn_torch.scripts import bench_breakdown, probe
+assert cli.main(["scaling", "device=cpu", "bench.batch_size=64",
+                 "bench.warmup_iters=1", "bench.timed_iters=2"]) == 0
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+
+
+def test_package_scaling_and_probes_run_with_jax_blocked():
+    """``import modulationdetectioncnn_torch`` (its public names, no CUDA
+    touched), the ``scaling`` command on the CPU, the breakdown and the
+    probes import with every JAX module blocked."""
+    code = SCALING_BLOCKED_RUN.format(forbidden=FORBIDDEN, repo=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+    assert '"halo_samples": 112' in proc.stdout
+
+
+def test_scaling_raises_without_cuda():
+    """``scaling`` measures on the card unless given device=cpu, and names
+    no device it did not measure on."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the command would run on it")
+    from modulationdetectioncnn_torch import cli
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.eval.scaling import scaling_report
+
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        cli.main(["scaling"])
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        scaling_report(AmcConfig(), measured_chip_rate=7e8)
+    proc = subprocess.run([sys.executable, "-m", "modulationdetectioncnn_torch", "scaling"],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode != 0
+    assert "device=cpu" in proc.stderr
+    assert not proc.stdout.strip()
