@@ -24,8 +24,18 @@ Phases, each printing JSON lines (``"phase": ...``):
                the bench's 4096 frames: 0 mismatching int8 activations over
                the whole valid map, 0 mismatching logits (v2's dense stage)
                and 0 mismatching labels, and every version giving the same
-               labels. The timing FIR against its plain version on the
-               stream bench's 4096 normalized frames with their own timing
+               labels. Rows 2 and 11 also at their edges
+               (``scripts/probe.py::dense_edge_cases`` on the artifact):
+               dense1 sums near 1.6e8 (a saturated map under +-127
+               weights), a seeded map over all of [0, 127], and exact and
+               one-ulp ties of the logits, each at B=4097 and 4095 (the
+               last 128-frame tile ragged): 0 differing labels and logits.
+               Where an earlier body of ``csrc/dense_argmax_int8.cu`` was
+               copied to ``_build/dense_argmax_int8_old.cu`` (never
+               committed), rows 2 and 11 are timed against it, old, new,
+               new, old, at B=4096, 2048 and 16384, outputs bit for bit
+               (``kernels.old_vs_new`` lines). The timing FIR against its
+               plain version on the stream bench's 4096 normalized frames with their own timing
                estimates, on the demo's 1024 frames, at B=1, on a ragged
                37-frame slice and at the wrap extremes of tau: 0 differing
                floats. The five bf16 kernels (the v4, v2 and f32-conv1
@@ -141,7 +151,8 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                ``chiprun_out/bench_breakdown.json``: v7 and v9 in full, the
                v9 conv stage (row 4) and the dense + argmax stage (row 2)
                on their own, against the int8 ceiling measured in the same
-               run; every stage's time > 0, shares summing to 1 within 1 %.
+               run; every stage's time > 0, shares (of the card's busy time
+               per call) summing to 1 within 1 %.
 - parallel_gloo (before profile) -- two processes on the card in a gloo
                group (``--gloo-rank``): halo values, sharded labels equal to
                single-process labels with rows 1-2 launched in each, the
@@ -665,7 +676,9 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     from modulationdetectioncnn_torch import bench
     from modulationdetectioncnn_torch.config import AmcConfig
     from modulationdetectioncnn_torch.ops import infer
-    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel, load_int8
+    from modulationdetectioncnn_torch.quant import (
+        DEFAULT_ARTIFACT, QuantizedModel, int8_weights_from_numpy, load_int8)
+    from modulationdetectioncnn_torch.scripts import probe
 
     rng = np.random.default_rng(SEED)
     art_np = QuantizedModel.from_npz(DEFAULT_ARTIFACT)
@@ -691,6 +704,15 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
 
     checks, stats = [], {n: {"mismatches": 0, "max_abs_err": 0, "checked": 0}
                          for n in TPU_KERNELS if n not in CNN_KERNELS + PROBE_KERNELS}
+
+    def record(pairs, wname, xname, n):
+        for kname, (got, want) in pairs.items():
+            mism, err = compare(kname, got, want)
+            stats[kname]["mismatches"] += mism
+            stats[kname]["checked"] += 1
+            stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], err)
+            checks.append({"kernel": kname, "weights": wname, "input": xname,
+                           "n": n, "mismatches": mism})
     for wname, qw in weights.items():
         versions = CONV_VERSIONS if wname != "fold_refused" else INTEGER_VERSIONS
         for xname, x in inputs.items():
@@ -702,13 +724,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                                    infer.dense_int8_plain(conv_full, qw))
             labels = {v: infer.make_int8_predict(qw, v)(x) for v in versions}
             torch.cuda.synchronize()
-            for kname, (got, want) in pairs.items():
-                mism, err = compare(kname, got, want)
-                stats[kname]["mismatches"] += mism
-                stats[kname]["checked"] += 1
-                stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], err)
-                checks.append({"kernel": kname, "weights": wname, "input": xname,
-                               "n": int(x.shape[0]), "mismatches": mism})
+            record(pairs, wname, xname, int(x.shape[0]))
             # Each classifier's labels (its conv kernel, then the dense
             # kernel) against the plain chain, every version equal, and
             # every plain version's map equal to the integer spec's.
@@ -724,6 +740,24 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                     and all(m == 0 for m in plain_mism.values()),
                     f"{wname}/{xname}: labels differ {label_mism}, "
                     f"plain maps vs the integer spec {plain_mism}")
+    # Rows 2 and 11 at their edges (scripts/probe.py::dense_edge_cases):
+    # dense1 sums near 1.6e8, a seeded map over all of [0, 127], exact and
+    # one-ulp ties, each at B = 4097 and 4095 (the last 128-frame tile
+    # ragged), the artifact's weights changed as each kind says.
+    for kind, (tree, hmap) in probe.dense_edge_cases(art_np.tree(), BATCH + 1, SEED).items():
+        qe = int8_weights_from_numpy(tree, "cuda")
+        h_all = torch.from_numpy(hmap).cuda()
+        for hb in (h_all, h_all[:BATCH - 1]):
+            lab_p = infer.dense_argmax_int8_plain(hb, qe)
+            logits_p = infer.dense_int8_plain(hb, qe)
+            pairs = {"dense_argmax_int8": (infer.dense_argmax_int8(hb, qe), lab_p),
+                     "dense_int8": (infer.dense_int8(hb, qe), logits_p)}
+            torch.cuda.synchronize()
+            record(pairs, f"edge_{kind}", f"map_b{hb.shape[0]}", int(hb.shape[0]))
+            top2 = logits_p.topk(2, dim=-1).values
+            checks.append({"weights": f"edge_{kind}", "input": f"map_b{hb.shape[0]}",
+                           "label_counts": torch.bincount(lab_p, minlength=11).tolist(),
+                           "top2_equal": int((top2[:, 0] == top2[:, 1]).sum())})
     timing_rows, stats["correct_timing_fir"] = timing_checks(
         demo_frames, stream_bench_frames(BATCH))
     checks += timing_rows
@@ -833,6 +867,18 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                      "bound_by": by, "library_ms": library_ms,
                      "library_call": lib_what, "batch": b,
                      "int8_ops": int8_ops, "bytes": nb})
+    # Rows 2 and 11 against their earlier body, where a copy of it was put
+    # at probe.OLD_DENSE_SRC (the package never holds one): old, new, new,
+    # old in this run, outputs bit for bit.
+    old_lib = probe.old_dense_library()
+    if old_lib is None:
+        emit({"phase": "kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_DENSE_SRC, REPO)}"})
+    else:
+        for rec in probe.dense_old_vs_new(old_lib, qw):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["outputs_differing"] == 0,
+                    f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # The timing FIR on the stream bench's 4096 frames with their own
     # filters. Bytes: the frames read once (unpadded), the filters, the
     # output written once; operations: 17 multiplies and adds per output
@@ -1834,8 +1880,9 @@ def phase_breakdown() -> dict[str, int]:
     """``scripts/bench_breakdown.py`` at B=4096 into
     ``chiprun_out/bench_breakdown.json``: v7 and v9 in full, the v9 conv
     stage (row 4) and the dense + argmax stage (row 2) on their own.
-    Requires every stage's time > 0, shares of the v9 forward that sum to 1
-    within 1 %, and rows 1, 4 and 2 launched. Returns the launch counts."""
+    Requires every stage's time > 0, shares of the v9 forward (of the
+    card's busy time per call) that sum to 1 within 1 %, and rows 1, 4 and 2
+    launched. Returns the launch counts."""
     from modulationdetectioncnn_torch.scripts import bench_breakdown
 
     out_path = os.path.join(REPO, "chiprun_out", "bench_breakdown.json")

@@ -1,5 +1,5 @@
-// Fused int8 dense1 -> requantize -> dense2 -> argmax, for Hopper (sm_90a).
-// One templated body, two C entry points:
+// Fused int8 dense1 -> requantize -> dense2 -> argmax on Hopper's int8
+// tensor cores (sm_90a). One templated body, two C entry points:
 //
 // Replaces: modulationdetectioncnn_tpu/ops/infer.py::_dense_argmax_int8_kernel
 // (ops/infer.py:631, the dense stage of make_int8_classifier_v7 and of
@@ -21,139 +21,413 @@
 //
 // Bound on the H100 SXM at B = 4096: 2*B*(9920*256 + 256*11) ~ 20.8 G int8
 // operations (~10.5 us at 1,979 TOP/s) against ~43.2 MB moved, mostly the
-// activations read once (~13 us at 3.35 TB/s): memory-bound.
+// activations read once (~12.9 us at 3.35 TB/s): memory-bound.
 //
-// Design (simple and right first): a block owns 32 frames and all 256
-// dense1 outputs, so dense2 and the argmax finish in shared memory and
-// only the label leaves the block. The reduction walks K in 64-byte
-// chunks staged through shared memory (the weight chunk padded to 17 words
-// a row so the 32 lanes of a warp hit 32 banks); each thread keeps a
-// 4-frame x 8-output tile of int32 sums and multiplies with __dp4a.
-// Activations are read from device memory once. The integer pipes, not
-// memory, limit it; the tensor cores are a later kernel's work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design. dense1 is a (B x 9920) . (9920 x 256) int8 product with a
+// per-column epilogue that needs all 256 outputs of a frame in one place.
+// A cluster of CS blocks owns 128 frames and all 256 outputs and splits K
+// between its blocks (155 chunks of 64 bytes). CS is the largest of 1, 2,
+// 4, 8 that keeps the grid within one block per SM and every cluster
+// resident at once (cudaOccupancyMaxActiveClusters; a cluster that waits
+// for another to finish doubles the time): on the H100 SXM 16 tiles x 4
+// blocks at B = 2048, 32 x 2 at 4096, 128 x 1 at 16384.
+// In a block, thread 0 keeps an 8-stage ring of TMA loads in flight (a
+// 128 x 64-byte tile of h and the 256 x 64-byte tile of w3t per stage, in
+// the 64-byte swizzle, completion counted on an mbarrier per stage; rows
+// past n arrive as zeros); two warpgroups each run wgmma.m64n256k32 (s8 x
+// s8 -> s32, both operands K-major from shared memory) on their 64 frames
+// with one product group left in flight, and a stage is refilled once both
+// warpgroups are done with it. At the end each block writes its int32
+// partial tile to shared memory; block r of the cluster sums rows
+// [r*128/CS, (r+1)*128/CS) over the cluster's blocks through distributed
+// shared memory, requantizes them, and runs dense2 (a thread per frame,
+// 11 classes of 64 __dp4a against w4 staged transposed) and the argmax.
+// Integer sums in any order are exact (|acc| <= 9920 * 127 * 128 < 2^31),
+// so the split keeps every label and logit bit for bit.
+// Why split K and not share w3t along M: the split grows the grid without
+// shrinking the 128-frame tile, so w3t is read from L2 once per 128 frames
+// (81 MB at B = 4096, not the old body's 325 MB) and the reduction needs
+// no global workspace (the ABI has none) and no second launch. Sharing
+// w3t's chunks between two tiles' clusters (TMA multicast, a producer warp,
+// each stage released across the blocks) was tried: bit-exact, faster only
+// at B = 16384, slower at 2048 to 8192. What bounds this body: L2's rate
+// for those 81 MB plus the 41 MB map (more blocks per tile do not run
+// faster), then the epilogue.
+// Times at B = 4096 (PERF.md, kernel table rows 2, 11): the earlier body
+// (__dp4a on the CUDA cores, one 32-frame block per SM) 0.325 ms of device
+// time, this one 0.032, old, new, new, old in one run of chip_smoke.py.
+#include <cooperative_groups.h>
+#include <cuda.h>
+
+#include "conv_stage_int8_mma.cuh"
 
 namespace {
 
-constexpr int KD = 124 * 80;      // dense1 reduction length (9920)
-constexpr int KDW = KD / 4;       // in 32-bit words (2480)
-constexpr int D = 256;            // dense1 outputs
-constexpr int NC = 11;            // classes
-constexpr int BM = 32;            // frames per block
-constexpr int KC = 16;            // words per K chunk (64 bytes)
-constexpr int W_STRIDE = KC + 1;  // padded weight-chunk row, in words
-constexpr int THREADS = 256;
-constexpr int FT = 4;             // register tile: frames
-constexpr int DT = 8;             //                outputs (stride 32)
+namespace cg = cooperative_groups;
 
-static_assert(KDW % KC == 0, "K chunks must tile the reduction");
-static_assert((BM / FT) * 32 == THREADS && DT * 32 == D, "thread tiling");
+constexpr int KD = T2 * C2;                // dense1 reduction length (9920)
+constexpr int D = 256;                     // dense1 outputs
+constexpr int NC = 11;                     // classes
+constexpr int BM = 128;                    // frames per cluster
+constexpr int KC = 64;                     // bytes of K per stage
+constexpr int NCHUNK = KD / KC;            // 155
+constexpr int STAGES = 8;
+constexpr int A_BYTES = BM * KC;
+constexpr int STAGE_BYTES = A_BYTES + D * KC;
+constexpr int P_STRIDE = D + 8;            // partial row, int32 words
+constexpr int P_BYTES = BM * P_STRIDE * 4;
+constexpr int A3_STRIDE = D + 16;          // a3 row, bytes
+constexpr int EPI_BYTES = P_BYTES + BM * A3_STRIDE;
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int W4_OFF = RING_BYTES > EPI_BYTES ? RING_BYTES : EPI_BYTES;
+constexpr int BAR_OFF = W4_OFF + NC * D;   // w4 staged [c][d]
+constexpr int SMEM_BYTES = BAR_OFF + STAGES * 8;
+constexpr int MAX_CLUSTER = 8;
+
+static_assert(KD % KC == 0, "64-byte chunks tile the reduction");
+static_assert(STAGE_BYTES % 512 == 0 && A_BYTES % 512 == 0, "swizzle atoms aligned");
+static_assert(SMEM_BYTES <= 232448, "fits the 227 KB a block may have");
+static_assert(THREADS == 256 && BM == 2 * 64, "two warpgroups of 64 frames");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// A (box rows x 64 bytes) tile at (byte x, row y) of the map into dst.
+__device__ __forceinline__ void tma_load(uint8_t* dst, const CUtensorMap* map, int x, int y,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 64-byte rows in the 64-byte swizzle
+// (TMA's SWIZZLE_64B): 8-row groups 512 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc(const uint8_t* p) {
+  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// D += A . B for a warpgroup: A 64 x 32 and B 256 x 32 int8, K-major, from
+// shared memory; D 64 x 256 int32 in registers (n8 block j of row
+// 16*warp + g in d[4j], d[4j+1], of row 16*warp + g + 8 in d[4j+2], d[4j+3]).
+__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The end of a block of a CS-block cluster, after every block's partial
+// tile is in its shared memory: rows [rank*128/CS, (rank+1)*128/CS) summed
+// over the cluster (distributed shared memory; a thread keeps 4 columns and
+// sends all its loads out before it adds), requantized into a3, then dense2
+// and the labels or logits.
+template <int CS, bool ARGMAX>
+__device__ __forceinline__ void finish(cg::cluster_group& cluster, uint8_t* smem, int rank,
+                                       long long f0, long long n,
+                                       const int* __restrict__ m3, const int* __restrict__ o3,
+                                       const float* __restrict__ s4,
+                                       const float* __restrict__ b4, void* __restrict__ out) {
+  constexpr int RB = BM / CS, ROW_STEP = THREADS / (D / 4);
+  static_assert(RB % ROW_STEP == 0, "a block's rows split evenly between its threads");
+  const int tid = threadIdx.x, r0 = rank * RB;
+  const int* part = reinterpret_cast<const int*>(smem);
+  uint8_t* a3 = smem + P_BYTES;
+  const int col = 4 * (tid % (D / 4));
+  int shift[4], offset[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    shift[e] = __ldg(m3 + col + e);
+    offset[e] = __ldg(o3 + col + e);
+  }
+  const int* src[CS];
+#pragma unroll
+  for (int q = 0; q < CS; ++q) src[q] = q == rank ? part : cluster.map_shared_rank(part, q);
+#pragma unroll
+  for (int i = 0; i < RB / ROW_STEP; ++i) {
+    const int row = tid / (D / 4) + ROW_STEP * i;
+    const int off = (r0 + row) * P_STRIDE + col;
+    int4 v[CS];
+#pragma unroll
+    for (int q = 0; q < CS; ++q) v[q] = *reinterpret_cast<const int4*>(src[q] + off);
+    int s[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int q = 0; q < CS; ++q) {
+      s[0] += v[q].x;
+      s[1] += v[q].y;
+      s[2] += v[q].z;
+      s[3] += v[q].w;
+    }
+    uint32_t packed = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      packed |= static_cast<uint32_t>(requant(s[e], offset[e], shift[e])) << (8 * e);
+    *reinterpret_cast<uint32_t*>(a3 + row * A3_STRIDE + col) = packed;
+  }
+  // Done reading the other blocks' tiles; they may exit once all arrive.
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+
+  const long long f = f0 + r0 + tid;
+  if (tid < RB && f < n) {
+    uint4 a[D / 16];
+#pragma unroll
+    for (int q = 0; q < D / 16; ++q)
+      a[q] = reinterpret_cast<const uint4*>(a3 + tid * A3_STRIDE)[q];
+    const uint4* w4s = reinterpret_cast<const uint4*>(smem + W4_OFF);
+    int best = 0;
+    float best_v = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < NC; ++c) {
+      int s = 0;
+#pragma unroll
+      for (int q = 0; q < D / 16; ++q) {
+        const uint4 w = w4s[c * (D / 16) + q];
+        s = __dp4a(static_cast<int>(a[q].x), static_cast<int>(w.x), s);
+        s = __dp4a(static_cast<int>(a[q].y), static_cast<int>(w.y), s);
+        s = __dp4a(static_cast<int>(a[q].z), static_cast<int>(w.z), s);
+        s = __dp4a(static_cast<int>(a[q].w), static_cast<int>(w.w), s);
+      }
+      const float v = __fadd_rn(__fmul_rn(__int2float_rn(s), __ldg(s4 + c)), __ldg(b4 + c));
+      if constexpr (ARGMAX) {
+        if (c == 0 || v > best_v) {  // strict: ties keep the lowest index
+          best_v = v;
+          best = c;
+        }
+      } else {
+        static_cast<float*>(out)[f * NC + c] = v;
+      }
+    }
+    if constexpr (ARGMAX) static_cast<int*>(out)[f] = best;
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 // ARGMAX: labels (B,) int32 into out; else the logits (B, NC) f32.
 template <bool ARGMAX>
-__global__ void __launch_bounds__(THREADS)
-dense_argmax_int8_kernel(const int8_t* __restrict__ h, long long n,
-                         const int8_t* __restrict__ w3t,
-                         const int* __restrict__ m3,
-                         const int* __restrict__ o3,
-                         const int8_t* __restrict__ w4,
-                         const float* __restrict__ s4,
-                         const float* __restrict__ b4,
-                         void* __restrict__ out) {
-  __shared__ int hs[BM][KC];
-  __shared__ int ws[D][W_STRIDE];
-  __shared__ int8_t a3[BM][D];
-  __shared__ float logits[BM][NC];
+__global__ void __launch_bounds__(THREADS, 1)
+dense_argmax_int8_kernel(const __grid_constant__ CUtensorMap hmap,
+                         const __grid_constant__ CUtensorMap wmap, long long n,
+                         const int* __restrict__ m3, const int* __restrict__ o3,
+                         const int8_t* __restrict__ w4, const float* __restrict__ s4,
+                         const float* __restrict__ b4, void* __restrict__ out) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long f0 = static_cast<long long>(blockIdx.x / cs) * BM;
+  const int c_begin = rank * NCHUNK / cs, nch = (rank + 1) * NCHUNK / cs - c_begin;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wg = warp / 4;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
 
-  const int tid = threadIdx.x;
-  const long long f0 = static_cast<long long>(blockIdx.x) * BM;
-  const int fg = tid / 32, dg = tid % 32;
-  const int* hw = reinterpret_cast<const int*>(h);
-  const int* ww = reinterpret_cast<const int*>(w3t);
-
-  int acc[FT][DT];
-#pragma unroll
-  for (int i = 0; i < FT; ++i)
-#pragma unroll
-    for (int j = 0; j < DT; ++j) acc[i][j] = 0;
-
-  for (int kc = 0; kc < KDW / KC; ++kc) {
-#pragma unroll
-    for (int r = 0; r < (BM * KC) / THREADS; ++r) {
-      const int idx = tid + r * THREADS, row = idx / KC, q = idx % KC;
-      const long long f = f0 + row;
-      hs[row][q] = f < n ? __ldg(hw + f * KDW + kc * KC + q) : 0;
-    }
-#pragma unroll
-    for (int r = 0; r < (D * KC) / THREADS; ++r) {
-      const int idx = tid + r * THREADS, d = idx / KC, q = idx % KC;
-      ws[d][q] = __ldg(ww + d * KDW + kc * KC + q);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < KC; ++q) {
-      int a[FT], w[DT];
-#pragma unroll
-      for (int i = 0; i < FT; ++i) a[i] = hs[fg * FT + i][q];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) w[j] = ws[dg + 32 * j][q];
-#pragma unroll
-      for (int i = 0; i < FT; ++i)
-#pragma unroll
-        for (int j = 0; j < DT; ++j) acc[i][j] = __dp4a(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+  auto load = [&](int c) {  // thread 0: chunk c of this block's range
+    const uint32_t bar = smem_u32(bars + c % STAGES);
+    uint8_t* st = smem + (c % STAGES) * STAGE_BYTES;
+    const int k = (c_begin + c) * KC;
+    mbar_expect_tx(bar, STAGE_BYTES);
+    tma_load(st, &hmap, k, static_cast<int>(f0), bar);
+    tma_load(st + A_BYTES, &wmap, k, 0, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < STAGES && c < nch; ++c) load(c);
   }
+  // w4 transposed into words [c][d/4] for dense2's __dp4a dots.
+  uint32_t* w4s = reinterpret_cast<uint32_t*>(smem + W4_OFF);
+  for (int i = tid; i < NC * (D / 4); i += THREADS) {
+    const int c = i / (D / 4), q = i % (D / 4);
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w |= static_cast<uint32_t>(static_cast<uint8_t>(w4[(4 * q + e) * NC + c])) << (8 * e);
+    w4s[c * (D / 4) + q] = w;
+  }
+  __syncthreads();  // the barriers are initialized before anyone waits on them
 
+  int acc[128];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int d = dg + 32 * j, sh = m3[d], off = o3[d];
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+#pragma unroll 1
+  for (int c = 0; c < nch; ++c) {
+    mbar_wait(smem_u32(bars + c % STAGES), (c / STAGES) & 1);
+    const uint8_t* st = smem + (c % STAGES) * STAGE_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int i = 0; i < FT; ++i) {
-      const int v = (acc[i][j] + off) >> sh;  // arithmetic shift
-      a3[fg * FT + i][d] = static_cast<int8_t>(min(max(v, 0), 127));
+    for (int ks = 0; ks < 2; ++ks)
+      wgmma_s8(acc, wgmma_desc(st + wg * 64 * KC + 32 * ks),
+               wgmma_desc(st + A_BYTES + 32 * ks));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_wait<1>();   // chunk c-1's products are done in this warpgroup
+    __syncthreads();   // ... and in the other: its stage may be refilled
+    if (tid == 0 && c >= 1 && c - 1 + STAGES < nch) load(c - 1 + STAGES);
+  }
+  wgmma_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile takes its place
+
+  int* part = reinterpret_cast<int*>(smem);
+  {
+    const int row = 64 * wg + 16 * (warp % 4) + lane / 4, col = 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      int* p = part + row * P_STRIDE + 8 * j + col;
+      *reinterpret_cast<int2*>(p) = make_int2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<int2*>(p + 8 * P_STRIDE) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
-  __syncthreads();
+  cluster.sync();  // every block's partial tile is written
 
-  for (int idx = tid; idx < BM * NC; idx += THREADS) {
-    const int r = idx / NC, c = idx % NC;
-    int s = 0;
-    for (int d = 0; d < D; ++d) s += a3[r][d] * static_cast<int>(w4[d * NC + c]);
-    const float v = __fadd_rn(__fmul_rn(__int2float_rn(s), s4[c]), b4[c]);
-    if constexpr (ARGMAX)
-      logits[r][c] = v;
-    else if (f0 + r < n)
-      static_cast<float*>(out)[(f0 + r) * NC + c] = v;
-  }
-  if constexpr (ARGMAX) {
-    __syncthreads();
-    if (tid < BM && f0 + tid < n) {
-      int best = 0;
-      float bv = logits[tid][0];
-      for (int c = 1; c < NC; ++c) {
-        if (logits[tid][c] > bv) {  // strict: ties keep the lowest index
-          bv = logits[tid][c];
-          best = c;
-        }
-      }
-      static_cast<int*>(out)[f0 + tid] = best;
-    }
+  switch (cs) {
+    case 1: finish<1, ARGMAX>(cluster, smem, rank, f0, n, m3, o3, s4, b4, out); break;
+    case 2: finish<2, ARGMAX>(cluster, smem, rank, f0, n, m3, o3, s4, b4, out); break;
+    case 4: finish<4, ARGMAX>(cluster, smem, rank, f0, n, m3, o3, s4, b4, out); break;
+    default: finish<8, ARGMAX>(cluster, smem, rank, f0, n, m3, o3, s4, b4, out); break;
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (rows, 9920) int8 row-major matrix read in (box_rows, 64-byte) tiles in
+// the 64-byte swizzle; rows past the end read as zeros.
+bool encode_map(CUtensorMap* map, const void* base, long long rows, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(KD), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(KD)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(KC), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One cluster of CS blocks per 128 frames, CS the largest of 1, 2, 4, 8 that
+// keeps the grid within one block per SM and every cluster resident at once
+// (a cluster that waits for another to finish doubles the time);
+// returns the launch's
+// cudaGetLastError() code (no launch for n <= 0; cudaErrorInvalidValue if
+// a tensor map cannot be made).
 template <bool ARGMAX>
 int launch(const void* h, long long n, const void* w3t, const void* m3,
            const void* o3, const void* w4, const void* s4, const void* b4,
            void* out, void* stream) {
-  const long long blocks = (n + BM - 1) / BM;
-  dense_argmax_int8_kernel<ARGMAX><<<static_cast<unsigned>(blocks), THREADS, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(h), n, static_cast<const int8_t*>(w3t),
-      static_cast<const int*>(m3), static_cast<const int*>(o3),
-      static_cast<const int8_t*>(w4), static_cast<const float*>(s4),
-      static_cast<const float*>(b4), out);
+  if (n <= 0) return 0;
+  CUtensorMap hmap, wmap;
+  if (!encode_map(&hmap, h, n, BM) || !encode_map(&wmap, w3t, D, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = dense_argmax_int8_kernel<ARGMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n + BM - 1) / BM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // The clusters of each size the card holds at once, asked once.
+  static int fit[MAX_CLUSTER + 1] = {};
+  int cs = MAX_CLUSTER;
+  for (; cs > 1; cs /= 2) {
+    if (tiles * cs > sms) continue;
+    if (fit[cs] == 0) {
+      attr[0].val.clusterDim.x = cs;
+      cfg.gridDim = dim3(cs);
+      err = cudaOccupancyMaxActiveClusters(&fit[cs], kernel, &cfg);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (tiles <= fit[cs]) break;
+  }
+  attr[0].val.clusterDim.x = cs;
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * cs));
+  err = cudaLaunchKernelEx(&cfg, kernel, hmap, wmap, n, static_cast<const int*>(m3),
+                           static_cast<const int*>(o3), static_cast<const int8_t*>(w4),
+                           static_cast<const float*>(s4), static_cast<const float*>(b4), out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -276,7 +276,7 @@ def _launch(wrapper, inp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
             raise ValueError(f"{name}: {key} is on {t.device}, input on {inp.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        if t.data_ptr() % (16 if key == "input" else 4):
+        if t.data_ptr() % (16 if key in ("input", "w3t") else 4):
             raise ValueError(f"{name}: {key} is misaligned")
     lib = _build.load_library()
     args = [inp.data_ptr(), b, *(t.data_ptr() for t in weights.values())]

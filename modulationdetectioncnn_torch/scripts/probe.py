@@ -15,6 +15,9 @@ a function that one of the port's kernels computes (PERF.md section 6).
             torch and by the port's prologue kernel), row 9, row 11, the
             argmax, the whole ``pallas_int8`` forward
   dense     row 11, row 2, and dense1 alone (``torch._int_mm``, a yardstick)
+  dense_old rows 2 and 11 against an earlier body of ``csrc/dense_argmax_int8.cu``
+            (a copy put at ``OLD_DENSE_SRC``, never part of the package), old,
+            new, new, old at B = 4096, 2048 and 16384, outputs bit for bit
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
   r3stream  the stream chain by stage at the bench's 524,288 samples
   r5cfo     the CFO chain's components at B=4096
@@ -26,17 +29,24 @@ call under ``torch.profiler``. Each probe prints the card's name and power
 limit first. There is no CPU version: a probe raises without a card.
 
     python -m modulationdetectioncnn_torch.scripts.probe ceil stage dense batch r3stream r5cfo
+
+``dense_edge_cases`` builds the int8 dense stage's edge inputs, which
+chip_smoke.py holds rows 2 and 11 to on the card and the CPU tests hold
+their plain versions to against the JAX package's golden chain.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import statistics
+import subprocess
 import sys
 
 import numpy as np
 import torch
 
-from modulationdetectioncnn_torch.ops import probe_kernels
+from modulationdetectioncnn_torch.ops import _build, probe_kernels
 from modulationdetectioncnn_torch.scripts.bench_breakdown import (
     BATCH, CONV_MACS, DENSE_MACS, FULL_MACS, T_IN)
 
@@ -154,6 +164,124 @@ def probe_dense() -> list[dict]:
     ]
 
 
+OLD_DENSE_SRC = os.path.join(_build.BUILD_DIR, "dense_argmax_int8_old.cu")
+DENSE_ENTRIES = ("dense_argmax_int8", "dense_int8")
+
+
+def old_dense_library(src: str = OLD_DENSE_SRC) -> ctypes.CDLL | None:
+    """An earlier body of ``csrc/dense_argmax_int8.cu`` copied to ``src``
+    (the ignored ``_build/``), built on its own with the package's flags
+    and loaded beside the package's library; None when there is no copy."""
+    if not os.path.isfile(src):
+        return None
+    out = os.path.splitext(src)[0] + ".so"
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    for name in DENSE_ENTRIES:
+        fn = getattr(lib, f"amc_{name}")
+        fn.argtypes = _build._SIGNATURES[f"amc_{name}"]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _old_dense(lib: ctypes.CDLL, name: str, h: torch.Tensor, qw) -> torch.Tensor:
+    """``name``'s entry of the old library on the package wrapper's
+    arguments (labels or logits)."""
+    b = h.shape[0]
+    out = (torch.empty((b, 11), dtype=torch.float32, device=h.device)
+           if name == "dense_int8" else torch.empty((b,), dtype=torch.int32, device=h.device))
+    weights = (qw.w3t, qw.m3, qw.o3, qw.w4, qw.s4, qw.b4)
+    code = getattr(lib, f"amc_{name}")(h.data_ptr(), b, *(t.data_ptr() for t in weights),
+                                       out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
+    return out
+
+
+def dense_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 2 and 11, the old body against the package's, on seeded [0, 127]
+    maps: each timed old, new, new, old (median of 5 runs of 20 calls each
+    between CUDA events, then the profiler's device time per call, in the
+    same order), their outputs compared bit for bit, and dense1 alone by
+    ``torch._int_mm`` (a yardstick) in the same round."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn):
+        return statistics.median(launch_ms_samples(fn))
+
+    recs = []
+    for b in batches:
+        h = _seeded((b, 124 * 80), qw.w3t.device, 0, 128, np.int8, seed=b)
+        for name in DENSE_ENTRIES:
+            new = lambda: getattr(infer, name)(h, qw)  # noqa: E731
+            old = lambda: _old_dense(lib, name, h, qw)  # noqa: E731
+            got, want = new(), old()
+            differ = int((got != want).sum())
+            mm = lambda: torch._int_mm(h, qw.w3t.T)  # noqa: E731
+            times = [ms(old), ms(new), ms(new), ms(old)]
+            dev = [device_ms_per_call(f) for f in (old, new, new, old)]
+            rec = {"probe": "dense_old", "name": name, "batch": b,
+                   "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                   "old_device_ms": [dev[0], dev[3]], "new_device_ms": [dev[1], dev[2]],
+                   "int_mm_dense1_ms": ms(mm), "int_mm_dense1_device_ms": device_ms_per_call(mm),
+                   "outputs_differing": differ}
+            recs.append(rec)
+    return recs
+
+
+def probe_dense_old() -> list[dict]:
+    _header("dense_old")
+    lib = old_dense_library()
+    if lib is None:
+        raise SystemExit(f"dense_old: no earlier body at {OLD_DENSE_SRC}")
+    qw, _ = _weights()
+    recs = dense_old_vs_new(lib, qw)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
+def dense_edge_cases(tree: dict, b: int, seed: int) -> dict[str, tuple[dict, np.ndarray]]:
+    """{kind: (weight tree, (b, 9920) int8 map)} for the int8 dense stage,
+    from a model's tree (``QuantizedModel.tree()``) and a seed:
+
+    - ``saturated``: every map value 127; dense1's even units have every
+      weight +127 or -127 (a sign per unit), the odd ones a sign per
+      weight, so dense1 sums reach 9920 * 127 * 127 ~ 1.6e8 in magnitude;
+    - ``full_range``: a seeded map over all of [0, 127], the model as is;
+    - ``near_tie``: the same kind of map under a dense2 whose classes 3, 5
+      and 7 share class 3's column and scale, 3 and 7 its bias, and 5 the
+      next float above it; the other classes get zero weights and a bias of
+      -3e38. Class 7 ties class 3 on every frame (the lowest index wins);
+      class 5's logit is class 3's or the next float above, as the rounded
+      add falls, so a fused multiply-add or another rounding flips labels.
+    """
+    rng = np.random.default_rng(seed)
+    full = rng.integers(0, 128, (b, tree["w3"].shape[0]), dtype=np.int8)
+    sat = dict(tree)
+    signs = rng.choice(np.array([-127, 127], np.int8), size=tree["w3"].shape)
+    signs[:, 0::2] = signs[0, 0::2]
+    sat["w3"] = signs
+    tie = dict(tree)
+    w4 = np.array(tree["w4"], np.int8)
+    s4, b4 = np.array(tree["s4"], np.float32), np.array(tree["b4"], np.float32)
+    w4[:, 5] = w4[:, 7] = w4[:, 3]
+    others = [c for c in range(w4.shape[1]) if c not in (3, 5, 7)]
+    w4[:, others] = 0
+    s4[[5, 7]] = s4[3]
+    b4[7], b4[5] = b4[3], np.nextafter(b4[3], np.float32(np.inf))
+    b4[others] = -3e38
+    tie.update(w4=w4, s4=s4, b4=b4)
+    return {"saturated": (sat, np.full_like(full, 127)), "full_range": (dict(tree), full),
+            "near_tie": (tie, rng.integers(0, 128, full.shape, dtype=np.int8))}
+
+
 def probe_batch() -> list[dict]:
     from modulationdetectioncnn_torch.ops import infer
 
@@ -266,6 +394,7 @@ PROBES = {
     "ceil": probe_ceil,
     "stage": probe_stage,
     "dense": probe_dense,
+    "dense_old": probe_dense_old,
     "batch": probe_batch,
     "r3stream": probe_r3stream,
     "r5cfo": probe_r5cfo,

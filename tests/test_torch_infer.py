@@ -409,6 +409,45 @@ def test_dense_stage_logits_and_labels_agree(qw, frames):
                                   tinfer.dense_argmax_int8(conv, qw).numpy())
 
 
+@pytest.fixture(scope="module")
+def dense_edges(qm):
+    """The dense stage's edge inputs (``scripts/probe.py::dense_edge_cases``,
+    the kinds chip_smoke.py holds rows 2 and 11 to) at 129 frames, with
+    golden's logits and labels: ``golden/quant.py::dense_int8`` (dense1 and
+    rq3; w3 passed column-major, the same values, which numpy's integer
+    product runs ~9x faster), then the reference's affine and argmax."""
+    from modulationdetectioncnn_torch.scripts.probe import dense_edge_cases
+
+    cases = dense_edge_cases(qm.tree(), 129, seed=12)
+    out = {}
+    for kind, (tree, h) in cases.items():
+        a3 = gq.dense_int8(h, np.asfortranarray(tree["w3"]), tree["m3"], tree["o3"])
+        acc4 = a3.astype(np.int32) @ tree["w4"].astype(np.int32)
+        logits = acc4.astype(np.float32) * tree["s4"] + tree["b4"]
+        out[kind] = (int8_weights_from_numpy(tree, device="cpu"), h, logits,
+                     np.argmax(logits, axis=-1))
+    w3 = cases["saturated"][0]["w3"].astype(np.int64)
+    assert np.abs(127 * w3.sum(axis=0)).max() == 9920 * 127 * 127
+    assert set(np.unique(out["near_tie"][3]).tolist()) <= {3, 5}
+    assert out["full_range"][1].min() == 0 and out["full_range"][1].max() == 127
+    return out
+
+
+@pytest.mark.parametrize("b", [1, 37, 129])
+@pytest.mark.parametrize("kind", ["saturated", "full_range", "near_tie"])
+def test_dense_plain_versions_match_golden_on_edge_maps(dense_edges, kind, b):
+    """The plain dense stages, which the CUDA kernels are held to on the
+    card, against the integer spec on the edge maps: dense1 sums near
+    1.6e8, the full [0, 127] range, exact and near ties (class 7 always
+    ties class 3 and loses). Logits bit for bit, labels exactly."""
+    qw, h, logits, labels = dense_edges[kind]
+    hb = torch.from_numpy(h[:b])
+    got = tinfer.dense_int8_plain(hb, qw).numpy()
+    assert got.shape == (b, 11) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, logits[:b])
+    np.testing.assert_array_equal(tinfer.dense_argmax_int8_plain(hb, qw).numpy(), labels[:b])
+
+
 def test_taps_cpu_wrappers_take_plain_versions_without_counting(qw, frames):
     tinfer.reset_launch_counts()
     x = torch.from_numpy(frames)
