@@ -124,12 +124,23 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
 
 - cnn_kernels (after kernels) -- the four ``ops/cnn_kernels.py`` kernels
                against their plain versions on the bench's 4096 frames, the
-               demo's 1024, B=1, 37 frames and two odd shapes (T 40, C 33,
-               Co 7; T 300, C 48, Co 100): float conv1 (bf16 and float32 out) and both int8
-               kernels bit for bit, float conv2 within 1e-5 of the map's
-               largest magnitude (float32) or the bf16 map tolerance; row 19
-               -> row 20 equal to v7's map and, through the dense stage, its
-               labels; times at B=4096 beside bound, plain and library.
+               demo's 1024, B=1, 37 frames, B = 4095, 4097 and 133 and three
+               odd shapes (T 40, C 33, Co 7; T 300, C 48, Co 100; T 300 at
+               the default C 256, Co 80: three row tiles on conv2's Hopper
+               route), and conv2 on its edges (int8: a map all 127 under
+               weights all +-127, sums near +-2.5e7, offsets across the
+               clip; bf16: magnitudes near 2^50): float conv1 (bf16 and
+               float32 out) and both int8 kernels bit for bit, float conv2
+               within 1e-5 of the map's largest magnitude (float32) or the
+               bf16 map tolerance; row 19 -> row 20 equal to v7's map and,
+               through the dense stage, its labels; conv2's launches per
+               route (the default widths on the Hopper route); times at
+               B=4096 beside bound, plain and library. Where an earlier
+               body of ``csrc/cnn_kernels.cu`` (conv2's tile body alone)
+               was copied to ``_build/cnn_kernels_old.cu`` (never
+               committed), rows 18 (bf16, float32) and 20 are timed
+               against it, old, new, new, old, at B = 4096, 2048 and 16384
+               (``cnn_kernels.old_vs_new`` lines).
 - probe_kernels (after cnn_kernels) -- the two kernels of the JAX
                package's probe suite that no product kernel computes
                (``ops/probe_kernels.py``: the copy and the int8 prologue
@@ -260,9 +271,9 @@ KERNEL_SYMBOLS = {
     "dense_argmax_bf16": "dense_argmax_bf16_kernel<true>",
     "dense_logits_bf16": "dense_argmax_bf16_kernel<false>",
     "conv1_stacked": "conv1_f32_kernel<__nv_bfloat16>",
-    "conv2_stacked": "conv2_kernel<0",                     # bf16 in, tensor cores
+    "conv2_stacked": "conv2_wgmma_kernel<0",               # bf16, the Hopper route
     "conv1_stacked_int8": "conv1_int8_kernel",
-    "conv2_stacked_int8": "conv2_kernel<1",
+    "conv2_stacked_int8": "conv2_wgmma_kernel<1",
     "copy_bytes": "copy_bytes_kernel",
     "quantize_tap_planes": "tap_planes_kernel",
 }
@@ -870,7 +881,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # Rows 2 and 11 against their earlier body, where a copy of it was put
     # at probe.OLD_DENSE_SRC (the package never holds one): old, new, new,
     # old in this run, outputs bit for bit.
-    old_lib = probe.old_dense_library()
+    old_lib = probe.old_library(probe.OLD_DENSE_SRC, probe.DENSE_ENTRIES)
     if old_lib is None:
         emit({"phase": "kernels.old_vs_new",
               "skipped": f"no earlier body at {os.path.relpath(probe.OLD_DENSE_SRC, REPO)}"})
@@ -985,24 +996,15 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     return rows
 
 
-def float_conv_weights(state: dict) -> tuple:
-    """(w1p (3, C1), b1, w2p (2*C1, 3*C2) tap-packed, b2), float32 on the
-    card, from a VT-CNN2 state dict: ``w1p[k, c] = conv1[c, 0, 0, k]``,
-    ``w2p[h*C1 + cin, k*C2 + co] = conv2[co, cin, h, k]``."""
-    w2 = state["conv2.weight"]
-    return (state["conv1.weight"][:, 0, 0, :].T.contiguous().float().cuda(),
-            state["conv1.bias"].float().cuda(),
-            w2.permute(2, 1, 3, 0).reshape(2 * w2.shape[1], 3 * w2.shape[0])
-            .contiguous().float().cuda(),
-            state["conv2.bias"].float().cuda())
-
-
 def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     """Rows 17-20 (``ops/cnn_kernels.py``) against their plain versions on
-    the bench's 4096 seeded frames, the stream demo's 1024, B=1 and a
-    ragged 37-frame slice, and on two odd shapes with seeded weights (T 40,
-    C 33, Co 7; and T 300, C 48, Co 100, where conv2 takes three row tiles
-    and two channel tiles): rows 17 (bf16 and float32 out), 19 and 20 bit for bit,
+    the bench's 4096 seeded frames, the stream demo's 1024, B=1, a ragged
+    37-frame slice, B = 4095, 4097 and 133 (frame counts the persistent
+    grid does not divide), and on three odd shapes with seeded weights (T
+    40, C 33, Co 7; T 300, C 48, Co 100, where conv2 takes three row tiles
+    and two channel tiles; T 300 at C 256, Co 80, three row tiles on the
+    Hopper route), and conv2 on its edges (``conv2_edge_cases``): rows 17
+    (bf16 and float32 out), 19 and 20 bit for bit,
     row 18 within 1e-5 of the map's largest magnitude in float32 and within
     the bf16 map tolerance in bf16. Float weights: the bench's seeded model
     and the exported checkpoint; int8: the committed artifact. On the
@@ -1020,17 +1022,21 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     ck.reset_launch_counts()
     bench_x, _, bench_model = bench._frames_and_model(AmcConfig(), BATCH)
     ckpt_model = restore_model(FLOAT_CKPT, ModelConfig(), 128, "cuda")[0]
-    float_sets = {"bench_seeded": float_conv_weights(bench_model.state_dict()),
-                  "float_checkpoint": float_conv_weights(ckpt_model.state_dict())}
+    float_sets = {"bench_seeded": ck.float_conv_weights(bench_model.state_dict(), "cuda"),
+                  "float_checkpoint": ck.float_conv_weights(ckpt_model.state_dict(), "cuda")}
     art = QuantizedModel.from_npz(DEFAULT_ARTIFACT)
     i8 = tuple(torch.from_numpy(np.asarray(getattr(art, k))).cuda()
                for k in ("w1p", "m1", "o1", "w2p", "m2", "o2"))
     qw = load_int8(device="cuda")
+    extra = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
+        (1, 2, 128)).astype(np.float32)).cuda()
     inputs = {f"bench_frames_b{BATCH}": bench_x, "stream_frames": demo,
-              "bench_b1": bench_x[:1], "bench_b37_at3": bench_x[3:40]}
+              "bench_b1": bench_x[:1], "bench_b37_at3": bench_x[3:40],
+              "bench_b4095": bench_x[:4095], "bench_b4097": torch.cat([bench_x, extra]),
+              "bench_b133": bench_x[:133]}
     r = np.random.default_rng(SEED + 3)
     odd_shapes = {}      # seeded weights at widths the main path never gives
-    for nb, nt, nc, nco in ((37, 40, 33, 7), (5, 300, 48, 100)):   # B, T, C, Co
+    for nb, nt, nc, nco in ((37, 40, 33, 7), (5, 300, 48, 100), (5, 302, 256, 80)):  # B, T, C, Co
         odd_shapes[f"t{nt}_c{nc}_co{nco}"] = (
             tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in (
                 r.standard_normal((nb, 2, nt)), r.standard_normal((3, nc)) / np.sqrt(3),
@@ -1101,10 +1107,19 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     for name, (fl, i8_odd) in odd_shapes.items():
         float_pair(name, *fl)
         int8_pair(name, *i8_odd)
+    for name, (a1, w2p, *rest) in conv2_edge_cases(SEED + 5).items():
+        if a1.dtype == torch.int8:
+            record("conv2_stacked_int8", name, ck.conv2_stacked_int8(a1, w2p, *rest),
+                   ck.conv2_stacked_int8_plain(a1, w2p, *rest))
+        else:
+            record("conv2_stacked", name, ck.conv2_stacked(a1, w2p, *rest),
+                   ck.conv2_stacked_plain(a1, w2p, *rest), BF16_RTOL, BF16_ATOL_OF_MAX)
     check_launches = ck.launch_counts()
+    check_routes = ck.route_launch_counts()
     for c in checks:
         emit({"phase": "cnn_kernels.check", **c})
     emit({"phase": "cnn_kernels.chain", "row19_row20_vs_v7": chain})
+    emit({"phase": "cnn_kernels.routes", "check_launches_per_route": check_routes})
     for kname, st in stats.items():
         require(st["mismatches"] == 0, f"{kname}: {st['mismatches']} elements outside "
                 "tolerance of the plain version")
@@ -1156,6 +1171,13 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
           "torch._int_mm, z = (B*126, 512) x (512, 240)"),
          (conv2_ops, "int8"), nbytes(a1q, *i8[3:]) + b * (t1 - 2) * 80),
     )
+    # The default widths take the Hopper route.
+    ck.reset_launch_counts()
+    plans[1][1]()
+    plans[3][1]()
+    timed_routes = ck.route_launch_counts()
+    require(all(timed_routes[k] == {"wgmma": 1, "general": 0} for k in timed_routes),
+            f"conv2 at the default widths did not take the Hopper route: {timed_routes}")
     rows = []
     for kname, kernel, plain, lib, (ops, kind), nb in plans:
         t_ops, t_bytes = ops / peaks[kind] * 1e3, nb / bw * 1e3
@@ -1172,6 +1194,10 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                      "library_ms": time_ms(lib[0], iters=20) if lib else None,
                      "library_call": lib[1] if lib else None,
                      "batch": b, f"{kind}_ops": ops, "bytes": nb})
+        if kname in timed_routes:
+            rows[-1]["conv2_route"] = "wgmma"
+            require(rows[-1]["device_ms"] is not None,
+                    f"{kname}: the profiler shows no {KERNEL_SYMBOLS[kname]}")
     # Row 18's float32 form (CUDA cores), beside its bf16 row.
     f32_ops_ms = conv2_ops / peaks["f32"] * 1e3
     f32_bytes = nbytes(a1f, w2p, b2) + b * (t1 - 2) * 80 * 4
@@ -1186,8 +1212,52 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     rows[0]["float32_out_ms"] = time_ms(
         lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32), iters=20)
     emit({"phase": "cnn_kernels", "timed": rows, "check_launches": check_launches})
+    # Rows 18 and 20 against an earlier body (conv2's tile body alone),
+    # where a copy of it was put at probe.OLD_CNN_SRC: old, new, new, old
+    # in this run.
+    from modulationdetectioncnn_torch.scripts import probe
+
+    old_lib = probe.old_library(probe.OLD_CNN_SRC, probe.CNN_ENTRIES)
+    if old_lib is None:
+        emit({"phase": "cnn_kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CNN_SRC, REPO)}"})
+    else:
+        for rec in probe.conv2_old_vs_new(old_lib, w2p, b2, *i8[3:]):
+            emit({"phase": "cnn_kernels.old_vs_new", **rec})
+            require(rec["outputs_differing"] == 0,
+                    f"{rec['name']} B={rec['batch']}: new vs old body differ")
     ck.reset_launch_counts()          # from here on: the main path's launches
     return rows
+
+
+def conv2_edge_cases(seed: int) -> dict:
+    """conv2's edges at the default widths (B 133, T 126, K 512, Co 80), as
+    {name: (a1s, w2p, ...the rest of the wrapper's arguments)}:
+
+    - ``int8_saturated``: a map all 127 under weights all +127 or -127, the
+      share of +127 in channel co's columns rising with co, so the sums
+      127 * sum(w2p[:, k*80 + co]) run from about -2.5e7 to +2.5e7; shifts
+      of 17-18 and offsets of +-2^22 put the requantized values below 0,
+      inside [0, 127] and above it;
+    - ``bf16_large``: a seeded bf16 map and weights near 2^50, sums near
+      2^100 (float32 holds them; bf16 rounds them)."""
+    r = np.random.default_rng(seed)
+    b, t, k, co = 133, 126, 512, 80
+    share = np.linspace(0.0, 1.0, co)
+    plus = r.random((k, 3, co)) < share
+    w2p = np.where(plus, 127, -127).astype(np.int8).reshape(k, 3 * co)
+    m2 = r.integers(17, 19, co).astype(np.int32)
+    o2 = r.integers(-(1 << 22), 1 << 22, co).astype(np.int32)
+    a1f = r.standard_normal((b, t, k)).astype(np.float32) * 2.0 ** 50
+    w2f = r.standard_normal((k, 3 * co)).astype(np.float32) * 2.0 ** 50 / np.sqrt(3 * k)
+    bias = (0.1 * r.standard_normal(co)).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+
+    return {"int8_saturated": (torch.full((b, t, k), 127, dtype=torch.int8, device="cuda"),
+                               dev(w2p), dev(m2), dev(o2)),
+            "bf16_large": (dev(a1f).to(torch.bfloat16), dev(w2f).to(torch.bfloat16), dev(bias))}
 
 
 def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:

@@ -1,15 +1,17 @@
 // The stand-alone conv kernels of the VT-CNN2 topology, for Hopper (sm_90a),
-// at widths given at run time (any B, T, C, Cin, Co). Four C entry points:
+// at widths given at run time (any B, T, C, Cin, Co). Six C entry points:
 //
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv1_kernel
 //   (ops/cnn_kernels.py:78, reached by pl.pallas_call in conv1_stacked,
 //   ops/cnn_kernels.py:111) with amc_conv1_stacked,
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv2_kernel
-//   (:129, conv2_stacked, :165) with amc_conv2_stacked,
+//   (:129, conv2_stacked, :165) with amc_conv2_stacked and
+//   amc_conv2_stacked_wgmma (two routes, below),
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv1_int8_kernel
 //   (:223, conv1_stacked_int8, :249) with amc_conv1_stacked_int8, and
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv2_int8_kernel
-//   (:268, conv2_stacked_int8, :300) with amc_conv2_stacked_int8.
+//   (:268, conv2_stacked_int8, :300) with amc_conv2_stacked_int8 and
+//   amc_conv2_stacked_int8_wgmma.
 //
 // Computes (channel n = h*C + c of the stacked layout, t_out = t_in - 2):
 //   conv1   x (B, 2, T) f32, w1p (3, C) f32, b1 (C,) f32 -> (B, T-2, 2C) bf16|f32
@@ -25,39 +27,87 @@
 //           b2 (Co,) f32 -> (B, t_out, Co) bf16|f32
 //           out[b,t,co] = out_t(relu(sum_k sum_j a1s[b,t+k,j] * w2p[j,k*Co+co]
 //                                    + b2[co]))
-//           bf16: tensor cores (mma.sync m16n8k16, f32 sums); f32: FMAs on
-//           the CUDA cores (no TF32). The TPU kernel built z = a1s . w2p in
-//           VMEM and shift-added its lanes (z0[t] + z1[t+1] + z2[t+2]); here
-//           tap k's A rows are t+k, so the shift-add happens in the
-//           accumulator and z is never stored: the sums differ from the plain
-//           version's only in their order;
+//           bf16: tensor cores (f32 sums); f32: FMAs on the CUDA cores (no
+//           TF32). The TPU kernel built z = a1s . w2p in VMEM and shift-added
+//           its lanes (z0[t] + z1[t+1] + z2[t+2]); here tap k's A rows are
+//           t+k, so the shift-add happens in the accumulator and z is never
+//           stored: the sums differ from the plain version's only in their
+//           order;
 //   conv2 int8  a1s (B, t_in, K) int8, w2p (K, 3Co) int8, m/o (Co,) int32
-//           -> (B, t_out, Co) int8, the same sum exact in int32
-//           (mma.sync m16n8k32), then the requantize of conv1 int8.
+//           -> (B, t_out, Co) int8, the same sum exact in int32, then the
+//           requantize of conv1 int8.
 //
 // Bound on the H100 SXM at B = 4096, T = 128, C = 256, Co = 80 (inputs read
 // once, outputs written once; chip_smoke.py recomputes it from each run's
 // tensors): conv1 writes 528.5 MB bf16 (0.159 ms at 3.35 TB/s; 1.06 GB, 0.317
 // ms, in f32) for 1.6 GFLOP; conv1 int8 265 MB (0.079 ms); conv2 bf16 reads
 // 528.5 MB and writes 81 MB (0.182 ms) for 124.8 GFLOP (0.126 ms at 989
-// TFLOP/s): all four bound by bytes, except conv2 f32, whose 124.8 GFLOP on
-// the CUDA cores (67 TFLOP/s) take 1.86 ms.
+// TFLOP/s); conv2 int8 305 MB (0.091 ms) for 124.8 GOP (0.063 ms at 1,979
+// TOP/s): all bound by bytes, except conv2 f32, whose 124.8 GFLOP on the
+// CUDA cores (67 TFLOP/s) take 1.86 ms.
 //
-// Design (simple and right first). conv1: one warp per output row (b, t),
-// lanes over channel pairs, so a warp writes 128 contiguous bytes per step
-// and the row's six inputs are read once; the pair of two channels is one
-// 4-byte (bf16), 8-byte (f32) or 2-byte (int8) store, aligned because 2C is
-// even. conv2: one block of 8 warps per (frame, 128 output rows, 80
-// channels) tile. K is walked in 64-byte chunks: the tile's 130 input rows
-// and the chunk of all three taps' weights, transposed to [k*80 + co][j],
-// are staged in shared memory (16-byte loads when the rows allow it, else
-// bytes), zero-filled past T, K and Co, so any width fits the tensor-core
-// tiles. The weight is read again for every tile, from L2.
+// conv1: one warp per output row (b, t), lanes over channel pairs, so a warp
+// writes 128 contiguous bytes per step and the row's six inputs are read
+// once; the pair of two channels is one 4-byte (bf16), 8-byte (f32) or
+// 2-byte (int8) store, aligned because 2C is even.
+//
+// conv2 has two bodies; ops/cnn_kernels.py::conv2_route picks one from the
+// widths, the dtype and the alignment (a dispatch by shape, never a retry):
+//
+// - The Hopper route (amc_conv2_stacked_wgmma, amc_conv2_stacked_int8_wgmma;
+//   bf16 or int8, K * element size a multiple of 16 bytes, K <= 512, Co a
+//   multiple of 4, a1s and w2p 16-byte aligned: the default widths always).
+//   Persistent blocks, one per SM, each with its weight resident in shared
+//   memory for the whole launch: 3 taps x NT channels x K, in wgmma's
+//   K-major layout (64-byte swizzle), transposed there once by the block
+//   from w2p (122,880 bytes at K = 512: NT = 80 channels in int8, 40 in
+//   bf16, whose 80 channels take two blocks side by side, so the second
+//   read of a frame's map hits L2). So w2p crosses L2 once per block, not
+//   once per (frame, 128-row tile): 16 MB in all instead of 1.0 GB (bf16)
+//   or 0.5 GB (int8) at B = 4096. A producer warp streams the map through a
+//   6-stage ring of TMA boxes (130 rows x 128 bytes of K, 128-byte swizzle;
+//   rows past t_in and bytes past K arrive as zeros, so the tile needs no
+//   hand-zeroed rows) on full/empty mbarriers, running ahead across work
+//   items (frame, 128-row tile). Two consumer warpgroups own 64 tile rows
+//   each and issue wgmma with both operands in shared memory (m64n40k16
+//   bf16, m64n80k32 s8): for tap k, A is the ring's tile moved down k rows,
+//   a descriptor start k * 128 bytes further, so the shift-add happens in
+//   the accumulator and z is never stored. The 128-byte swizzle follows the
+//   address bits, so the moved start needs no base offset (a base offset of
+//   (start >> 7) & 7 read the wrong rows on the H100). A stage is released
+//   once the products that read it are done (one product group stays in
+//   flight); the epilogue (bias + ReLU + one rounding, or the requantize,
+//   with its constants in registers for the launch) stores 4 bytes or more
+//   a lane (int8: two lanes swap halves to make 4 channels of one row)
+//   while the producer already fills the next item's stages.
+//   What bounds it (PERF.md section 6, chip_smoke.py and scripts/probe.py
+//   conv2_maps): the map's stream, ~2.2 TB/s of the card's 3.35 in this
+//   access pattern, and in bf16 the second read of each frame by the other
+//   channel tile's block. Found on the way, with code not kept (its
+//   numbers are not recorded): wgmma
+//   runs at its peak at these shapes from registers or shared memory; an
+//   ldmatrix-fed A from registers was no faster than A from shared
+//   memory; what held the first body was the per-item epilogue, whose
+//   per-lane constant loads stalled both warpgroups at once (now loaded
+//   once per launch, with one product group left in flight); a 2-block
+//   cluster multicasting each box (each bf16 frame read once) and
+//   warpgroups taking alternate items from rings of their own both ran
+//   slower.
+// - The general route (amc_conv2_stacked, amc_conv2_stacked_int8; any
+//   width, and float32 always): one block of 8 warps per (frame, 128 output
+//   rows, 80 channels) tile. K is walked in 64-byte chunks: the tile's 130
+//   input rows and the chunk of all three taps' weights, transposed to
+//   [k*80 + co][j], are staged in shared memory (16-byte loads when the rows
+//   allow it, else bytes), zero-filled past T, K and Co, then mma.sync
+//   (m16n8k16 bf16, m16n8k32 s8) or FMAs (f32). The weight is read again
+//   for every tile, from L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -354,6 +404,316 @@ int launch_conv2(const void* a, long long b, int t_in, int k_in, int co,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- conv2, the Hopper route
+
+constexpr int CONSUMERS = 256;               // two warpgroups of 64 tile rows
+constexpr int WG_THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int A_CHUNK = 128;                 // bytes of K per ring stage (TMA's SWIZZLE_128B)
+constexpr int A_TX = A_ROWS * A_CHUNK;       // bytes one box brings
+constexpr int A_STAGE = 17 * 1024;           // a stage, on the swizzle's 1024-byte atom
+constexpr int STAGES = 6;
+constexpr int RING_BYTES = STAGES * A_STAGE;
+constexpr int WG_MAX_K = 512;                // the resident weight's budget, in elements
+static_assert(A_TX <= A_STAGE, "a box fits its stage");
+static_assert(1024 + RING_BYTES + WG_MAX_K * 2 * 120 + 2 * STAGES * 8 <= 232448,
+              "ring, weight and barriers fit the 227 KB a block may have");
+static_assert(2 * (1024 + RING_BYTES + A_CHUNK * 120) > 228 * 1024,
+              "one block per SM at any K: the grid is one block per SM");
+
+// Per mode: element size, channels per block (the weight of 3 * NT columns
+// and K <= 512 is 122,880 bytes in both), the accumulator type.
+template <int MODE> struct Wg;
+template <> struct Wg<BF16_MMA> {
+  static constexpr int ES = 2, NT = 40;
+  using Acc = float;
+};
+template <> struct Wg<INT8_MMA> {
+  static constexpr int ES = 1, NT = 80;
+  using Acc = int;
+};
+
+// D += A . B for a warpgroup, both K-major from shared memory: A 64 x 16
+// bf16 (128-byte rows, wgmma_desc128), B 40 x 16 (wgmma_desc), D 64 x 40
+// f32 (n8 block j of row 16w + g in d[4j], d[4j+1], of row 16w + g + 8 in
+// d[4j+2], d[4j+3], for warp w of the warpgroup).
+__device__ __forceinline__ void wgmma_tap(float (&d)[20], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same in int8: A 64 x 32, B 80 x 32, D 64 x 80 int32.
+__device__ __forceinline__ void wgmma_tap(int (&d)[40], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Keeps the compiler from moving reads of the accumulators above the wait.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r) :: "memory"); }
+
+// Once per block, by the consumer threads: the block's 3 * NT weight columns
+// (n = k*NT + c: tap k, channel co0 + c) transposed to K-major rows in
+// 64-byte K tiles in the 64-byte swizzle (wgmma_desc's layout): bytes
+// [16q, 16q + 16) of K tile kt of row n at kt*NB*64 + n*64 + ((q ^ (n/2 % 4))
+// << 4); zeros past K and Co. A thread reads a (4/ES) x (4/ES) block of w2p
+// as one 32-bit word per K row and writes it as one word per column.
+template <int MODE>
+__device__ __forceinline__ void stage_w_resident(const uint8_t* __restrict__ w2p, int k_in,
+                                                 int co, int co0, int k_tiles, uint8_t* ws) {
+  using W = Wg<MODE>;
+  constexpr int R = 4 / W::ES, NB = 3 * W::NT;
+  const int units = (k_tiles * 64 / 4) * (NB / R);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < units; i += CONSUMERS) {
+    const int j = i / (NB / R) * R, n = i % (NB / R) * R;   // first K row, first column
+    const int c = co0 + n % W::NT;
+    const uint8_t* src = w2p + (static_cast<long long>(j) * 3 * co + n / W::NT * co + c) * W::ES;
+    uint32_t r[R], col[R];
+#pragma unroll
+    for (int e = 0; e < R; ++e)
+      r[e] = j + e < k_in && c < co
+                 ? *reinterpret_cast<const uint32_t*>(src + static_cast<long long>(e) * 3 * co * W::ES)
+                 : 0u;
+    if constexpr (R == 2) {
+      col[0] = __byte_perm(r[0], r[1], 0x5410);
+      col[1] = __byte_perm(r[0], r[1], 0x7632);
+    } else {
+      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+      const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+      col[0] = __byte_perm(t0, t2, 0x5410);
+      col[1] = __byte_perm(t0, t2, 0x7632);
+      col[2] = __byte_perm(t1, t3, 0x5410);
+      col[3] = __byte_perm(t1, t3, 0x7632);
+    }
+    const int kb = j * W::ES, q = kb % 64 / 16;
+    uint8_t* dst = ws + kb / 64 * (NB * 64) + kb % 16;
+#pragma unroll
+    for (int e = 0; e < R; ++e) {
+      const int nn = n + e;
+      *reinterpret_cast<uint32_t*>(dst + nn * 64 + ((q ^ (nn >> 1 & 3)) << 4)) = col[e];
+    }
+  }
+}
+
+// a: the (B, t_in, k_in) map as a 3-D tensor map, boxes of 130 rows x 128
+// bytes in the 128-byte swizzle (rows past t_in and bytes past k_in read as
+// zeros). Work item w = frame * row_tiles + row tile; block (x, y) takes
+// items x, x + gridDim.x, ... for channels [y*NT, y*NT + NT).
+template <int MODE, typename OutT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, int row_tiles,
+                   int t_in, int k_in, int co, int k_chunks,
+                   const uint8_t* __restrict__ w2p, const float* __restrict__ b2,
+                   const int* __restrict__ m2, const int* __restrict__ o2,
+                   OutT* __restrict__ out) {
+  using W = Wg<MODE>;
+  using Acc = typename W::Acc;
+  constexpr int NB = 3 * W::NT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  const uint32_t ws = base + RING_BYTES;
+  const uint32_t full = ws + k_chunks * A_CHUNK * NB, empty = full + 8 * STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int co0 = blockIdx.y * W::NT;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {  // the producer: lane 0 keeps the ring full
+    if (lane == 0) {
+      int it = 0;
+      for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+        const int f = static_cast<int>(w / row_tiles), t0 = static_cast<int>(w % row_tiles) * BM;
+        for (int c = 0; c < k_chunks; ++c, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, A_TX);
+          tma_load_3d(base + s * A_STAGE, &amap, c * (A_CHUNK / W::ES), t0, f, full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: the weight once, while the first boxes arrive.
+  stage_w_resident<MODE>(w2p, k_in, co, co0, 2 * k_chunks, smem_raw + (ws - raw));
+  fence_proxy_async();
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+
+  // Warpgroup g owns tile rows 64g .. 64g + 63 (warp w of it rows 16(w%4)
+  // .. +15 of those). For tap k its A is the same tile moved down k rows:
+  // a descriptor start k * 128 bytes further, so the shift-add happens in
+  // the accumulator. Epilogue constants stay in registers for the launch.
+  const int row0 = (warp / 4) * 64 + (warp % 4) * 16, a_row0 = (warp / 4) * 64;
+  const int t_out = t_in - 2, g = lane >> 2, tq = lane & 3;
+  Acc ep0[W::NT / 8][2], ep1[W::NT / 8][2];   // bf16: bias; int8: shift, offset
+#pragma unroll
+  for (int j = 0; j < W::NT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = co0 + 8 * j + 2 * tq + e;
+      if constexpr (MODE == INT8_MMA) {
+        ep0[j][e] = ch < co ? __ldg(m2 + ch) : 0;
+        ep1[j][e] = ch < co ? __ldg(o2 + ch) : 0;
+      } else {
+        ep0[j][e] = ch < co ? __ldg(b2 + ch) : 0.0f;
+      }
+    }
+  int it = 0;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const long long f = w / row_tiles;
+    const int t0 = static_cast<int>(w % row_tiles) * BM;
+    Acc acc[W::NT / 2];
+#pragma unroll
+    for (int i = 0; i < W::NT / 2; ++i) acc[i] = 0;
+#pragma unroll 1
+    for (int c = 0; c < k_chunks; ++c, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      __syncwarp();                  // converged again for the .aligned products
+      const uint32_t st = base + s * A_STAGE + a_row0 * A_CHUNK, wc = ws + 2 * c * (NB * 64);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)    // the chunk's two 64-byte halves: two K tiles
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            wgmma_tap(acc, wgmma_desc128(st + k * A_CHUNK + 64 * h + 32 * ks),
+                      wgmma_desc(wc + h * (NB * 64) + k * (W::NT * 64) + 32 * ks));
+      wgmma_commit();
+      wgmma_wait<1>();               // the previous chunk's products are done:
+      __syncwarp();                  // this warp releases its stage
+      if (c > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+#pragma unroll
+    for (int i = 0; i < W::NT / 2; ++i) pin(acc[i]);
+
+    OutT* of = out + f * static_cast<long long>(t_out) * co;
+    const int r_lo = t0 + row0 + g, r_hi = r_lo + 8;
+#pragma unroll
+    for (int j = 0; j < W::NT / 8; ++j) {
+      const int ch = co0 + 8 * j + 2 * tq;    // this lane's two channels (Co % 4 == 0)
+      if constexpr (MODE == INT8_MMA) {
+        // Lanes 2i and 2i+1 swap halves so that each stores 4 channels of
+        // one row: the even lane row r_lo, the odd one row r_hi.
+        const uint32_t lo = requant(acc[4 * j], ep1[j][0], ep0[j][0]) |
+                            requant(acc[4 * j + 1], ep1[j][1], ep0[j][1]) << 8;
+        const uint32_t hi = requant(acc[4 * j + 2], ep1[j][0], ep0[j][0]) |
+                            requant(acc[4 * j + 3], ep1[j][1], ep0[j][1]) << 8;
+        const bool odd = tq & 1;
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 1);
+        const int row = odd ? r_hi : r_lo, c4 = ch - 2 * odd;
+        if (c4 < co && row < t_out)
+          *reinterpret_cast<uint32_t*>(of + static_cast<long long>(row) * co + c4) =
+              odd ? other | hi << 16 : lo | other << 16;
+      } else {
+        if (ch < co) {
+          if (r_lo < t_out)
+            store2(of + static_cast<long long>(r_lo) * co + ch,
+                   fmaxf(__fadd_rn(acc[4 * j], ep0[j][0]), 0.0f),
+                   fmaxf(__fadd_rn(acc[4 * j + 1], ep0[j][1]), 0.0f));
+          if (r_hi < t_out)
+            store2(of + static_cast<long long>(r_hi) * co + ch,
+                   fmaxf(__fadd_rn(acc[4 * j + 2], ep0[j][0]), 0.0f),
+                   fmaxf(__fadd_rn(acc[4 * j + 3], ep0[j][1]), 0.0f));
+        }
+      }
+    }
+  }
+}
+
+// The Hopper route's envelope (ops/cnn_kernels.py::conv2_route): rows of
+// whole 16-byte units (TMA's stride rule), the weight within its budget,
+// channels in groups of 4 (the epilogue's 4-byte stores).
+bool conv2_wgmma_fits(int k_in, int co, int es) {
+  return k_in >= 1 && k_in <= WG_MAX_K && k_in * es % 16 == 0 && co > 0 && co % 4 == 0;
+}
+
+// Persistent blocks, one per SM (the ring and the smallest weight take more
+// than half of the SM's 228 KB): sms / channel tiles blocks per channel
+// tile, all resident at once, so the blocks of a frame's channel tiles run
+// side by side and its second read of the map hits L2.
+// cudaErrorInvalidValue outside the envelope, for an unaligned pointer, or
+// if the tensor map cannot be made.
+template <int MODE, typename OutT>
+int launch_conv2_wgmma(const void* a, long long b, int t_in, int k_in, int co,
+                       const void* w2p, const float* b2, const int* m2, const int* o2,
+                       void* out, void* stream) {
+  using W = Wg<MODE>;
+  constexpr int NB = 3 * W::NT;
+  if (!conv2_wgmma_fits(k_in, co, W::ES) || t_in < 3 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(w2p) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0) return 0;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap amap;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k_in), static_cast<cuuint64_t>(t_in),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k_in) * W::ES,
+                                 static_cast<cuuint64_t>(t_in) * k_in * W::ES};
+  const cuuint32_t box[3] = {A_CHUNK / W::ES, A_ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (encode(&amap, W::ES == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             3, const_cast<void*>(a), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_tiles = (t_in - 2 + BM - 1) / BM;
+  const long long items = b * row_tiles;
+  const int k_chunks = (k_in * W::ES + A_CHUNK - 1) / A_CHUNK;
+  const int smem = 1024 + RING_BYTES + k_chunks * A_CHUNK * NB + 2 * STAGES * 8;
+  const int tiles_c = (co + W::NT - 1) / W::NT;
+  if (tiles_c > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = conv2_wgmma_kernel<MODE, OutT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long gx = sms / tiles_c;
+  gx = gx < 1 ? 1 : gx > items ? items : gx;
+  const dim3 grid(static_cast<unsigned>(gx), tiles_c);
+  kernel<<<grid, WG_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      amap, items, row_tiles, t_in, k_in, co, k_chunks, static_cast<const uint8_t*>(w2p), b2,
+      m2, o2, static_cast<OutT*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 long long conv1_blocks(long long b, int t_in) {
   return (b * (t_in - 2) + C1_WARPS - 1) / C1_WARPS;
 }
@@ -422,4 +782,27 @@ extern "C" int amc_conv2_stacked_int8(const void* a1s, long long b, int t_in,
   return launch_conv2<INT8_MMA, int8_t>(a1s, b, t_in, k_in, co, w2p, nullptr,
                                         static_cast<const int*>(m),
                                         static_cast<const int*>(o), vec, out, stream);
+}
+
+// The Hopper route of amc_conv2_stacked, for bf16 a1s and w2p inside
+// conv2_wgmma_fits, both 16-byte aligned (else cudaErrorInvalidValue):
+// b2 (co,) f32 -> (B, t_in-2, co), bf16 (out_f32 0) or f32.
+extern "C" int amc_conv2_stacked_wgmma(const void* a1s, long long b, int t_in, int k_in,
+                                       int co, const void* w2p, const void* b2, int out_f32,
+                                       void* out, void* stream) {
+  const auto* bias = static_cast<const float*>(b2);
+  return out_f32 ? launch_conv2_wgmma<BF16_MMA, float>(a1s, b, t_in, k_in, co, w2p, bias,
+                                                       nullptr, nullptr, out, stream)
+                 : launch_conv2_wgmma<BF16_MMA, __nv_bfloat16>(a1s, b, t_in, k_in, co, w2p,
+                                                               bias, nullptr, nullptr, out,
+                                                               stream);
+}
+
+// The Hopper route of amc_conv2_stacked_int8, on the same terms.
+extern "C" int amc_conv2_stacked_int8_wgmma(const void* a1s, long long b, int t_in,
+                                            int k_in, int co, const void* w2p, const void* m,
+                                            const void* o, void* out, void* stream) {
+  return launch_conv2_wgmma<INT8_MMA, int8_t>(a1s, b, t_in, k_in, co, w2p, nullptr,
+                                              static_cast<const int*>(m),
+                                              static_cast<const int*>(o), out, stream);
 }

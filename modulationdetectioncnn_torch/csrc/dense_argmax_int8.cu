@@ -57,9 +57,9 @@
 // (__dp4a on the CUDA cores, one 32-frame block per SM) 0.325 ms of device
 // time, this one 0.032, old, new, new, old in one run of chip_smoke.py.
 #include <cooperative_groups.h>
-#include <cuda.h>
 
 #include "conv_stage_int8_mma.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -88,43 +88,6 @@ static_assert(KD % KC == 0, "64-byte chunks tile the reduction");
 static_assert(STAGE_BYTES % 512 == 0 && A_BYTES % 512 == 0, "swizzle atoms aligned");
 static_assert(SMEM_BYTES <= 232448, "fits the 227 KB a block may have");
 static_assert(THREADS == 256 && BM == 2 * 64, "two warpgroups of 64 frames");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// A (box rows x 64 bytes) tile at (byte x, row y) of the map into dst.
-__device__ __forceinline__ void tma_load(uint8_t* dst, const CUtensorMap* map, int x, int y,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 64-byte rows in the 64-byte swizzle
-// (TMA's SWIZZLE_64B): 8-row groups 512 bytes apart.
-__device__ __forceinline__ uint64_t wgmma_desc(const uint8_t* p) {
-  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) | (1ull << 16) |
-         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
-}
 
 // D += A . B for a warpgroup: A 64 x 32 and B 256 x 32 int8, K-major, from
 // shared memory; D 64 x 256 int32 in registers (n8 block j of row
@@ -168,11 +131,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
         "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // The end of a block of a CS-block cluster, after every block's partial
@@ -310,12 +268,12 @@ dense_argmax_int8_kernel(const __grid_constant__ CUtensorMap hmap,
   for (int c = 0; c < nch; ++c) {
     mbar_wait(smem_u32(bars + c % STAGES), (c / STAGES) & 1);
     const uint8_t* st = smem + (c % STAGES) * STAGE_BYTES;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks)
       wgmma_s8(acc, wgmma_desc(st + wg * 64 * KC + 32 * ks),
                wgmma_desc(st + A_BYTES + 32 * ks));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_commit();
     wgmma_wait<1>();   // chunk c-1's products are done in this warpgroup
     __syncthreads();   // ... and in the other: its stage may be refilled
     if (tid == 0 && c >= 1 && c - 1 + STAGES < nch) load(c - 1 + STAGES);
@@ -341,24 +299,6 @@ dense_argmax_int8_kernel(const __grid_constant__ CUtensorMap hmap,
     case 4: finish<4, ARGMAX>(cluster, smem, rank, f0, n, m3, o3, s4, b4, out); break;
     default: finish<8, ARGMAX>(cluster, smem, rank, f0, n, m3, o3, s4, b4, out); break;
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A (rows, 9920) int8 row-major matrix read in (box_rows, 64-byte) tiles in

@@ -86,6 +86,12 @@ _SIGNATURES = {
     # a1s, n, t_in, k, co, w2p, m, o, vec, out, stream
     "amc_conv2_stacked_int8": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, _P],
+    # a1s, n, t_in, k, co, w2p, b2, out_f32, out, stream
+    "amc_conv2_stacked_wgmma": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _P, _P, ctypes.c_int, _P, _P],
+    # a1s, n, t_in, k, co, w2p, m, o, out, stream
+    "amc_conv2_stacked_int8_wgmma": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, _P, _P, _P, _P, _P],
     # in, n_bytes, out, stream
     "amc_copy_bytes": [_P, ctypes.c_longlong, _P, _P],
     # x, b, t_len, inv_sx, out, stream

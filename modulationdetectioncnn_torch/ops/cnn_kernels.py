@@ -19,6 +19,12 @@ Each of the four has three pieces, as in ``ops/infer.py``:
 - the kernel's note at the top of ``csrc/cnn_kernels.cu``: the TPU kernel it
   replaces, its bound on the H100 and what its design does about it.
 
+conv2 has two bodies on the card, and ``conv2_route`` picks one from the
+widths, the dtype and the alignment (a dispatch by shape, not a fallback):
+the Hopper route (TMA, ``wgmma``, the weight resident per block) or the
+general route. The two conv2 wrappers count their launches per route in
+``route_launches`` beside ``launches``.
+
 Unlike the classifiers' kernels, these take the widths at run time: any B,
 T, C, Cin and Co, and return the caller's own shape. ``block_b`` is the TPU
 kernels' batch tile; it is accepted (>= 1) and does not change the result.
@@ -48,6 +54,17 @@ def pack_conv2_weights(w2: np.ndarray) -> np.ndarray:
     w2 = np.asarray(w2)
     kh, kw, cin, co = w2.shape
     return w2.transpose(0, 2, 1, 3).reshape(kh * cin, kw * co)
+
+
+def float_conv_weights(state: dict, device) -> tuple:
+    """(w1p (3, C1), b1, w2p (2*C1, 3*C2) tap-packed, b2), float32 on
+    ``device``, from a VT-CNN2 state dict: ``w1p[k, c] = conv1[c, 0, 0, k]``,
+    ``w2p[h*C1 + cin, k*C2 + co] = conv2[co, cin, h, k]``."""
+    w2 = state["conv2.weight"]
+    return tuple(t.contiguous().float().to(device) for t in (
+        state["conv1.weight"][:, 0, 0, :].T, state["conv1.bias"],
+        w2.permute(2, 1, 3, 0).reshape(2 * w2.shape[1], 3 * w2.shape[0]),
+        state["conv2.bias"]))
 
 
 def conv1_accumulate(x: torch.Tensor, w: torch.Tensor, t_out: int,
@@ -152,6 +169,32 @@ def conv2_stacked_int8_plain(a1s_i8: torch.Tensor, w2p_i8: torch.Tensor,
 # ------------------------------------------------------- kernel launches
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+CONV2_ROUTES = ("wgmma", "general")
+WGMMA_MAX_K = 512      # the resident weight's budget: 3 * 80 int8 or 3 * 40 bf16 columns
+
+
+def conv2_route(k: int, co: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The conv2 body a launch on the card takes, from the widths and the
+    dtype of ``a1s`` (B and T do not matter):
+
+    - ``"wgmma"`` (``amc_conv2_stacked_wgmma``, ``amc_conv2_stacked_int8_wgmma``)
+      when ``a1s`` is bf16 or int8, ``k`` times its element size is a multiple
+      of 16 bytes (the rows a TMA box may stride), ``k <= 512`` (the weight
+      resident in a block), ``co`` a multiple of 4 (4-byte stores) and
+      ``aligned`` (``a1s`` and ``w2p`` start on 16-byte boundaries). The
+      default widths (K 512, Co 80) always take it;
+    - ``"general"`` (the tile body of ``amc_conv2_stacked``,
+      ``amc_conv2_stacked_int8``) otherwise, and for float32 always."""
+    es = {torch.bfloat16: 2, torch.int8: 1}.get(dtype)
+    if es is None or not aligned:
+        return "general"
+    if 1 <= k <= WGMMA_MAX_K and k * es % 16 == 0 and co >= 4 and co % 4 == 0:
+        return "wgmma"
+    return "general"
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _check(name: str, args: dict, ndims: dict, dtypes: dict) -> torch.device:
@@ -175,12 +218,14 @@ def _check(name: str, args: dict, ndims: dict, dtypes: dict) -> torch.device:
     return dev
 
 
-def _call(wrapper, entry: str, dev: torch.device, *args) -> None:
+def _call(wrapper, entry: str, dev: torch.device, *args, route: str | None = None) -> None:
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, wrapper.__name__, code)
     wrapper.launches += 1
+    if route is not None:
+        wrapper.route_launches[route] += 1
 
 
 def _check_block_b(block_b: int) -> None:
@@ -228,7 +273,11 @@ def conv2_stacked(a1s: torch.Tensor, w2p: torch.Tensor, b2: torch.Tensor, *,
     b2 (Co,) -> (B, T-2, Co) ``out_dtype``. Launches
     ``csrc/cnn_kernels.cu``'s conv2 on a CUDA tensor (a1s and w2p both bf16,
     on the tensor cores, or both float32, on the CUDA cores; b2 float32);
-    the plain version on the CPU."""
+    the plain version on the CPU. On the card the body is
+    ``conv2_route(2Cin, Co, a1s.dtype, aligned)``'s: the Hopper route
+    (``"wgmma"``) for bf16 with 2Cin a multiple of 8 and at most 512, Co a
+    multiple of 4, a1s and w2p 16-byte aligned; the general route otherwise
+    (float32 always)."""
     _check_block_b(block_b)
     if a1s.device.type == "cpu":
         return conv2_stacked_plain(a1s, w2p, b2, out_dtype)
@@ -245,10 +294,16 @@ def conv2_stacked(a1s: torch.Tensor, w2p: torch.Tensor, b2: torch.Tensor, *,
                                  f"{tuple(a1s.shape)}, {tuple(w2p.shape)}, {tuple(b2.shape)}")
     out = torch.empty((b, t - 2, co), dtype=out_dtype, device=dev)
     if out.numel():
-        vec = int(k * a1s.element_size() % 16 == 0 and a1s.data_ptr() % 16 == 0)
-        _call(conv2_stacked, "amc_conv2_stacked", dev, a1s.data_ptr(), b, t, k, co,
-              w2p.data_ptr(), b2.data_ptr(), int(a1s.dtype == torch.float32),
-              int(out_dtype == torch.float32), vec, out.data_ptr())
+        route = conv2_route(k, co, a1s.dtype, _aligned(a1s, w2p))
+        out_f32 = int(out_dtype == torch.float32)
+        if route == "wgmma":
+            _call(conv2_stacked, "amc_conv2_stacked_wgmma", dev, a1s.data_ptr(), b, t, k,
+                  co, w2p.data_ptr(), b2.data_ptr(), out_f32, out.data_ptr(), route=route)
+        else:
+            vec = int(k * a1s.element_size() % 16 == 0 and a1s.data_ptr() % 16 == 0)
+            _call(conv2_stacked, "amc_conv2_stacked", dev, a1s.data_ptr(), b, t, k, co,
+                  w2p.data_ptr(), b2.data_ptr(), int(a1s.dtype == torch.float32),
+                  out_f32, vec, out.data_ptr(), route=route)
     return out
 
 
@@ -286,7 +341,9 @@ def conv2_stacked_int8(a1s_i8: torch.Tensor, w2p_i8: torch.Tensor, mult: torch.T
     """int8 conv2: a1s (B, T, 2Cin) int8, w2p (2Cin, 3Co) int8, shift and
     offset (Co,) int32 -> (B, T-2, Co) int8. Launches
     ``csrc/cnn_kernels.cu``'s int8 conv2 on a CUDA tensor; the plain
-    version on the CPU."""
+    version on the CPU. On the card the body is ``conv2_route``'s: the
+    Hopper route for 2Cin a multiple of 16 and at most 512, Co a multiple
+    of 4, a1s and w2p 16-byte aligned; the general route otherwise."""
     _check_block_b(block_b)
     if a1s_i8.device.type == "cpu":
         return conv2_stacked_int8_plain(a1s_i8, w2p_i8, mult, offset)
@@ -304,19 +361,28 @@ def conv2_stacked_int8(a1s_i8: torch.Tensor, w2p_i8: torch.Tensor, mult: torch.T
                                  f"{tuple(mult.shape)}, {tuple(offset.shape)}")
     out = torch.empty((b, t - 2, co), dtype=torch.int8, device=dev)
     if out.numel():
-        vec = int(k % 16 == 0 and a1s_i8.data_ptr() % 16 == 0)
-        _call(conv2_stacked_int8, "amc_conv2_stacked_int8", dev, a1s_i8.data_ptr(), b, t,
-              k, co, w2p_i8.data_ptr(), mult.data_ptr(), offset.data_ptr(), vec,
-              out.data_ptr())
+        route = conv2_route(k, co, torch.int8, _aligned(a1s_i8, w2p_i8))
+        args = (a1s_i8.data_ptr(), b, t, k, co, w2p_i8.data_ptr(), mult.data_ptr(),
+                offset.data_ptr())
+        if route == "wgmma":
+            _call(conv2_stacked_int8, "amc_conv2_stacked_int8_wgmma", dev, *args,
+                  out.data_ptr(), route=route)
+        else:
+            vec = int(k % 16 == 0 and a1s_i8.data_ptr() % 16 == 0)
+            _call(conv2_stacked_int8, "amc_conv2_stacked_int8", dev, *args, vec,
+                  out.data_ptr(), route=route)
     return out
 
 
 KERNEL_WRAPPERS = (conv1_stacked, conv2_stacked, conv1_stacked_int8, conv2_stacked_int8)
+ROUTED_WRAPPERS = (conv2_stacked, conv2_stacked_int8)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in ROUTED_WRAPPERS:
+        fn.route_launches = dict.fromkeys(CONV2_ROUTES, 0)
 
 
 reset_launch_counts()
@@ -324,3 +390,8 @@ reset_launch_counts()
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def route_launch_counts() -> dict[str, dict[str, int]]:
+    """{conv2 wrapper: {route: launches}}."""
+    return {fn.__name__: dict(fn.route_launches) for fn in ROUTED_WRAPPERS}

@@ -18,6 +18,11 @@ a function that one of the port's kernels computes (PERF.md section 6).
   dense_old rows 2 and 11 against an earlier body of ``csrc/dense_argmax_int8.cu``
             (a copy put at ``OLD_DENSE_SRC``, never part of the package), old,
             new, new, old at B = 4096, 2048 and 16384, outputs bit for bit
+  conv2_old rows 18 (bf16, float32) and 20 against an earlier body of
+            ``csrc/cnn_kernels.cu`` (a copy at ``OLD_CNN_SRC``) the same way,
+            beside the library call on conv2's z
+  conv2_maps row 18 bf16 on the bench's conv1 map, a seeded map, its ReLU,
+            zeros, and with one channel tile (Co 40), beside torch.matmul
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
   r3stream  the stream chain by stage at the bench's 524,288 samples
   r5cfo     the CFO chain's components at B=4096
@@ -166,22 +171,27 @@ def probe_dense() -> list[dict]:
 
 OLD_DENSE_SRC = os.path.join(_build.BUILD_DIR, "dense_argmax_int8_old.cu")
 DENSE_ENTRIES = ("dense_argmax_int8", "dense_int8")
+OLD_CNN_SRC = os.path.join(_build.BUILD_DIR, "cnn_kernels_old.cu")
+CNN_ENTRIES = ("conv2_stacked", "conv2_stacked_int8")
 
 
-def old_dense_library(src: str = OLD_DENSE_SRC) -> ctypes.CDLL | None:
-    """An earlier body of ``csrc/dense_argmax_int8.cu`` copied to ``src``
-    (the ignored ``_build/``), built on its own with the package's flags
-    and loaded beside the package's library; None when there is no copy."""
+def old_library(src: str, entries: tuple[str, ...]) -> ctypes.CDLL | None:
+    """An earlier body of one of ``csrc/*.cu`` copied to ``src`` (the ignored
+    ``_build/``), built on its own with the package's flags (and its headers
+    on the include path) and loaded beside the package's library, with the
+    C entries ``amc_<name>`` of ``entries`` declared as the package declares
+    them; None when there is no copy."""
     if not os.path.isfile(src):
         return None
     out = os.path.splitext(src)[0] + ".so"
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src]
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-shared", "-o",
+           out, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(out)
-    for name in DENSE_ENTRIES:
+    for name in entries:
         fn = getattr(lib, f"amc_{name}")
         fn.argtypes = _build._SIGNATURES[f"amc_{name}"]
         fn.restype = ctypes.c_int
@@ -237,13 +247,138 @@ def dense_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[
 
 def probe_dense_old() -> list[dict]:
     _header("dense_old")
-    lib = old_dense_library()
+    lib = old_library(OLD_DENSE_SRC, DENSE_ENTRIES)
     if lib is None:
         raise SystemExit(f"dense_old: no earlier body at {OLD_DENSE_SRC}")
     qw, _ = _weights()
     recs = dense_old_vs_new(lib, qw)
     for rec in recs:
         print(json.dumps(rec), flush=True)
+    return recs
+
+
+def _old_conv2(lib: ctypes.CDLL, a1s: torch.Tensor, w2p: torch.Tensor, *rest) -> torch.Tensor:
+    """The old library's conv2 on the package wrapper's arguments: ``rest``
+    is (b2, out dtype) for the float modes, (shift, offset) for int8."""
+    b, t, k = a1s.shape
+    co = w2p.shape[1] // 3
+    stream = torch.cuda.current_stream().cuda_stream
+    vec = int(k * a1s.element_size() % 16 == 0 and a1s.data_ptr() % 16 == 0)
+    if a1s.dtype == torch.int8:
+        out = torch.empty((b, t - 2, co), dtype=torch.int8, device=a1s.device)
+        code = lib.amc_conv2_stacked_int8(a1s.data_ptr(), b, t, k, co, w2p.data_ptr(),
+                                          rest[0].data_ptr(), rest[1].data_ptr(), vec,
+                                          out.data_ptr(), stream)
+    else:
+        out = torch.empty((b, t - 2, co), dtype=rest[1], device=a1s.device)
+        code = lib.amc_conv2_stacked(a1s.data_ptr(), b, t, k, co, w2p.data_ptr(),
+                                     rest[0].data_ptr(), int(a1s.dtype == torch.float32),
+                                     int(rest[1] == torch.float32), vec, out.data_ptr(), stream)
+    if code != 0:
+        raise RuntimeError(f"old conv2 failed to launch: CUDA error {code}")
+    return out
+
+
+def conv2_old_vs_new(lib: ctypes.CDLL, w2p: torch.Tensor, b2: torch.Tensor, w2p_i8: torch.Tensor,
+                     m2: torch.Tensor, o2: torch.Tensor,
+                     batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 18 (bf16 and float32) and 20, the old body against the
+    package's, on seeded (B, 126, 512) maps under the given weights (float
+    w2p (512, 240), b2 (80,); int8 w2p, shift, offset): each timed old, new,
+    new, old (median of 5 runs of back-to-back calls between CUDA events,
+    then the profiler's device time per call, in the same order), beside
+    the library call on conv2's z in the same round. ``differing`` counts
+    output elements outside the row's tolerance against the old body: int8
+    bit for bit, bf16 one bf16 ulp plus 1e-3 of the map's largest
+    magnitude, float32 1e-5 of it."""
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn, iters):
+        return statistics.median(launch_ms_samples(fn, iters))
+
+    w2b, w2i_cm = w2p.to(torch.bfloat16), w2p_i8.t().contiguous().t()
+    recs = []
+    for b in batches:
+        dev = w2p.device
+        af = _seeded((b, 126, 512), dev, seed=b)
+        ab = af.to(torch.bfloat16)
+        ai = _seeded((b, 126, 512), dev, 0, 128, np.int8, seed=b + 1)
+        cases = (
+            ("conv2_stacked bf16", lambda: ck.conv2_stacked(ab, w2b, b2),
+             lambda: _old_conv2(lib, ab, w2b, b2, torch.bfloat16),
+             lambda: torch.matmul(ab.reshape(-1, 512), w2b), (2.0 ** -7, 1e-3), 20),
+            ("conv2_stacked float32",
+             lambda: ck.conv2_stacked(af, w2p, b2, out_dtype=torch.float32),
+             lambda: _old_conv2(lib, af, w2p, b2, torch.float32),
+             lambda: torch.matmul(af.reshape(-1, 512), w2p), (0.0, 1e-5), 5),
+            ("conv2_stacked_int8", lambda: ck.conv2_stacked_int8(ai, w2p_i8, m2, o2),
+             lambda: _old_conv2(lib, ai, w2p_i8, m2, o2),
+             lambda: torch._int_mm(ai.reshape(-1, 512), w2i_cm), (0.0, 0.0), 20))
+        for name, new, old, library, (rtol, atol_of_max), iters in cases:
+            got, want = new(), old()
+            g, w = got.double(), want.double()
+            bound = rtol * w.abs() + atol_of_max * float(w.abs().max())
+            differ = int(((g - w).abs() > bound).sum())
+            times = [ms(old, iters), ms(new, iters), ms(new, iters), ms(old, iters)]
+            dev_ms = [device_ms_per_call(f, iters) for f in (old, new, new, old)]
+            recs.append({"probe": "conv2_old", "name": name, "batch": b,
+                         "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                         "old_device_ms": [dev_ms[0], dev_ms[3]],
+                         "new_device_ms": [dev_ms[1], dev_ms[2]],
+                         "library_ms": ms(library, iters),
+                         "library_device_ms": device_ms_per_call(library, iters),
+                         "outputs_differing": differ})
+        del af, ab, ai
+    return recs
+
+
+def probe_conv2_old() -> list[dict]:
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    dev = _header("conv2_old")
+    lib = old_library(OLD_CNN_SRC, CNN_ENTRIES)   # its conv2 entries: the general route
+    if lib is None:
+        raise SystemExit(f"conv2_old: no earlier body at {OLD_CNN_SRC}")
+    qw = load_int8(device="cuda")
+    w2p = _seeded((512, 240), dev, seed=7) / np.sqrt(1536)
+    b2 = 0.1 * _seeded((80,), dev, seed=8)
+    recs = conv2_old_vs_new(lib, w2p, b2, qw.w2l, qw.m2, qw.o2)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
+def probe_conv2_maps() -> list[dict]:
+    """Row 18 bf16 at B=4096 (the Hopper route) on the bench's conv1 map, a
+    seeded map, its ReLU, an all-zero map, and with one channel tile (Co
+    40: the map read once, not by two blocks), each beside ``torch.matmul``
+    on conv2's z, two rounds."""
+    from modulationdetectioncnn_torch import bench
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+
+    dev = _header("conv2_maps")
+    x, _, model = bench._frames_and_model(AmcConfig(), BATCH)
+    w1p, b1, w2p, b2 = ck.float_conv_weights(model.state_dict(), dev)
+    w2b = w2p.to(torch.bfloat16)
+    seeded = _seeded((BATCH, 126, 512), dev).to(torch.bfloat16)
+    maps = {"bench_conv1": ck.conv1_stacked(x.to(dev), w1p, b1), "seeded": seeded,
+            "seeded_relu": torch.relu(seeded), "zeros": torch.zeros_like(seeded)}
+    w40 = w2b.reshape(512, 3, 80)[:, :, :40].reshape(512, 120).contiguous()
+    recs = []
+    for rnd in range(2):
+        for name, a in maps.items():
+            for w, bias, co in ((w2b, b2, 80), (w40, b2[:40].contiguous(), 40)):
+                if co == 40 and name != "seeded":
+                    continue
+                rec = _time(f"row 18 bf16 {name} Co {co}, round {rnd}",
+                            lambda: ck.conv2_stacked(a, w, bias), device=True)
+                rec["library"] = _time(f"torch.matmul z {name} Co {co}, round {rnd}",
+                                       lambda: torch.matmul(a.reshape(-1, 512), w),
+                                       device=True)["ms"]
+                recs.append(rec)
     return recs
 
 
@@ -395,6 +530,8 @@ PROBES = {
     "stage": probe_stage,
     "dense": probe_dense,
     "dense_old": probe_dense_old,
+    "conv2_old": probe_conv2_old,
+    "conv2_maps": probe_conv2_maps,
     "batch": probe_batch,
     "r3stream": probe_r3stream,
     "r5cfo": probe_r5cfo,

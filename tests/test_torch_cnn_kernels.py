@@ -211,3 +211,67 @@ def test_cpu_wrappers_take_plain_versions_without_counting():
     assert tuple(empty.shape) == (0, t - 2, 2 * c)
     assert tck.launch_counts() == dict.fromkeys(
         ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8"), 0)
+
+
+# conv2's route on the card, from the widths and the dtype: (K, Co) per
+# shape, then the route per dtype. K must be whole 16-byte rows for TMA and
+# at most 512 (the resident weight), Co a multiple of 4; float32 always
+# takes the general body.
+ROUTE_SHAPES = {"default": (512, 80), "narrow_odd": (66, 7), "t300": (512, 80),
+                "k200_not_16_bytes_in_int8": (200, 80), "co100": (96, 100),
+                "k1024_too_wide": (1024, 80)}
+ROUTES = {"default": ("wgmma", "general", "wgmma"),            # bf16, float32, int8
+          "narrow_odd": ("general", "general", "general"),
+          "t300": ("wgmma", "general", "wgmma"),
+          "k200_not_16_bytes_in_int8": ("wgmma", "general", "general"),
+          "co100": ("wgmma", "general", "wgmma"),
+          "k1024_too_wide": ("general", "general", "general")}
+
+
+@pytest.mark.parametrize("shape", ROUTE_SHAPES, ids=list(ROUTE_SHAPES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_conv2_route_by_shape_and_dtype(shape, dtype):
+    k, co = ROUTE_SHAPES[shape]
+    want = dict(zip(("bfloat16", "float32", "int8"), ROUTES[shape]))[dtype]
+    assert tck.conv2_route(k, co, getattr(torch, dtype)) == want
+    assert tck.conv2_route(k, co, getattr(torch, dtype), aligned=False) == "general"
+
+
+def test_conv2_route_counts_start_at_zero():
+    tck.reset_launch_counts()
+    assert tck.route_launch_counts() == {
+        "conv2_stacked": {"wgmma": 0, "general": 0},
+        "conv2_stacked_int8": {"wgmma": 0, "general": 0}}
+
+
+def test_conv2_int8_saturated_sums_equal_jax():
+    """conv2's int8 edge (chip_smoke.py's ``int8_saturated`` at B 2): a map
+    all 127 under weights all +-127, sums up to 2.5e7 in magnitude, shifts
+    and offsets that put the requantized values below, inside and above
+    [0, 127]: the port's plain version equals the JAX kernel and golden."""
+    r = np.random.default_rng(8)
+    b, t, k, co = 2, 126, 512, 80
+    plus = r.random((k, 3, co)) < np.linspace(0.0, 1.0, co)
+    w2p = np.where(plus, 127, -127).astype(np.int8).reshape(k, 3 * co)
+    m2 = r.integers(17, 19, co).astype(np.int32)
+    o2 = r.integers(-(1 << 22), 1 << 22, co).astype(np.int32)
+    a1 = np.full((b, t, k), 127, np.int8)
+    got = tck.conv2_stacked_int8(_t(a1), _t(w2p), _t(m2), _t(o2)).numpy()
+    want = np.asarray(jck.conv2_stacked_int8(*_j(a1, w2p, m2, o2), block_b=2, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, gq.conv2_int8(a1, w2p, m2, o2))
+    assert (got == 0).any() and (got == 127).any() and ((got > 0) & (got < 127)).any()
+
+
+def test_float_conv_weights_pack_a_state_dict_as_the_flax_layout_packs():
+    """``float_conv_weights`` of a torch VT-CNN2 state dict equals the
+    packing helpers applied to the same weights in Flax's layout."""
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+
+    st = VTCNN2(generator=torch.Generator().manual_seed(9)).state_dict()
+    w1p, b1, w2p, b2 = tck.float_conv_weights(st, "cpu")
+    flax_w1 = st["conv1.weight"].permute(2, 3, 1, 0).numpy()     # (1, 3, 1, C1)
+    flax_w2 = st["conv2.weight"].permute(2, 3, 1, 0).numpy()     # (2, 3, C1, C2)
+    np.testing.assert_array_equal(w1p.numpy(), tck.pack_conv1_weights(flax_w1))
+    np.testing.assert_array_equal(w2p.numpy(), tck.pack_conv2_weights(flax_w2))
+    assert torch.equal(b1, st["conv1.bias"].float()) and torch.equal(b2, st["conv2.bias"].float())
