@@ -50,7 +50,19 @@ Phases, each printing JSON lines (``"phase": ...``):
                equal to v4's bit for bit; labels >= 99.9 % equal with every
                difference a near-tie of the plain logits, logits within one
                bf16 ulp of every dense1 unit times |w4|, and the logits
-               kernel's argmax equal to the labels kernel's labels.
+               kernel's argmax equal to the labels kernel's labels. Rows 13
+               and 16 also on ``scripts/probe.py::dense_bf16_edge_cases``
+               (a map near 2^50 under +-max dense1 weights, exact and
+               one-ulp ties, the narrow model) at B = 1, 37, 129, 2048,
+               4095, 4096, 4097 and 16384 (tile and cluster edges), and the
+               first 2048 frames' labels at B = 4096 and 16384 against
+               B = 2048 (another cluster size, another order of dense1's
+               sums: differences only at near-ties). Where an earlier body
+               of ``csrc/dense_argmax_bf16.cu`` was copied to
+               ``_build/dense_argmax_bf16_old.cu`` (never committed), rows
+               13 and 16 are timed against it, old, new, new, old, at
+               B=4096, 2048 and 16384 beside ``torch.matmul``'s dense1,
+               outputs within the dense tolerances of each other.
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -285,14 +297,15 @@ EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2", "v1")
 EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # The bf16 maps' tolerance against their plain versions (v4, v2 and the
 # f32-conv1 stage): one bf16 ulp relative plus 1e-3 of the map's largest
-# magnitude (elements next to the ReLU edge); the dense stage's labels:
-# >= 99.9 % equal, and every difference a near-tie of the plain logits
-# (top-2 gap < 1e-3 of the row's largest logit); its logits: within one bf16
-# ulp of every dense1 unit times |w4| (2^-7 * sum_d |d1_d| |w4_dc|) plus
-# 1e-6 of the largest logit, the padded classes -inf in both.
+# magnitude (elements next to the ReLU edge). The dense stage's are
+# scripts/probe.py's (bf16_dense_misses): labels >= 99.9 % equal, and every
+# difference a near-tie of the plain logits (top-2 gap < 1e-3 of the row's
+# largest logit); logits within one bf16 ulp of every dense1 unit times
+# |w4| (2^-7 * sum_d |d1_d| |w4_dc|) plus 1e-6 of the largest logit, the
+# padded classes -inf in both.
 BF16_RTOL, BF16_ATOL_OF_MAX = 2.0 ** -7, 1e-3
-BF16_LABEL_AGREEMENT, NEAR_TIE = 0.999, 1e-3
-BF16_LOGIT_ATOL_OF_MAX = 1e-6
+# The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
+BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 BF16_CONV = ("conv_stage_bf16_v4", "conv_stage_bf16_v2", "conv_stage_bf16")
 # The eval phase's dataset: 16 frames per class at each of the 20 SNRs.
 EVAL_DATA = ("data.frames_per_class_per_snr=16",)
@@ -337,18 +350,11 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
     ``kernel``, from ``torch.profiler`` over ``iters`` calls of ``fn`` after
     a warm-up: the kernel's own time, which ``time_ms`` cannot see when the
     host takes longer to issue a launch than the card to run it. None when
-    the profiler shows no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    the profiler shows no such kernel (``utils/profiler.py::device_records``
+    takes a run again when the profiler dropped some of its records)."""
+    from modulationdetectioncnn_torch.utils.profiler import device_records
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if kernel in e.key and e.self_device_time_total > 0]
+    ev = [e for e in device_records(fn, iters) if kernel in e.key]
     if len(ev) != 1 or ev[0].count != iters:
         return None
     return ev[0].self_device_time_total / ev[0].count / 1e3
@@ -590,12 +596,19 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
     BF16_RTOL * |plain| + BF16_ATOL_OF_MAX * max|plain| (largest difference
     and bit-equal share printed), and, on the demo's frames and the 37,
     conv1 bit for bit (``conv1_probe_mismatches``); v2's map equal to v4's
-    bit for bit. The dense stages, given the plain map: labels >= 99.9 %
+    bit for bit. The dense stages, given the plain map, under
+    ``scripts/probe.py::bf16_dense_misses``' tolerances: labels >= 99.9 %
     equal with every difference a near-tie of the plain logits; logits
     within one bf16 ulp of every dense1 unit times |w4|; the argmax of the
-    logits kernel's logits equal to the labels kernel's labels. Returns the
+    logits kernel's logits equal to the labels kernel's labels. Then the
+    dense stages on ``scripts/probe.py::dense_bf16_edge_cases`` at
+    BF16_EDGE_BATCHES, and the same 2048 frames' labels at B = 4096 and
+    16384 against B = 2048 (the cluster size follows B, and with it the
+    order of dense1's sums): differences only at near-ties. Returns the
     check lines and the kernels' stats."""
+    from modulationdetectioncnn_torch.models.vtcnn2 import flax_params
     from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+    from modulationdetectioncnn_torch.scripts import probe
 
     inputs = {f"bench_frames_b{BATCH}": bench_x, "stream_frames": demo,
               "seeded_b1": x_seed[:1], "seeded_b37_at3": x_seed[3:40]}
@@ -609,7 +622,27 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
         st[kname]["checked"] += 1
         st[kname]["max_abs_err"] = max(st[kname]["max_abs_err"], err)
 
-    for wname, params in bf16_weight_sets().items():
+    def dense_pair(wname, xname, h, bw, labels, logits_k, **extra):
+        """Rows 16 and 13 on the map h against their plain versions."""
+        lab = probe.bf16_dense_misses(h, bw, labels)
+        lg = probe.bf16_dense_misses(h, bw, logits_k)
+        argmax_vs_labels = int((ib.argmax_lowest(logits_k) != labels).sum())
+        record("dense_argmax_bf16", 0 if lab["ok"] else max(1, lab["differing_not_near_tie"]),
+               lab["max_abs_diff"])
+        record("dense_logits_bf16", 0 if lg["ok"] else max(1, lg["outside_tolerance"]),
+               lg["max_abs_diff"])
+        checks.append({"kernel": "dense_argmax_bf16", "weights": wname, "input": xname, **lab})
+        checks.append({"kernel": "dense_logits_bf16", "weights": wname, "input": xname, **lg,
+                       "argmax_vs_dense_argmax_labels": argmax_vs_labels, **extra})
+        require(lab["ok"], f"bf16 dense {wname}/{xname}: agreement {lab['label_agreement']}, "
+                f"{lab['differing_not_near_tie']} differences that are not near-ties")
+        require(lg["ok"], f"bf16 dense logits {wname}/{xname}: {lg['outside_tolerance']} "
+                f"outside tolerance, max diff {lg['max_abs_diff']}")
+        require(argmax_vs_labels == 0, f"bf16 {wname}/{xname}: {argmax_vs_labels} "
+                "argmax(logits kernel) != labels kernel")
+
+    sets = bf16_weight_sets()
+    for wname, params in sets.items():
         bw = ib.make_bf16_weights(params, "cuda")
         for xname, x in inputs.items():
             xe = ib.expand_taps_bf16(x)
@@ -621,65 +654,56 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
                                         ib.conv_stage_bf16_plain(x, bw))}
             labels = ib.dense_argmax_bf16(plain_map, bw)
             logits_k = ib.dense_logits_bf16(plain_map, bw)
-            logits = ib.dense_logits_bf16_plain(plain_map, bw)
-            d1 = ib.dense1_bf16_plain(plain_map, bw)
-            probe = conv1_probe_mismatches(x, bw) if xname in probed else {}
+            probe_mism = conv1_probe_mismatches(x, bw) if xname in probed else {}
             torch.cuda.synchronize()
             for kname, (got, want) in maps.items():
                 got, want = got.float(), want[..., :bw.c2].float()
                 diff = (got - want).abs()
                 bound = BF16_RTOL * want.abs() + BF16_ATOL_OF_MAX * float(want.abs().max())
                 outside = int((diff > bound).sum())
-                conv1_bad = probe.get(kname, 0)
+                conv1_bad = probe_mism.get(kname, 0)
                 record(kname, outside + conv1_bad, float(diff.max()))
                 checks.append({"kernel": kname, "weights": wname, "input": xname,
                                "n": int(x.shape[0]), "outside_tolerance": outside,
                                "max_abs_diff": float(diff.max()),
                                "max_abs_map": float(want.abs().max()),
                                "bit_equal_share": float((got == want).float().mean()),
-                               "conv1_bit_mismatches": probe.get(kname)})
+                               "conv1_bit_mismatches": probe_mism.get(kname)})
                 require(outside == 0 and conv1_bad == 0,
                         f"bf16 {kname} {wname}/{xname}: {outside} elements outside "
                         f"tolerance (max diff {float(diff.max())}), conv1 {conv1_bad} "
                         "elements differ")
                 require(bool(torch.isfinite(got).all()), f"{kname} {wname}/{xname}: non-finite")
             v2_vs_v4 = int((maps["conv_stage_bf16_v2"][0] != maps["conv_stage_bf16_v4"][0]).sum())
-            # The dense stages on the plain map: labels near-tie, logits.
-            lab_p = ib.argmax_lowest(logits)
-            differ = (labels != lab_p).nonzero().flatten()
-            top2 = logits.topk(2, dim=-1).values
-            gap = (top2[:, 0] - top2[:, 1]) / logits.abs().masked_fill(
-                torch.isinf(logits), 0).amax(-1).clamp_min(1e-30)
-            not_tie = int((gap[differ] >= NEAR_TIE).sum())
-            agree = float((labels == lab_p).float().mean())
-            record("dense_argmax_bf16", not_tie,
-                   int((labels - lab_p).abs().max()) if len(x) else 0)
-            live = logits[:, :bw.nc]
-            ldiff = (logits_k[:, :bw.nc] - live).abs()
-            lbound = (BF16_RTOL * (d1.abs() @ bw.w4.float().abs())[:, :bw.nc]
-                      + BF16_LOGIT_ATOL_OF_MAX * float(live.abs().max()))
-            l_out = int((ldiff > lbound).sum()) + int(
-                (logits_k[:, bw.nc:] != float("-inf")).sum())
-            record("dense_logits_bf16", l_out, float(ldiff.max()))
-            argmax_vs_labels = int((ib.argmax_lowest(logits_k) != labels).sum())
-            checks.append({"kernel": "dense_argmax_bf16", "weights": wname, "input": xname,
-                           "n": int(x.shape[0]), "label_agreement": agree,
-                           "differing": int(differ.numel()), "differing_not_near_tie": not_tie})
-            checks.append({"kernel": "dense_logits_bf16", "weights": wname, "input": xname,
-                           "n": int(x.shape[0]), "outside_tolerance": l_out,
-                           "max_abs_diff": float(ldiff.max()),
-                           "max_abs_logit": float(live.abs().max()),
-                           "bit_equal_share": float((logits_k[:, :bw.nc] == live).float().mean()),
-                           "argmax_vs_dense_argmax_labels": argmax_vs_labels,
-                           "v2_map_vs_v4_map": v2_vs_v4})
-            require(agree >= BF16_LABEL_AGREEMENT and not_tie == 0,
-                    f"bf16 dense {wname}/{xname}: agreement {agree}, {not_tie} "
-                    "differences that are not near-ties")
-            require(l_out == 0, f"bf16 dense logits {wname}/{xname}: {l_out} outside "
-                    f"tolerance, max diff {float(ldiff.max())}")
-            require(argmax_vs_labels == 0 and v2_vs_v4 == 0,
-                    f"bf16 {wname}/{xname}: {argmax_vs_labels} argmax(logits kernel) != "
-                    f"labels kernel, {v2_vs_v4} v2 map elements != v4's")
+            dense_pair(wname, xname, plain_map, bw, labels, logits_k, v2_map_vs_v4_map=v2_vs_v4)
+            require(v2_vs_v4 == 0, f"bf16 {wname}/{xname}: {v2_vs_v4} v2 map elements != v4's")
+    # Rows 13 and 16 at their edges: tile and cluster edges (B = 1, 37,
+    # 129, 4095, 4097: a ragged last tile, rows past B read as zeros; 16384:
+    # one block per tile), maps near 2^50 under +-max weights, exact and
+    # one-ulp ties, the narrow model.
+    edges = probe.dense_bf16_edge_cases(flax_params(sets["bench_seeded"]),
+                                        flax_params(sets["narrow_c32_c16_d32_nc2"]),
+                                        max(BF16_EDGE_BATCHES), SEED)
+    for kind, (tree, hmap) in edges.items():
+        bw = ib.make_bf16_weights(tree, "cuda")
+        h_all = torch.from_numpy(hmap.reshape(len(hmap), -1)).cuda().to(torch.bfloat16)
+        first = {}
+        for b in BF16_EDGE_BATCHES:
+            hb = h_all[:b]
+            labels, logits_k = ib.dense_argmax_bf16(hb, bw), ib.dense_logits_bf16(hb, bw)
+            first[b] = labels[:2048]
+            torch.cuda.synchronize()
+            dense_pair(f"edge_{kind}", f"map_b{b}", hb, bw, labels, logits_k,
+                       label_counts=torch.bincount(labels, minlength=11).tolist())
+        for b in (4096, 16384):
+            rec = probe.bf16_dense_misses(h_all[:2048], bw, first[b], first[2048])
+            record("dense_argmax_bf16", 0 if rec["ok"] else max(1, rec["differing_not_near_tie"]),
+                   rec["max_abs_diff"])
+            checks.append({"kernel": "dense_argmax_bf16", "weights": f"edge_{kind}",
+                           "input": f"first_2048_frames_b{b}_vs_b2048", **rec})
+            require(rec["ok"], f"bf16 dense edge_{kind}: the first 2048 frames' labels at "
+                    f"B={b} differ from B=2048 but at near-ties: {rec}")
+        del h_all
     return checks, st
 
 
@@ -888,8 +912,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     else:
         for rec in probe.dense_old_vs_new(old_lib, qw):
             emit({"phase": "kernels.old_vs_new", **rec})
-            require(rec["outputs_differing"] == 0,
-                    f"{rec['name']} B={rec['batch']}: new vs old body differ")
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # The timing FIR on the stream bench's 4096 frames with their own
     # filters. Bytes: the frames read once (unpadded), the filters, the
     # output written once; operations: 17 multiplies and adds per output
@@ -984,6 +1007,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "library_ms": time_ms(lib, iters=20), "library_call": lib_what,
                      "batch": b, "bf16_ops": ops, "f32_ops": f32_ops, "bytes": nb})
+    # Rows 13 and 16 against their earlier body, where a copy of it was put
+    # at probe.OLD_DENSE_BF16_SRC: old, new, new, old in this run, outputs
+    # within the dense stage's tolerances of each other.
+    old_bf16 = probe.old_library(probe.OLD_DENSE_BF16_SRC, probe.DENSE_BF16_ENTRIES)
+    if old_bf16 is None:
+        emit({"phase": "kernels.old_vs_new", "skipped": "no earlier body at "
+              f"{os.path.relpath(probe.OLD_DENSE_BF16_SRC, REPO)}"})
+    else:
+        for rec in probe.dense_old_vs_new(old_bf16, bw, probe.DENSE_BF16_STAGES):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ: {rec}")
     prologue_ms = time_ms(lambda: infer.tap_planes(x, qw.inv_sx), iters=20)
     rows_ms = time_ms(lambda: infer.expand_taps(x, qw.inv_sx), iters=20)
     filters_ms = time_ms(lambda: normalize.timing_filters(

@@ -56,14 +56,10 @@
 // Times at B = 4096 (PERF.md, kernel table rows 2, 11): the earlier body
 // (__dp4a on the CUDA cores, one 32-frame block per SM) 0.325 ms of device
 // time, this one 0.032, old, new, new, old in one run of chip_smoke.py.
-#include <cooperative_groups.h>
-
 #include "conv_stage_int8_mma.cuh"
 #include "tma_wgmma.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int KD = T2 * C2;                // dense1 reduction length (9920)
 constexpr int D = 256;                     // dense1 outputs
@@ -82,56 +78,11 @@ constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 constexpr int W4_OFF = RING_BYTES > EPI_BYTES ? RING_BYTES : EPI_BYTES;
 constexpr int BAR_OFF = W4_OFF + NC * D;   // w4 staged [c][d]
 constexpr int SMEM_BYTES = BAR_OFF + STAGES * 8;
-constexpr int MAX_CLUSTER = 8;
 
 static_assert(KD % KC == 0, "64-byte chunks tile the reduction");
 static_assert(STAGE_BYTES % 512 == 0 && A_BYTES % 512 == 0, "swizzle atoms aligned");
 static_assert(SMEM_BYTES <= 232448, "fits the 227 KB a block may have");
 static_assert(THREADS == 256 && BM == 2 * 64, "two warpgroups of 64 frames");
-
-// D += A . B for a warpgroup: A 64 x 32 and B 256 x 32 int8, K-major, from
-// shared memory; D 64 x 256 int32 in registers (n8 block j of row
-// 16*warp + g in d[4j], d[4j+1], of row 16*warp + g + 8 in d[4j+2], d[4j+3]).
-__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
-      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
-      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
-        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
-        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
-        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
-        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
-        "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // The end of a block of a CS-block cluster, after every block's partial
 // tile is in its shared memory: rows [rank*128/CS, (rank+1)*128/CS) summed
@@ -157,23 +108,12 @@ __device__ __forceinline__ void finish(cg::cluster_group& cluster, uint8_t* smem
     offset[e] = __ldg(o3 + col + e);
   }
   const int* src[CS];
-#pragma unroll
-  for (int q = 0; q < CS; ++q) src[q] = q == rank ? part : cluster.map_shared_rank(part, q);
+  cluster_tiles<CS>(cluster, part, rank, src);
 #pragma unroll
   for (int i = 0; i < RB / ROW_STEP; ++i) {
     const int row = tid / (D / 4) + ROW_STEP * i;
-    const int off = (r0 + row) * P_STRIDE + col;
-    int4 v[CS];
-#pragma unroll
-    for (int q = 0; q < CS; ++q) v[q] = *reinterpret_cast<const int4*>(src[q] + off);
-    int s[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int q = 0; q < CS; ++q) {
-      s[0] += v[q].x;
-      s[1] += v[q].y;
-      s[2] += v[q].z;
-      s[3] += v[q].w;
-    }
+    int s[4];
+    cluster_sum4<CS>(src, (r0 + row) * P_STRIDE + col, s);
     uint32_t packed = 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -316,12 +256,10 @@ bool encode_map(CUtensorMap* map, const void* base, long long rows, int box_rows
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One cluster of CS blocks per 128 frames, CS the largest of 1, 2, 4, 8 that
-// keeps the grid within one block per SM and every cluster resident at once
-// (a cluster that waits for another to finish doubles the time);
-// returns the launch's
-// cudaGetLastError() code (no launch for n <= 0; cudaErrorInvalidValue if
-// a tensor map cannot be made).
+// One cluster of CS blocks per 128 frames, CS one of 8, 4, 2, 1
+// (tma_wgmma.cuh's cluster_config); returns the launch's cudaGetLastError()
+// code (no launch for n <= 0; cudaErrorInvalidValue if a tensor map cannot
+// be made).
 template <bool ARGMAX>
 int launch(const void* h, long long n, const void* w3t, const void* m3,
            const void* o3, const void* w4, const void* s4, const void* b4,
@@ -334,36 +272,12 @@ int launch(const void* h, long long n, const void* w3t, const void* m3,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (n + BM - 1) / BM;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // The clusters of each size the card holds at once, asked once.
-  static int fit[MAX_CLUSTER + 1] = {};
-  int cs = MAX_CLUSTER;
-  for (; cs > 1; cs /= 2) {
-    if (tiles * cs > sms) continue;
-    if (fit[cs] == 0) {
-      attr[0].val.clusterDim.x = cs;
-      cfg.gridDim = dim3(cs);
-      err = cudaOccupancyMaxActiveClusters(&fit[cs], kernel, &cfg);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (tiles <= fit[cs]) break;
-  }
-  attr[0].val.clusterDim.x = cs;
-  cfg.gridDim = dim3(static_cast<unsigned>(tiles * cs));
+  static int fit[MAX_CLUSTER + 1] = {};   // clusters of each size the card holds at once
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = cluster_config(kernel, {8, 4, 2}, tiles, THREADS, SMEM_BYTES, stream, fit, &cfg, &attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaLaunchKernelEx(&cfg, kernel, hmap, wmap, n, static_cast<const int*>(m3),
                            static_cast<const int*>(o3), static_cast<const int8_t*>(w4),
                            static_cast<const float*>(s4), static_cast<const float*>(b4), out);

@@ -18,6 +18,10 @@ a function that one of the port's kernels computes (PERF.md section 6).
   dense_old rows 2 and 11 against an earlier body of ``csrc/dense_argmax_int8.cu``
             (a copy put at ``OLD_DENSE_SRC``, never part of the package), old,
             new, new, old at B = 4096, 2048 and 16384, outputs bit for bit
+  dense_bf16_old rows 13 and 16 the same way against an earlier body of
+            ``csrc/dense_argmax_bf16.cu`` (a copy at ``OLD_DENSE_BF16_SRC``),
+            outputs within the dense stage's tolerances of each other
+            (``bf16_dense_misses``), beside ``torch.matmul``'s dense1
   conv2_old rows 18 (bf16, float32) and 20 against an earlier body of
             ``csrc/cnn_kernels.cu`` (a copy at ``OLD_CNN_SRC``) the same way,
             beside the library call on conv2's z
@@ -37,7 +41,9 @@ limit first. There is no CPU version: a probe raises without a card.
 
 ``dense_edge_cases`` builds the int8 dense stage's edge inputs, which
 chip_smoke.py holds rows 2 and 11 to on the card and the CPU tests hold
-their plain versions to against the JAX package's golden chain.
+their plain versions to against the JAX package's golden chain;
+``dense_bf16_edge_cases`` the bf16 dense stage's (rows 13 and 16), held
+the same way against the JAX package's Pallas kernels in interpret mode.
 """
 from __future__ import annotations
 
@@ -171,8 +177,29 @@ def probe_dense() -> list[dict]:
 
 OLD_DENSE_SRC = os.path.join(_build.BUILD_DIR, "dense_argmax_int8_old.cu")
 DENSE_ENTRIES = ("dense_argmax_int8", "dense_int8")
+OLD_DENSE_BF16_SRC = os.path.join(_build.BUILD_DIR, "dense_argmax_bf16_old.cu")
+DENSE_BF16_ENTRIES = ("dense_argmax_bf16", "dense_bf16")
+DENSE_BF16_STAGES = ("dense_argmax_bf16", "dense_logits_bf16")   # their wrappers
 OLD_CNN_SRC = os.path.join(_build.BUILD_DIR, "cnn_kernels_old.cu")
 CNN_ENTRIES = ("conv2_stacked", "conv2_stacked_int8")
+# The dense stages by wrapper: its C entry (without ``amc_``), the weights
+# the entry takes after the map and B, whether it takes the model's classes
+# next, and whether it writes logits (else labels).
+_INT8_DENSE = ("w3t", "m3", "o3", "w4", "s4", "b4")
+_BF16_DENSE = ("w3t", "b3", "w4", "b4")
+DENSE_STAGES = {
+    "dense_argmax_int8": ("dense_argmax_int8", _INT8_DENSE, False, False),
+    "dense_int8": ("dense_int8", _INT8_DENSE, False, True),
+    "dense_argmax_bf16": ("dense_argmax_bf16", _BF16_DENSE, True, False),
+    "dense_logits_bf16": ("dense_bf16", _BF16_DENSE, True, True),
+}
+# Rows 13 and 16 against the plain version (PERF.md section 2): labels
+# >= 99.9 % equal, each difference a near-tie of the plain logits (top-2 gap
+# under 1e-3 of the row's largest); logits within one bf16 ulp of every
+# dense1 unit times |w4| (2^-7 * sum_d |d1_d w4_dc|) plus 1e-6 of the
+# largest logit, the padded classes -inf.
+BF16_LABEL_AGREEMENT, NEAR_TIE = 0.999, 1e-3
+BF16_LOGIT_RTOL, BF16_LOGIT_ATOL_OF_MAX = 2.0 ** -7, 1e-6
 
 
 def old_library(src: str, entries: tuple[str, ...]) -> ctypes.CDLL | None:
@@ -198,63 +225,134 @@ def old_library(src: str, entries: tuple[str, ...]) -> ctypes.CDLL | None:
     return lib
 
 
-def _old_dense(lib: ctypes.CDLL, name: str, h: torch.Tensor, qw) -> torch.Tensor:
-    """``name``'s entry of the old library on the package wrapper's
-    arguments (labels or logits)."""
+def _old_dense(lib: ctypes.CDLL, name: str, h: torch.Tensor, w) -> torch.Tensor:
+    """The old library's entry of the dense stage ``name`` on the package
+    wrapper's arguments (labels or logits)."""
+    entry, keys, takes_nc, logits = DENSE_STAGES[name]
     b = h.shape[0]
-    out = (torch.empty((b, 11), dtype=torch.float32, device=h.device)
-           if name == "dense_int8" else torch.empty((b,), dtype=torch.int32, device=h.device))
-    weights = (qw.w3t, qw.m3, qw.o3, qw.w4, qw.s4, qw.b4)
-    code = getattr(lib, f"amc_{name}")(h.data_ptr(), b, *(t.data_ptr() for t in weights),
-                                       out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    out = (torch.empty((b, 11), dtype=torch.float32, device=h.device) if logits
+           else torch.empty((b,), dtype=torch.int32, device=h.device))
+    args = [h.data_ptr(), b, *(getattr(w, k).data_ptr() for k in keys)]
+    if takes_nc:
+        args.append(w.nc)
+    code = getattr(lib, f"amc_{entry}")(*args, out.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
+        raise RuntimeError(f"old amc_{entry} failed to launch: CUDA error {code}")
     return out
 
 
-def dense_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
-    """Rows 2 and 11, the old body against the package's, on seeded [0, 127]
-    maps: each timed old, new, new, old (median of 5 runs of 20 calls each
-    between CUDA events, then the profiler's device time per call, in the
-    same order), their outputs compared bit for bit, and dense1 alone by
-    ``torch._int_mm`` (a yardstick) in the same round."""
-    from modulationdetectioncnn_torch.ops import infer
+def bf16_dense_misses(h: torch.Tensor, bw, got: torch.Tensor,
+                      want: torch.Tensor | None = None) -> dict:
+    """Row 16's labels ((B,) int32) or row 13's logits ((B, 11) f32) on the
+    map ``h`` against ``want`` (another body's; by default the plain
+    version's) under the tolerances above, the near-ties and the logits'
+    bound taken from the plain version. ``ok`` is whether they hold."""
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+
+    plain = ib.dense_logits_bf16_plain(h, bw)
+    n = int(h.shape[0])
+    if got.dim() == 1:
+        want = ib.argmax_lowest(plain) if want is None else want
+        differ = (got != want).nonzero().flatten()
+        top2 = plain.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) / plain.abs().masked_fill(
+            torch.isinf(plain), 0).amax(-1).clamp_min(1e-30)
+        agree = float((got == want).float().mean()) if n else 1.0
+        not_tie = int((gap[differ] >= NEAR_TIE).sum())
+        return {"n": n, "label_agreement": agree, "differing": int(differ.numel()),
+                "differing_not_near_tie": not_tie,
+                "max_abs_diff": int((got - want).abs().max()) if n else 0,
+                "ok": agree >= BF16_LABEL_AGREEMENT and not_tie == 0}
+    want = plain if want is None else want
+    live, nc = want[:, :bw.nc], bw.nc
+    diff = (got[:, :nc] - live).abs()
+    d1 = ib.dense1_bf16_plain(h, bw)
+    bound = (BF16_LOGIT_RTOL * (d1.abs() @ bw.w4.float().abs())[:, :nc]
+             + BF16_LOGIT_ATOL_OF_MAX * float(plain[:, :nc].abs().max()))
+    outside = int((diff > bound).sum()) + int((got[:, nc:] != float("-inf")).sum())
+    return {"n": n, "outside_tolerance": outside, "max_abs_diff": float(diff.max()),
+            "max_abs_logit": float(live.abs().max()),
+            "bit_equal_share": float((got[:, :nc] == live).float().mean()),
+            "finite": bool(torch.isfinite(got[:, :nc]).all()),
+            "ok": outside == 0 and bool(torch.isfinite(got[:, :nc]).all())}
+
+
+def dense_old_vs_new(lib: ctypes.CDLL, w, names=DENSE_ENTRIES,
+                     batches=(4096, 2048, 16384)) -> list[dict]:
+    """Dense stages ``names`` (DENSE_STAGES' wrappers: rows 2 and 11 with
+    int8 weights, 13 and 16 with bf16 ones), the old body against the
+    package's, on seeded maps ([0, 127] int8; |N(0, 1)| in bf16): each timed
+    old, new, new, old (median of 5 runs of 20 calls each between CUDA
+    events, then the profiler's device time per call, in the same order),
+    beside dense1 alone by ``torch._int_mm`` or ``torch.matmul`` (a
+    yardstick) in the same round. ``ok``: int8 outputs bit for bit
+    (``outputs_differing``), bf16 ones within ``bf16_dense_misses``'
+    tolerances of the old body's."""
+    from modulationdetectioncnn_torch.ops import infer, infer_bf16
     from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
     from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
 
     def ms(fn):
         return statistics.median(launch_ms_samples(fn))
 
+    bf16 = w.w3t.dtype == torch.bfloat16
     recs = []
     for b in batches:
-        h = _seeded((b, 124 * 80), qw.w3t.device, 0, 128, np.int8, seed=b)
-        for name in DENSE_ENTRIES:
-            new = lambda: getattr(infer, name)(h, qw)  # noqa: E731
-            old = lambda: _old_dense(lib, name, h, qw)  # noqa: E731
+        if bf16:
+            h = _seeded((b, 124 * 80), w.w3t.device, seed=b).abs().to(torch.bfloat16)
+            mm = lambda: torch.matmul(h, w.w3t.T)  # noqa: E731
+        else:
+            h = _seeded((b, 124 * 80), w.w3t.device, 0, 128, np.int8, seed=b)
+            mm = lambda: torch._int_mm(h, w.w3t.T)  # noqa: E731
+        for name in names:
+            new = lambda: getattr(infer_bf16 if bf16 else infer, name)(h, w)  # noqa: E731
+            old = lambda: _old_dense(lib, name, h, w)  # noqa: E731
             got, want = new(), old()
-            differ = int((got != want).sum())
-            mm = lambda: torch._int_mm(h, qw.w3t.T)  # noqa: E731
+            if bf16:
+                check = bf16_dense_misses(h, w, got, want)
+            else:
+                differ = int((got != want).sum())
+                check = {"outputs_differing": differ, "ok": differ == 0}
             times = [ms(old), ms(new), ms(new), ms(old)]
             dev = [device_ms_per_call(f) for f in (old, new, new, old)]
-            rec = {"probe": "dense_old", "name": name, "batch": b,
-                   "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
-                   "old_device_ms": [dev[0], dev[3]], "new_device_ms": [dev[1], dev[2]],
-                   "int_mm_dense1_ms": ms(mm), "int_mm_dense1_device_ms": device_ms_per_call(mm),
-                   "outputs_differing": differ}
-            recs.append(rec)
+            recs.append({"probe": "dense_bf16_old" if bf16 else "dense_old", "name": name,
+                         "batch": b, "old_ms": [times[0], times[3]],
+                         "new_ms": [times[1], times[2]],
+                         "old_device_ms": [dev[0], dev[3]], "new_device_ms": [dev[1], dev[2]],
+                         "library_dense1_ms": ms(mm),
+                         "library_dense1_device_ms": device_ms_per_call(mm),
+                         **{k: v for k, v in check.items() if k != "n"}})
+        del h
+    return recs
+
+
+def _dense_old(probe: str, src: str, entries: tuple[str, ...], w, names) -> list[dict]:
+    lib = old_library(src, entries)
+    if lib is None:
+        raise SystemExit(f"{probe}: no earlier body at {src}")
+    recs = dense_old_vs_new(lib, w, names)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
     return recs
 
 
 def probe_dense_old() -> list[dict]:
     _header("dense_old")
-    lib = old_library(OLD_DENSE_SRC, DENSE_ENTRIES)
-    if lib is None:
-        raise SystemExit(f"dense_old: no earlier body at {OLD_DENSE_SRC}")
-    qw, _ = _weights()
-    recs = dense_old_vs_new(lib, qw)
-    for rec in recs:
-        print(json.dumps(rec), flush=True)
-    return recs
+    return _dense_old("dense_old", OLD_DENSE_SRC, DENSE_ENTRIES, _weights()[0], DENSE_ENTRIES)
+
+
+def probe_dense_bf16_old() -> list[dict]:
+    """Rows 13 and 16 against an earlier body of ``csrc/dense_argmax_bf16.cu``
+    (a copy at ``OLD_DENSE_BF16_SRC``) on the bench's seeded float model."""
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+
+    dev = _header("dense_bf16_old")
+    bw = ib.make_bf16_weights(VTCNN2(generator=torch.Generator().manual_seed(0)).state_dict(),
+                              dev)
+    return _dense_old("dense_bf16_old", OLD_DENSE_BF16_SRC, DENSE_BF16_ENTRIES, bw,
+                      DENSE_BF16_STAGES)
 
 
 def _old_conv2(lib: ctypes.CDLL, a1s: torch.Tensor, w2p: torch.Tensor, *rest) -> torch.Tensor:
@@ -417,6 +515,73 @@ def dense_edge_cases(tree: dict, b: int, seed: int) -> dict[str, tuple[dict, np.
             "near_tie": (tie, rng.integers(0, 128, full.shape, dtype=np.int8))}
 
 
+def _round_bf16(a: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest bf16 (ties to even), as float32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def dense_bf16_edge_cases(params: dict, narrow: dict, b: int, seed: int
+                          ) -> dict[str, tuple[dict, np.ndarray]]:
+    """{kind: (Flax-layout tree, (b, 124, 80) map of bf16 values as float32)}
+    for the bf16 dense stage (rows 13 and 16), from a full-width model's and
+    a narrow model's Flax-layout trees (``models.vtcnn2.flax_params``, or a
+    Flax init's ``params["params"]``) and a seed. Lanes past the model's
+    conv2 filters are zero, as the padded conv stages write them:
+
+    - ``large``: every map value in [2^50, 2^51]; dense1's even units have
+      every weight +M or -M (a sign per unit), M the model's largest
+      |weight| in bf16, the odd ones a sign per weight, so dense1 sums
+      reach ~9920 * 2^51 * M in magnitude;
+    - ``near_tie``: a seeded |N(0, 1)| map; dense1's units 0 and 1 read
+      map element 0 and 1 alone (weight 1.0, bias 1.0), and dense2's
+      classes 3, 5 and 7 read them alone, with weights 1.0 and 91 * 2^-15
+      (so their sum keeps all 24 bits), biases 1 + 2^-23 for 3 and 7 and
+      the next float above it for 5; the other classes get zero weights
+      and a bias of -3e38. Those logits are exact but for their rounded
+      adds (d1, the two products' sum, the bias), which no order of the
+      sums changes: class 7 ties class 3 on every frame (the lowest index
+      wins), and class 5's logit is class 3's or above it, as the bias's
+      add rounds, so the labels are 3 or 5 by the last bit;
+    - ``narrow``: a seeded |N(0, 1)| map in the narrow model's lanes under
+      the narrow model (2 classes), which the packing pads to the kernels'
+      widths.
+    """
+    rng = np.random.default_rng(seed)
+
+    def copy(tree):
+        return {layer: dict(v) for layer, v in tree.items()}
+
+    def seeded_map(c2):
+        h = np.zeros((b, 124, 80), np.float32)
+        h[..., :c2] = np.abs(rng.standard_normal((b, 124, c2), np.float32))
+        return _round_bf16(h)
+
+    big = copy(params)
+    w3 = np.asarray(params["Dense1"]["kernel"], np.float32)
+    m = float(_round_bf16(np.array([np.abs(w3).max()]))[0])
+    signs = rng.choice(np.array([-m, m], np.float32), size=w3.shape)
+    signs[:, 0::2] = signs[0, 0::2]
+    big["Dense1"]["kernel"] = signs
+    large = _round_bf16(2.0 ** 50 * (1.0 + rng.random((b, 124, 80), np.float32)))
+    tie = copy(params)
+    w3k = np.array(params["Dense1"]["kernel"], np.float32)     # (9920, 256)
+    b3 = np.array(params["Dense1"]["bias"], np.float32)
+    w3k[:, :2] = 0.0
+    w3k[0, 0] = w3k[1, 1] = b3[0] = b3[1] = 1.0
+    w4 = np.zeros_like(np.asarray(params["Dense2"]["kernel"], np.float32))
+    w4[0, [3, 5, 7]] = 1.0
+    w4[1, [3, 5, 7]] = 91 * 2.0 ** -15
+    b4 = np.full(w4.shape[1], -3e38, np.float32)
+    b4[3] = b4[7] = np.float32(1.0 + 2.0 ** -23)
+    b4[5] = np.nextafter(b4[3], np.float32(np.inf))
+    tie["Dense1"] = {"kernel": w3k, "bias": b3}
+    tie["Dense2"] = {"kernel": w4, "bias": b4}
+    return {"large": (big, large), "near_tie": (tie, seeded_map(80)),
+            "narrow": (copy(narrow), seeded_map(np.shape(narrow["Conv2"]["bias"])[0]))}
+
+
 def probe_batch() -> list[dict]:
     from modulationdetectioncnn_torch.ops import infer
 
@@ -530,6 +695,7 @@ PROBES = {
     "stage": probe_stage,
     "dense": probe_dense,
     "dense_old": probe_dense_old,
+    "dense_bf16_old": probe_dense_bf16_old,
     "conv2_old": probe_conv2_old,
     "conv2_maps": probe_conv2_maps,
     "batch": probe_batch,

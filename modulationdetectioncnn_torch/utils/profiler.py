@@ -57,11 +57,12 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_ms_per_call(fn, iters: int = 10) -> float | None:
-    """The card's busy time per call of ``fn``: the device time of every
-    kernel and copy under ``torch.profiler`` over ``iters`` calls after a
-    warm-up, per call. None when the profiler records no device time (it
-    then cannot see the card)."""
+def device_records(fn, iters: int, tries: int = 3) -> list:
+    """``device_events`` of ``iters`` calls of ``fn`` under ``torch.profiler``
+    after a warm-up. The profiler at times drops some of a run's device
+    records on the card (an entry then counts fewer launches than the
+    calls made); a run in which an entry's count is not a multiple of
+    ``iters`` is taken again, up to ``tries`` runs. [] when none is whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -69,9 +70,21 @@ def device_ms_per_call(fn, iters: int = 10) -> float | None:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in device_events(prof))
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            if events and all(e.count % iters == 0 for e in events):
+                return events
+    return []
+
+
+def device_ms_per_call(fn, iters: int = 10) -> float | None:
+    """The card's busy time per call of ``fn``: the device time of every
+    kernel and copy under ``torch.profiler`` over ``iters`` calls after a
+    warm-up (``device_records``), per call. None when the profiler records
+    no whole run (it then cannot see the card)."""
+    total_us = sum(e.self_device_time_total for e in device_records(fn, iters))
     return total_us / iters / 1e3 if total_us > 0 else None
