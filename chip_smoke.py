@@ -63,6 +63,19 @@ Phases, each printing JSON lines (``"phase": ...``):
                13 and 16 are timed against it, old, new, new, old, at
                B=4096, 2048 and 16384 beside ``torch.matmul``'s dense1,
                outputs within the dense tolerances of each other.
+               Row 1 (v7) also on ``scripts/probe.py::conv_v7_edge_cases``
+               (quantize ties at exact halves, conv1 and conv2 sums at
+               their largest of both signs, requantize shifts 0 to 23 with
+               offsets at the clip's edges, the narrow model, a model the
+               fold refuses) on 1031 frames each: 0 mismatching activations,
+               and v5's and v1's maps (rows 5 and 10: v7's function from the
+               same frames) equal to v7's there and on every weight set and
+               input above. Where an earlier body of
+               ``csrc/conv_stage_int8.cu`` was copied to
+               ``_build/conv_stage_int8_old.cu`` (never committed), row 1
+               is timed against it, old, new, new, old, at B=4096, 2048 and
+               16384 beside ``_int_mm`` on conv2's im2col, maps bit for bit
+               (``kernels.old_vs_new`` lines).
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -127,8 +140,9 @@ Phases, each printing JSON lines (``"phase": ...``):
 12. qat     -- ``qat`` (40 steps) on a copy of the exported checkpoint, then
                ``quantize`` of its ``_qat`` output and an int8 ``eval``
                beside the PTQ artifact's.
-13. profile -- torch.profiler over 10 iterations of the v10 classifier and
-               of the stream chain at B=4096: device time by kernel and the
+13. profile -- torch.profiler over 10 iterations of the v7 and the v10
+               classifiers and of the stream chain with each at B=4096:
+               device time by kernel and the
                device's busy share, counting device work alone (kernels and
                copies; reported, not checked).
 
@@ -304,6 +318,9 @@ EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # |w4| (2^-7 * sum_d |d1_d| |w4_dc|) plus 1e-6 of the largest logit, the
 # padded classes -inf in both.
 BF16_RTOL, BF16_ATOL_OF_MAX = 2.0 ** -7, 1e-3
+# Frames per kind of row 1's edge inputs (scripts/probe.py::conv_v7_edge_cases):
+# ragged against the 132 blocks, several frames a block.
+V7_EDGE_FRAMES = 1031
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 BF16_CONV = ("conv_stage_bf16_v4", "conv_stage_bf16_v2", "conv_stage_bf16")
@@ -403,18 +420,12 @@ def random_weights(art, rng: np.random.Generator):
 
 def narrow_weights():
     """A narrow model (conv1 32, conv2 16, dense 32, 2 classes; a seeded
-    torch VT-CNN2 and the port's PTQ), which the carry pads to the
-    kernels' widths."""
-    from modulationdetectioncnn_torch.config import ModelConfig
-    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    torch VT-CNN2 and the port's PTQ: ``scripts/probe.py::narrow_tree``),
+    which the carry pads to the kernels' widths."""
     from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
-    from modulationdetectioncnn_torch.train.quant import quantize
+    from modulationdetectioncnn_torch.scripts.probe import narrow_tree
 
-    model = VTCNN2.from_config(
-        ModelConfig(num_classes=2, conv1_filters=32, conv2_filters=16, dense_units=32),
-        generator=torch.Generator().manual_seed(SEED))
-    calib = np.random.default_rng(SEED + 1).standard_normal((256, 2, 128)).astype(np.float32)
-    return int8_weights_from_numpy(quantize(model, calib), "cuda")
+    return int8_weights_from_numpy(narrow_tree(SEED), "cuda")
 
 
 def fold_refused_weights(art):
@@ -481,6 +492,14 @@ def conv_pairs(x: torch.Tensor, qw, versions) -> dict:
         inp = planes if v in ("v6", "v4") else rows if v in ("v3", "v2") else x
         out[stage.__name__] = (stage(inp, qw), plain[v]()[..., :qw.c2])
     return out
+
+
+def v7_siblings(pairs: dict) -> dict[str, int]:
+    """Mismatching activations of v5's and v1's maps (rows 5 and 10, v7's
+    function from the same frames) against v7's, among ``conv_pairs``'s."""
+    v7 = pairs["conv_stage_int8_v7"][0]
+    return {k: compare(k, pairs[k][0], v7)[0]
+            for k in ("conv_stage_int8_v5", "conv_stage_int8_v1") if k in pairs}
 
 
 def stream_bench_frames(n_frames: int) -> torch.Tensor:
@@ -760,6 +779,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
             labels = {v: infer.make_int8_predict(qw, v)(x) for v in versions}
             torch.cuda.synchronize()
             record(pairs, wname, xname, int(x.shape[0]))
+            v7_same = v7_siblings(pairs)
             # Each classifier's labels (its conv kernel, then the dense
             # kernel) against the plain chain, every version equal, and
             # every plain version's map equal to the integer spec's.
@@ -767,14 +787,31 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
             plain_mism = {k: compare(k, want, conv_full[..., :qw.c2])[0]
                           for k, (_, want) in pairs.items() if not k.startswith("dense")}
             checks.append({"weights": wname, "input": xname,
+                           "maps_vs_v7": v7_same,
                            "label_mismatches_vs_plain": label_mism,
                            "plain_maps_vs_integer_spec": plain_mism,
                            "conv_live_fraction": round(float((conv_full > 0).float().mean()), 4),
                            "label_classes": int(torch.unique(lab_p).numel())})
             require(all(m == 0 for m in label_mism.values())
-                    and all(m == 0 for m in plain_mism.values()),
+                    and all(m == 0 for m in plain_mism.values())
+                    and all(m == 0 for m in v7_same.values()),
                     f"{wname}/{xname}: labels differ {label_mism}, "
-                    f"plain maps vs the integer spec {plain_mism}")
+                    f"plain maps vs the integer spec {plain_mism}, maps vs v7 {v7_same}")
+    # Row 1 on its edges (scripts/probe.py::conv_v7_edge_cases), and rows 5
+    # and 10 (v5, v1: v7's function from the same frames) held to it there.
+    for kind, (tree, frames) in probe.conv_v7_edge_cases(SEED, V7_EDGE_FRAMES).items():
+        qe = int8_weights_from_numpy(tree, "cuda")
+        xe = torch.from_numpy(frames).cuda()
+        pairs = conv_pairs(xe, qe, ("v7", "v5", "v1"))
+        torch.cuda.synchronize()
+        record(pairs, f"v7_edge_{kind}", f"frames_b{xe.shape[0]}", int(xe.shape[0]))
+        v7_same = v7_siblings(pairs)
+        v7_map = pairs["conv_stage_int8_v7"][1]
+        checks.append({"weights": f"v7_edge_{kind}", "input": f"frames_b{xe.shape[0]}",
+                       "maps_vs_v7": v7_same,
+                       "conv_live_fraction": round(float((v7_map > 0).float().mean()), 4),
+                       "conv_saturated_fraction": round(float((v7_map == 127).float().mean()), 4)})
+        require(all(m == 0 for m in v7_same.values()), f"v7_edge_{kind}: maps vs v7 {v7_same}")
     # Rows 2 and 11 at their edges (scripts/probe.py::dense_edge_cases):
     # dense1 sums near 1.6e8, a seeded map over all of [0, 127], exact and
     # one-ulp ties, each at B = 4097 and 4095 (the last 128-frame tile
@@ -911,6 +948,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               "skipped": f"no earlier body at {os.path.relpath(probe.OLD_DENSE_SRC, REPO)}"})
     else:
         for rec in probe.dense_old_vs_new(old_lib, qw):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
+    # Row 1 against its earlier body, where a copy of it was put at
+    # probe.OLD_CONV_V7_SRC: old, new, new, old in this run, maps bit for
+    # bit, beside _int_mm on conv2's im2col.
+    old_v7 = probe.old_library(probe.OLD_CONV_V7_SRC, probe.CONV_V7_ENTRIES)
+    if old_v7 is None:
+        emit({"phase": "kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V7_SRC, REPO)}"})
+    else:
+        for rec in probe.conv_v7_old_vs_new(old_v7, qw, batches=(4096, 2048, 16384)):
             emit({"phase": "kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # The timing FIR on the stream bench's 4096 frames with their own
@@ -1759,10 +1807,12 @@ def phase_bench() -> dict[str, int]:
 
 def phase_profile() -> None:
     """Where the time goes at B=4096: ``torch.profiler`` over 10 chained
-    iterations of the v10 classifier alone and of the bench's stream chain
-    (front end + v10 classifier). Prints the device time by kernel (top 8)
-    and the device's busy share of the profiled window. A measurement, not
-    a check: a profiler that sees no device time is reported as such."""
+    iterations of the v7 classifier (the default, and the calibration's
+    winner) and the v10 one alone, and of the bench's stream
+    chain (front end + the classifier) with each. Prints the device time by
+    kernel (top 8) and the device's busy share of the profiled window. A
+    measurement, not a check: a profiler that sees no device time is
+    reported as such."""
     from torch.profiler import ProfilerActivity, profile
 
     from modulationdetectioncnn_torch import bench
@@ -1773,7 +1823,6 @@ def phase_profile() -> None:
 
     cfg = AmcConfig()
     sc = cfg.stream
-    classify, (frames,) = bench.make_classifier(cfg, "pallas_int8_v10", BATCH)
     h = design_prototype(sc.num_subbands, sc.taps_per_branch)
     wide = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         (2, BATCH * sc.frame_len)).astype(np.float32)).cuda()
@@ -1783,12 +1832,18 @@ def phase_profile() -> None:
             return xc + fn(xc).reshape(-1)[0].to(torch.float32) * 1e-38
         return step
 
-    def stream_labels(xc):
-        fr = pipeline.subband_frames(xc, h, sc)
-        return classify(fr.reshape(-1, 2, sc.frame_len))
+    def stream_chain(classify):
+        def labels(xc):
+            fr = pipeline.subband_frames(xc, h, sc)
+            return classify(fr.reshape(-1, 2, sc.frame_len))
+        return labels
 
-    for name, step, x in (("classifier_v10", chained(classify), frames),
-                          ("stream_chain_v10", chained(stream_labels), wide)):
+    windows = []
+    for version in ("v7", "v10"):
+        classify, (frames,) = bench.make_classifier(cfg, f"pallas_int8_{version}", BATCH)
+        windows += [(f"classifier_{version}", chained(classify), frames),
+                    (f"stream_chain_{version}", chained(stream_chain(classify)), wide)]
+    for name, step, x in windows:
         with torch.no_grad():
             for _ in range(3):
                 x = step(x)

@@ -79,7 +79,9 @@
 //   flight); the epilogue (bias + ReLU + one rounding, or the requantize,
 //   with its constants in registers for the launch) stores 4 bytes or more
 //   a lane (int8: two lanes swap halves to make 4 channels of one row)
-//   while the producer already fills the next item's stages.
+//   while the producer already fills the next item's stages. The
+//   consumer's pieces (products, resident weight, int8 epilogue) live in
+//   conv2_wgmma.cuh, which the v7 conv stage (conv_stage_int8.cu) shares.
 //   What bounds it (PERF.md section 6, chip_smoke.py and scripts/probe.py
 //   conv2_maps): the map's stream, ~2.2 TB/s of the card's 3.35 in this
 //   access pattern, and in bf16 the second read of each frame by the other
@@ -107,7 +109,7 @@
 
 #include <type_traits>
 
-#include "tma_wgmma.cuh"
+#include "conv2_wgmma.cuh"
 
 namespace {
 
@@ -124,11 +126,6 @@ static_assert(BM == 8 * 16, "conv2: one 16-row m-tile per warp");
 static_assert(SROW % 16 == 0, "16-byte staging stores");
 
 enum Mode { BF16_MMA = 0, INT8_MMA = 1, F32_FMA = 2 };
-
-__device__ __forceinline__ int requant(int acc, int offset, int shift) {
-  const int v = (acc + offset) >> shift;   // arithmetic shift on signed int32
-  return min(max(v, 0), 127);
-}
 
 __device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
@@ -406,18 +403,17 @@ int launch_conv2(const void* a, long long b, int t_in, int k_in, int co,
 
 // ------------------------------------------------- conv2, the Hopper route
 
-constexpr int CONSUMERS = 256;               // two warpgroups of 64 tile rows
-constexpr int WG_THREADS = CONSUMERS + 32;   // and one producer warp
-constexpr int A_CHUNK = 128;                 // bytes of K per ring stage (TMA's SWIZZLE_128B)
-constexpr int A_TX = A_ROWS * A_CHUNK;       // bytes one box brings
-constexpr int A_STAGE = 17 * 1024;           // a stage, on the swizzle's 1024-byte atom
+// The consumer (products, resident weight, int8 epilogue) is
+// conv2_wgmma.cuh's, shared with conv_stage_int8.cu.
+constexpr int WG_THREADS = WG_CONSUMERS + 32;   // and one producer warp
+constexpr int A_TX = A_ROWS * WG_CHUNK;         // bytes one box brings
 constexpr int STAGES = 6;
-constexpr int RING_BYTES = STAGES * A_STAGE;
-constexpr int WG_MAX_K = 512;                // the resident weight's budget, in elements
-static_assert(A_TX <= A_STAGE, "a box fits its stage");
+constexpr int RING_BYTES = STAGES * WG_STAGE;
+constexpr int WG_MAX_K = 512;                   // the resident weight's budget, in elements
+static_assert(A_ROWS == WG_ROWS, "a box is a stage's rows");
 static_assert(1024 + RING_BYTES + WG_MAX_K * 2 * 120 + 2 * STAGES * 8 <= 232448,
               "ring, weight and barriers fit the 227 KB a block may have");
-static_assert(2 * (1024 + RING_BYTES + A_CHUNK * 120) > 228 * 1024,
+static_assert(2 * (1024 + RING_BYTES + WG_CHUNK * 120) > 228 * 1024,
               "one block per SM at any K: the grid is one block per SM");
 
 // Per mode: element size, channels per block (the weight of 3 * NT columns
@@ -431,92 +427,6 @@ template <> struct Wg<INT8_MMA> {
   static constexpr int ES = 1, NT = 80;
   using Acc = int;
 };
-
-// D += A . B for a warpgroup, both K-major from shared memory: A 64 x 16
-// bf16 (128-byte rows, wgmma_desc128), B 40 x 16 (wgmma_desc), D 64 x 40
-// f32 (n8 block j of row 16w + g in d[4j], d[4j+1], of row 16w + g + 8 in
-// d[4j+2], d[4j+3], for warp w of the warpgroup).
-__device__ __forceinline__ void wgmma_tap(float (&d)[20], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
-      "%20, %21, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// The same in int8: A 64 x 32, B 80 x 32, D 64 x 80 int32.
-__device__ __forceinline__ void wgmma_tap(int (&d)[40], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "%40, %41, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Keeps the compiler from moving reads of the accumulators above the wait.
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
-__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r) :: "memory"); }
-
-// Once per block, by the consumer threads: the block's 3 * NT weight columns
-// (n = k*NT + c: tap k, channel co0 + c) transposed to K-major rows in
-// 64-byte K tiles in the 64-byte swizzle (wgmma_desc's layout): bytes
-// [16q, 16q + 16) of K tile kt of row n at kt*NB*64 + n*64 + ((q ^ (n/2 % 4))
-// << 4); zeros past K and Co. A thread reads a (4/ES) x (4/ES) block of w2p
-// as one 32-bit word per K row and writes it as one word per column.
-template <int MODE>
-__device__ __forceinline__ void stage_w_resident(const uint8_t* __restrict__ w2p, int k_in,
-                                                 int co, int co0, int k_tiles, uint8_t* ws) {
-  using W = Wg<MODE>;
-  constexpr int R = 4 / W::ES, NB = 3 * W::NT;
-  const int units = (k_tiles * 64 / 4) * (NB / R);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < units; i += CONSUMERS) {
-    const int j = i / (NB / R) * R, n = i % (NB / R) * R;   // first K row, first column
-    const int c = co0 + n % W::NT;
-    const uint8_t* src = w2p + (static_cast<long long>(j) * 3 * co + n / W::NT * co + c) * W::ES;
-    uint32_t r[R], col[R];
-#pragma unroll
-    for (int e = 0; e < R; ++e)
-      r[e] = j + e < k_in && c < co
-                 ? *reinterpret_cast<const uint32_t*>(src + static_cast<long long>(e) * 3 * co * W::ES)
-                 : 0u;
-    if constexpr (R == 2) {
-      col[0] = __byte_perm(r[0], r[1], 0x5410);
-      col[1] = __byte_perm(r[0], r[1], 0x7632);
-    } else {
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
-      const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
-      col[0] = __byte_perm(t0, t2, 0x5410);
-      col[1] = __byte_perm(t0, t2, 0x7632);
-      col[2] = __byte_perm(t1, t3, 0x5410);
-      col[3] = __byte_perm(t1, t3, 0x7632);
-    }
-    const int kb = j * W::ES, q = kb % 64 / 16;
-    uint8_t* dst = ws + kb / 64 * (NB * 64) + kb % 16;
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const int nn = n + e;
-      *reinterpret_cast<uint32_t*>(dst + nn * 64 + ((q ^ (nn >> 1 & 3)) << 4)) = col[e];
-    }
-  }
-}
 
 // a: the (B, t_in, k_in) map as a 3-D tensor map, boxes of 130 rows x 128
 // bytes in the 128-byte swizzle (rows past t_in and bytes past k_in read as
@@ -535,19 +445,19 @@ conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, in
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
   const uint32_t ws = base + RING_BYTES;
-  const uint32_t full = ws + k_chunks * A_CHUNK * NB, empty = full + 8 * STAGES;
+  const uint32_t full = ws + k_chunks * WG_CHUNK * NB, empty = full + 8 * STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int co0 = blockIdx.y * W::NT;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMERS / 32);
+      mbar_init(empty + 8 * s, WG_CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == CONSUMERS / 32) {  // the producer: lane 0 keeps the ring full
+  if (warp == WG_CONSUMERS / 32) {  // the producer: lane 0 keeps the ring full
     if (lane == 0) {
       int it = 0;
       for (long long w = blockIdx.x; w < items; w += gridDim.x) {
@@ -556,7 +466,7 @@ conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, in
           const int s = it % STAGES;
           mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
           mbar_expect_tx(full + 8 * s, A_TX);
-          tma_load_3d(base + s * A_STAGE, &amap, c * (A_CHUNK / W::ES), t0, f, full + 8 * s);
+          tma_load_3d(base + s * WG_STAGE, &amap, c * (WG_CHUNK / W::ES), t0, f, full + 8 * s);
         }
       }
     }
@@ -564,9 +474,9 @@ conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, in
   }
 
   // The consumers: the weight once, while the first boxes arrive.
-  stage_w_resident<MODE>(w2p, k_in, co, co0, 2 * k_chunks, smem_raw + (ws - raw));
+  stage_w2p_resident<W::ES, W::NT>(w2p, k_in, co, co0, 2 * k_chunks, smem_raw + (ws - raw));
   fence_proxy_async();
-  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+  asm volatile("bar.sync 1, %0;\n" :: "n"(WG_CONSUMERS) : "memory");
 
   // Warpgroup g owns tile rows 64g .. 64g + 63 (warp w of it rows 16(w%4)
   // .. +15 of those). For tap k its A is the same tile moved down k rows:
@@ -575,18 +485,17 @@ conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, in
   const int row0 = (warp / 4) * 64 + (warp % 4) * 16, a_row0 = (warp / 4) * 64;
   const int t_out = t_in - 2, g = lane >> 2, tq = lane & 3;
   Acc ep0[W::NT / 8][2], ep1[W::NT / 8][2];   // bf16: bias; int8: shift, offset
+  if constexpr (MODE == INT8_MMA) {
+    load_rq2<W::NT>(m2, o2, co0, co, ep0, ep1);
+  } else {
 #pragma unroll
-  for (int j = 0; j < W::NT / 8; ++j)
+    for (int j = 0; j < W::NT / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int ch = co0 + 8 * j + 2 * tq + e;
-      if constexpr (MODE == INT8_MMA) {
-        ep0[j][e] = ch < co ? __ldg(m2 + ch) : 0;
-        ep1[j][e] = ch < co ? __ldg(o2 + ch) : 0;
-      } else {
+      for (int e = 0; e < 2; ++e) {
+        const int ch = co0 + 8 * j + 2 * tq + e;
         ep0[j][e] = ch < co ? __ldg(b2 + ch) : 0.0f;
       }
-    }
+  }
   int it = 0;
   for (long long w = blockIdx.x; w < items; w += gridDim.x) {
     const long long f = w / row_tiles;
@@ -599,17 +508,8 @@ conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, in
       const int s = it % STAGES;
       mbar_wait(full + 8 * s, (it / STAGES) & 1);
       __syncwarp();                  // converged again for the .aligned products
-      const uint32_t st = base + s * A_STAGE + a_row0 * A_CHUNK, wc = ws + 2 * c * (NB * 64);
-      wgmma_fence();
-#pragma unroll
-      for (int h = 0; h < 2; ++h)    // the chunk's two 64-byte halves: two K tiles
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            wgmma_tap(acc, wgmma_desc128(st + k * A_CHUNK + 64 * h + 32 * ks),
-                      wgmma_desc(wc + h * (NB * 64) + k * (W::NT * 64) + 32 * ks));
-      wgmma_commit();
+      stage_products<W::NT>(acc, base + s * WG_STAGE + a_row0 * WG_CHUNK,
+                            ws + 2 * c * (NB * 64));
       wgmma_wait<1>();               // the previous chunk's products are done:
       __syncwarp();                  // this warp releases its stage
       if (c > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
@@ -622,23 +522,12 @@ conv2_wgmma_kernel(const __grid_constant__ CUtensorMap amap, long long items, in
 
     OutT* of = out + f * static_cast<long long>(t_out) * co;
     const int r_lo = t0 + row0 + g, r_hi = r_lo + 8;
+    if constexpr (MODE == INT8_MMA) {
+      store_rq2<W::NT>(acc, ep0, ep1, of, r_lo, co0, co, t_out);
+    } else {
 #pragma unroll
-    for (int j = 0; j < W::NT / 8; ++j) {
-      const int ch = co0 + 8 * j + 2 * tq;    // this lane's two channels (Co % 4 == 0)
-      if constexpr (MODE == INT8_MMA) {
-        // Lanes 2i and 2i+1 swap halves so that each stores 4 channels of
-        // one row: the even lane row r_lo, the odd one row r_hi.
-        const uint32_t lo = requant(acc[4 * j], ep1[j][0], ep0[j][0]) |
-                            requant(acc[4 * j + 1], ep1[j][1], ep0[j][1]) << 8;
-        const uint32_t hi = requant(acc[4 * j + 2], ep1[j][0], ep0[j][0]) |
-                            requant(acc[4 * j + 3], ep1[j][1], ep0[j][1]) << 8;
-        const bool odd = tq & 1;
-        const uint32_t other = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 1);
-        const int row = odd ? r_hi : r_lo, c4 = ch - 2 * odd;
-        if (c4 < co && row < t_out)
-          *reinterpret_cast<uint32_t*>(of + static_cast<long long>(row) * co + c4) =
-              odd ? other | hi << 16 : lo | other << 16;
-      } else {
+      for (int j = 0; j < W::NT / 8; ++j) {
+        const int ch = co0 + 8 * j + 2 * tq;    // this lane's two channels (Co % 4 == 0)
         if (ch < co) {
           if (r_lo < t_out)
             store2(of + static_cast<long long>(r_lo) * co + ch,
@@ -684,7 +573,7 @@ int launch_conv2_wgmma(const void* a, long long b, int t_in, int k_in, int co,
                               static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k_in) * W::ES,
                                  static_cast<cuuint64_t>(t_in) * k_in * W::ES};
-  const cuuint32_t box[3] = {A_CHUNK / W::ES, A_ROWS, 1};
+  const cuuint32_t box[3] = {WG_CHUNK / W::ES, A_ROWS, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   if (encode(&amap, W::ES == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
              3, const_cast<void*>(a), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -693,8 +582,8 @@ int launch_conv2_wgmma(const void* a, long long b, int t_in, int k_in, int co,
     return static_cast<int>(cudaErrorInvalidValue);
   const int row_tiles = (t_in - 2 + BM - 1) / BM;
   const long long items = b * row_tiles;
-  const int k_chunks = (k_in * W::ES + A_CHUNK - 1) / A_CHUNK;
-  const int smem = 1024 + RING_BYTES + k_chunks * A_CHUNK * NB + 2 * STAGES * 8;
+  const int k_chunks = (k_in * W::ES + WG_CHUNK - 1) / WG_CHUNK;
+  const int smem = 1024 + RING_BYTES + k_chunks * WG_CHUNK * NB + 2 * STAGES * 8;
   const int tiles_c = (co + W::NT - 1) / W::NT;
   if (tiles_c > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   auto kernel = conv2_wgmma_kernel<MODE, OutT>;

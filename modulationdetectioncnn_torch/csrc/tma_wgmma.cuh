@@ -1,6 +1,7 @@
-// Hopper (sm_90a) pieces shared by the TMA-fed wgmma kernels
-// (dense_argmax_int8.cu, dense_argmax_bf16.cu, the conv2 route of
-// cnn_kernels.cu): mbarriers, TMA tile loads, wgmma descriptors, fences and
+// Hopper (sm_90a) pieces shared by the wgmma kernels (dense_argmax_int8.cu,
+// dense_argmax_bf16.cu, the conv2 route of cnn_kernels.cu and, through
+// conv2_wgmma.cuh, conv_stage_int8.cu): mbarriers, TMA tile loads, bulk
+// stores from shared memory, wgmma descriptors, fences and
 // the m64n256 products of the dense stages, cuTensorMapEncodeTiled looked
 // up through the runtime (no -lcuda), and the K-split cluster of the dense
 // stages: its size and the sum of its blocks' partial tiles.
@@ -57,6 +58,29 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
       : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16) from shared address src to
+// global dst (both 16-byte aligned), in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // wgmma descriptor of a K-major tile of 64-byte rows in the 64-byte swizzle

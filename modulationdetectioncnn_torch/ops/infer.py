@@ -7,7 +7,8 @@ argmax, which returns logits) and differ in the conv stage, which all
 compute one function (the integer spec of ``golden/quant.py``) from
 different inputs and with different conv1 arithmetic:
 
-- v7: frames in, conv1 on integers (``__dp4a``);
+- v7: frames in, conv1 on integers (``__dp4a`` on the CUDA cores, built
+  in shared memory), conv2 on int8 ``wgmma``;
 - v9, v10: frames in, conv1 as a bf16 product against requantize-folded
   weights (``quant.fold_conv1_weights``), conv2 on int8 tensor cores; v10
   also prefetches the next frame while the current one's products run;

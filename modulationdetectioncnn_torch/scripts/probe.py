@@ -25,6 +25,9 @@ a function that one of the port's kernels computes (PERF.md section 6).
   conv2_old rows 18 (bf16, float32) and 20 against an earlier body of
             ``csrc/cnn_kernels.cu`` (a copy at ``OLD_CNN_SRC``) the same way,
             beside the library call on conv2's z
+  conv_v7_old row 1 (v7) against an earlier body of ``csrc/conv_stage_int8.cu``
+            (a copy at ``OLD_CONV_V7_SRC``) the same way, beside ``_int_mm``
+            on conv2's im2col, maps bit for bit
   conv2_maps row 18 bf16 on the bench's conv1 map, a seeded map, its ReLU,
             zeros, and with one channel tile (Co 40), beside torch.matmul
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
@@ -43,7 +46,9 @@ limit first. There is no CPU version: a probe raises without a card.
 chip_smoke.py holds rows 2 and 11 to on the card and the CPU tests hold
 their plain versions to against the JAX package's golden chain;
 ``dense_bf16_edge_cases`` the bf16 dense stage's (rows 13 and 16), held
-the same way against the JAX package's Pallas kernels in interpret mode.
+the same way against the JAX package's Pallas kernels in interpret mode;
+``conv_v7_edge_cases`` the v7 conv stage's (row 1), held the same way
+(``tests/test_torch_v7_edges.py``).
 """
 from __future__ import annotations
 
@@ -480,6 +485,196 @@ def probe_conv2_maps() -> list[dict]:
     return recs
 
 
+OLD_CONV_V7_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_old.cu")
+CONV_V7_ENTRIES = ("conv_stage_int8_v7",)
+_V7_WEIGHTS = ("w1", "m1", "o1", "w2t", "m2", "o2")   # the v7 entry's, in its order
+
+
+def _old_conv_v7(lib: ctypes.CDLL, x: torch.Tensor, qw) -> torch.Tensor:
+    """The old library's v7 entry on the package wrapper's arguments: the
+    (B, 124, 80) int8 map."""
+    b = x.shape[0]
+    out = torch.empty((b, 124, 80), dtype=torch.int8, device=x.device)
+    code = lib.amc_conv_stage_int8_v7(x.data_ptr(), b,
+                                      *(getattr(qw, k).data_ptr() for k in _V7_WEIGHTS),
+                                      qw.inv_sx, out.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"old amc_conv_stage_int8_v7 failed to launch: CUDA error {code}")
+    return out
+
+
+def conv_v7_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Row 1, the old body against the package's, on seeded frames
+    (0.7 N(0, 1)) under the full-width weights ``qw``: each timed old, new,
+    new, old (median of 5 runs of 20 calls between CUDA events, then the
+    profiler's device time per call, in the same order), beside
+    ``torch._int_mm`` on conv2's im2col, (B*124, 1536) x (1536, 80) (a
+    yardstick), in the same round. ``ok``: the maps bit for bit."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn):
+        return statistics.median(launch_ms_samples(fn))
+
+    dev, w_cm = qw.w2t.device, qw.w2t.T
+    recs = []
+    for b in batches:
+        x = 0.7 * _seeded((b, 2, T_IN), dev, seed=b)
+        cols = torch.randint(0, 128, (b * 124, 1536), dtype=torch.int8, device=dev,
+                             generator=torch.Generator(dev).manual_seed(b))
+        new = lambda: infer.conv_stage_int8_v7(x, qw)  # noqa: E731
+        old = lambda: _old_conv_v7(lib, x, qw)  # noqa: E731
+        mm = lambda: torch._int_mm(cols, w_cm)  # noqa: E731
+        differ = int((new() != old()).sum())
+        times = [ms(old), ms(new), ms(new), ms(old)]
+        dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+        recs.append({"probe": "conv_v7_old", "name": "conv_stage_int8_v7", "batch": b,
+                     "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                     "old_device_ms": [dev_ms[0], dev_ms[3]],
+                     "new_device_ms": [dev_ms[1], dev_ms[2]],
+                     "library_im2col_ms": ms(mm),
+                     "library_im2col_device_ms": device_ms_per_call(mm),
+                     "maps_differing": differ, "ok": differ == 0})
+        del x, cols
+    return recs
+
+
+def probe_conv_v7_old() -> list[dict]:
+    """Row 1 against an earlier body of ``csrc/conv_stage_int8.cu`` (a copy
+    at ``OLD_CONV_V7_SRC``) on the committed artifact's weights."""
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    _header("conv_v7_old")
+    lib = old_library(OLD_CONV_V7_SRC, CONV_V7_ENTRIES)
+    if lib is None:
+        raise SystemExit(f"conv_v7_old: no earlier body at {OLD_CONV_V7_SRC}")
+    recs = conv_v7_old_vs_new(lib, load_int8(device="cuda"))
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
+def narrow_tree(seed: int) -> dict:
+    """A narrow model's tree (conv1 32, conv2 16, dense 32, 2 classes: a
+    seeded torch VT-CNN2 through the port's PTQ), which the carry pads to
+    the kernels' widths."""
+    from modulationdetectioncnn_torch.config import ModelConfig
+    from modulationdetectioncnn_torch.models.vtcnn2 import VTCNN2
+    from modulationdetectioncnn_torch.train.quant import quantize
+
+    model = VTCNN2.from_config(
+        ModelConfig(num_classes=2, conv1_filters=32, conv2_filters=16, dense_units=32),
+        generator=torch.Generator().manual_seed(seed))
+    calib = np.random.default_rng(seed + 1).standard_normal((256, 2, 128)).astype(np.float32)
+    return quantize(model, calib).tree()
+
+
+def _v7_acc1(x: np.ndarray, s_x, w1p: np.ndarray) -> np.ndarray:
+    """golden/quant.py's conv1 sums, (B, 2, T) f32 -> (B, T-2, 2C) int64,
+    channel h*C + c: the quantize (a rounded multiply by the f32
+    reciprocal, ties to even), then the three taps."""
+    inv = np.float32(1.0 / np.float64(np.float32(s_x)))
+    xq = np.clip(np.rint(x.astype(np.float32) * inv), -127, 127).astype(np.int64)
+    t1 = x.shape[-1] - 2
+    acc = sum(xq[:, :, k:k + t1, None] * np.asarray(w1p, np.int64)[k] for k in range(3))
+    return acc.transpose(0, 2, 1, 3).reshape(x.shape[0], t1, -1)
+
+
+def _v7_acc2(a1: np.ndarray, w2p: np.ndarray) -> np.ndarray:
+    """conv2's sums on an int (B, t1, 2C) map, (B, t1-2, C2) int64 (float64
+    products are exact: every partial sum is below 2**53)."""
+    c2, t2 = w2p.shape[1] // 3, a1.shape[1] - 2
+    w = np.asarray(w2p, np.float64)
+    return np.rint(sum(a1[:, k:k + t2].astype(np.float64) @ w[:, k * c2:(k + 1) * c2]
+                       for k in range(3))).astype(np.int64)
+
+
+def _rq_edge_offsets(acc0: np.ndarray, shifts: np.ndarray) -> np.ndarray:
+    """Per-channel offsets that put ``(acc0 + o) >> shift`` at -1, 0, 127 and
+    128 in turn (channel j: target j // 4 % 4)."""
+    targets = np.array([-1, 0, 127, 128], np.int64)[np.arange(acc0.size) // 4 % 4]
+    return (targets * (np.int64(1) << shifts) - acc0).astype(np.int32)
+
+
+def conv_v7_edge_cases(seed: int, b: int = 40) -> dict[str, tuple[dict, np.ndarray]]:
+    """{kind: (model tree, (b, 2, 128) f32 frames)} for the v7 conv stage
+    (row 1), from the committed artifact, the narrow model and a seed (b >=
+    2). Each kind's frames go through its own weights:
+
+    - ``half_ties``: s_x = 2^-4, so every product x * inv_sx is exact, and
+      frames holding (k + 0.5) * s_x for k from -131 to 130 (every tie from
+      -130.5 to 130.5, +-126.5 and +-127.5 among them) and +-300 * s_x
+      (saturation) first, then seeded integers and halves in [-140, 140]:
+      rint's ties to even decide the quantize;
+    - ``max_sums``: every conv1 tap +127 and conv2 weight +-127 (even
+      channels one sign per channel, odd ones a sign per weight), rq1
+      shifts 0 / 4 / 8 with offset 0, rq2 shifts 17..20 with a rounding
+      offset, and saturated frames (every sample +-127 after the quantize:
+      all +, all -, alternating, a sign per plane, seeded signs), so conv1
+      sums reach +-3 * 127^2 and conv2 sums +-1536 * 127^2 ~ 2.5e7;
+    - ``rq_edges``: shifts 0, 20, 22, 23 (channel j: j % 4) and offsets
+      that put ``(acc + o) >> m`` at -1, 0, 127 and 128 on frame 0's row 0,
+      for rq1 and rq2 (the sums from the integer spec on these frames);
+      with shifts >= 20 every row of a channel lands within one step of
+      its target;
+    - ``narrow``: ``narrow_tree(seed)``, which the carry pads to the
+      kernels' widths;
+    - ``fold_refused``: the artifact with conv1 offset 5 at 257, which is
+      not bf16-exact: the v9/v10 fold refuses it, v7 runs it.
+
+    The last three take seeded frames 0.7 N(0, 1).
+    """
+    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel
+
+    rng = np.random.default_rng(seed)
+    art = QuantizedModel.from_npz(DEFAULT_ARTIFACT).tree()
+
+    def seeded():
+        return (0.7 * rng.standard_normal((b, 2, 128))).astype(np.float32)
+
+    # half_ties
+    ties = dict(art, s_x=np.float32(2.0 ** -4))
+    vals = np.concatenate([np.arange(-131, 131) + 0.5, [300.0, -300.0]])
+    fill = rng.integers(-140, 141, b * 256 - vals.size) + 0.5 * rng.integers(0, 2, b * 256 - vals.size)
+    x_ties = (np.concatenate([vals, fill]) * 2.0 ** -4).astype(np.float32).reshape(b, 2, 128)
+    # max_sums
+    sums = dict(art)
+    c1, k1, c2 = art["w1p"].shape[1], art["w2p"].shape[0], art["m2"].shape[0]
+    sums["w1p"] = np.full((3, c1), 127, np.int8)
+    w2 = rng.choice(np.array([-127, 127], np.int8), size=(k1, 3, c2))
+    w2[:, :, 0::2] = np.where(np.arange(c2)[0::2] // 2 % 2 == 0, 127, -127).astype(np.int8)
+    sums["w2p"] = w2.reshape(k1, 3 * c2)
+    sums["m1"] = np.array([0, 4, 8], np.int32)[np.arange(2 * c1) % 3]
+    sums["o1"] = np.zeros(2 * c1, np.int32)
+    sums["m2"] = (17 + np.arange(c2) % 4).astype(np.int32)
+    sums["o2"] = (np.int32(1) << (sums["m2"] - 1)).astype(np.int32)
+    sat = 300.0 * np.float32(art["s_x"])
+    signs = rng.choice(np.array([-1.0, 1.0]), size=(b, 2, 128))
+    signs[0::5] = 1.0
+    signs[1::5] = -1.0
+    signs[2::5] = np.where(np.arange(128) % 2 == 0, 1.0, -1.0)
+    signs[3::5, 0], signs[3::5, 1] = 1.0, -1.0
+    x_sums = (sat * signs).astype(np.float32)
+    # rq_edges
+    edges = dict(art)
+    x_edges = seeded()
+    m1 = np.array([0, 20, 22, 23], np.int32)[np.arange(2 * c1) % 4]
+    acc1 = _v7_acc1(x_edges[:1], art["s_x"], art["w1p"])
+    o1 = _rq_edge_offsets(acc1[0, 0], m1)
+    a1 = np.clip((acc1 + o1) >> m1, 0, 127)
+    m2 = np.array([0, 20, 22, 23], np.int32)[np.arange(c2) % 4]
+    o2 = _rq_edge_offsets(_v7_acc2(a1, art["w2p"])[0, 0], m2)
+    edges.update(m1=m1, o1=o1, m2=m2, o2=o2)
+    # fold_refused
+    refused = dict(art, o1=np.array(art["o1"]).copy())
+    refused["o1"][5] = 257
+    return {"half_ties": (ties, x_ties), "max_sums": (sums, x_sums),
+            "rq_edges": (edges, x_edges), "narrow": (narrow_tree(seed), seeded()),
+            "fold_refused": (refused, seeded())}
+
+
 def dense_edge_cases(tree: dict, b: int, seed: int) -> dict[str, tuple[dict, np.ndarray]]:
     """{kind: (weight tree, (b, 9920) int8 map)} for the int8 dense stage,
     from a model's tree (``QuantizedModel.tree()``) and a seed:
@@ -698,6 +893,7 @@ PROBES = {
     "dense_bf16_old": probe_dense_bf16_old,
     "conv2_old": probe_conv2_old,
     "conv2_maps": probe_conv2_maps,
+    "conv_v7_old": probe_conv_v7_old,
     "batch": probe_batch,
     "r3stream": probe_r3stream,
     "r5cfo": probe_r5cfo,

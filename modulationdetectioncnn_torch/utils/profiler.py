@@ -57,12 +57,14 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_records(fn, iters: int, tries: int = 3) -> list:
+def device_records(fn, iters: int, tries: int = 6) -> list:
     """``device_events`` of ``iters`` calls of ``fn`` under ``torch.profiler``
-    after a warm-up. The profiler at times drops some of a run's device
-    records on the card (an entry then counts fewer launches than the
-    calls made); a run in which an entry's count is not a multiple of
-    ``iters`` is taken again, up to ``tries`` runs. [] when none is whole."""
+    after a warm-up. The profiler at times drops some or all of a run's
+    device records on the card (an entry then counts fewer launches than the
+    calls made, or none is there), several runs in a row late in a long
+    process; a run without entries or with an entry whose count is not a
+    multiple of ``iters`` is taken again, up to ``tries`` runs. [] when none
+    is whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
