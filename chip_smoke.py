@@ -76,6 +76,19 @@ Phases, each printing JSON lines (``"phase": ...``):
                is timed against it, old, new, new, old, at B=4096, 2048 and
                16384 beside ``_int_mm`` on conv2's im2col, maps bit for bit
                (``kernels.old_vs_new`` lines).
+               The three bf16 conv stages (rows 15, 14, 12: 2-block
+               clusters, one I/Q plane a block) also at the cluster edges
+               B = 1, 2, 65, 66, 67, 131, 133, 4095 and 4097 on the bench's
+               seeded model and the narrow one (maps within the bf16
+               tolerance of the plain version, v2 equal to v4 bit for
+               bit), and the same 2048 frames' map bit for bit at B = 2048,
+               4096 and 16384. Where an earlier body of
+               ``csrc/conv_stage_bf16_v4.cu`` was copied to
+               ``_build/conv_stage_bf16_old.cu`` (never committed), rows
+               15, 14 and 12 are timed against it, old, new, new, old, at
+               B=4096, 2048 and 16384 beside ``torch.matmul``'s conv2, the
+               maps within the bf16 tolerance of each other
+               (``kernels.old_vs_new`` lines).
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -310,19 +323,24 @@ INTEGER_VERSIONS = ("v7", "v5", "v6", "v4", "v3", "v2", "v1")   # no bf16 fold
 EVAL_VERSIONS = ("v5", "v6", "v4", "v7", "v10", "v3", "v2", "v1")
 EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # The bf16 maps' tolerance against their plain versions (v4, v2 and the
-# f32-conv1 stage): one bf16 ulp relative plus 1e-3 of the map's largest
-# magnitude (elements next to the ReLU edge). The dense stage's are
-# scripts/probe.py's (bf16_dense_misses): labels >= 99.9 % equal, and every
-# difference a near-tie of the plain logits (top-2 gap < 1e-3 of the row's
-# largest logit); logits within one bf16 ulp of every dense1 unit times
-# |w4| (2^-7 * sum_d |d1_d| |w4_dc|) plus 1e-6 of the largest logit, the
-# padded classes -inf in both.
-BF16_RTOL, BF16_ATOL_OF_MAX = 2.0 ** -7, 1e-3
+# f32-conv1 stage; row 18 in bf16) is scripts/probe.py's (bf16_map_outside,
+# BF16_MAP_RTOL, BF16_MAP_ATOL_OF_MAX): one bf16 ulp relative plus 1e-3 of
+# the map's largest magnitude (elements next to the ReLU edge). The dense
+# stage's are scripts/probe.py's too (bf16_dense_misses): labels >= 99.9 %
+# equal, and every difference a near-tie of the plain logits (top-2 gap <
+# 1e-3 of the row's largest logit); logits within one bf16 ulp of every
+# dense1 unit times |w4| (2^-7 * sum_d |d1_d| |w4_dc|) plus 1e-6 of the
+# largest logit, the padded classes -inf in both.
 # Frames per kind of row 1's edge inputs (scripts/probe.py::conv_v7_edge_cases):
 # ragged against the 132 blocks, several frames a block.
 V7_EDGE_FRAMES = 1031
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
+# The bf16 conv stages' cluster edges: 66 clusters of 2 expected on the
+# card's 132 SMs, so B around 1, 66 and 132 clusters' worth of frames.
+BF16_CONV_EDGE_BATCHES = (1, 2, 65, 66, 67, 131, 133, 4095, 4097)
+# The batches at which the same 2048 frames' bf16 conv maps must be equal.
+BF16_CONV_SAME_BATCHES = (2048, 4096, 16384)
 BF16_CONV = ("conv_stage_bf16_v4", "conv_stage_bf16_v2", "conv_stage_bf16")
 # The eval phase's dataset: 16 frames per class at each of the 20 SNRs.
 EVAL_DATA = ("data.frames_per_class_per_snr=16",)
@@ -612,7 +630,7 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
     sets (``bf16_weight_sets``), on the bench's 4096 frames, the stream
     demo's 1024, B=1 and a ragged 37-frame slice. The conv stages (v4; v2 on
     the frames' tap rows; the f32-conv1 stage): every map element within
-    BF16_RTOL * |plain| + BF16_ATOL_OF_MAX * max|plain| (largest difference
+    scripts/probe.py::bf16_map_outside's tolerance (largest difference
     and bit-equal share printed), and, on the demo's frames and the 37,
     conv1 bit for bit (``conv1_probe_mismatches``); v2's map equal to v4's
     bit for bit. The dense stages, given the plain map, under
@@ -678,8 +696,7 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
             for kname, (got, want) in maps.items():
                 got, want = got.float(), want[..., :bw.c2].float()
                 diff = (got - want).abs()
-                bound = BF16_RTOL * want.abs() + BF16_ATOL_OF_MAX * float(want.abs().max())
-                outside = int((diff > bound).sum())
+                outside = probe.bf16_map_outside(got, want)
                 conv1_bad = probe_mism.get(kname, 0)
                 record(kname, outside + conv1_bad, float(diff.max()))
                 checks.append({"kernel": kname, "weights": wname, "input": xname,
@@ -696,6 +713,51 @@ def bf16_checks(demo: torch.Tensor, x_seed: torch.Tensor, bench_x: torch.Tensor
             v2_vs_v4 = int((maps["conv_stage_bf16_v2"][0] != maps["conv_stage_bf16_v4"][0]).sum())
             dense_pair(wname, xname, plain_map, bw, labels, logits_k, v2_map_vs_v4_map=v2_vs_v4)
             require(v2_vs_v4 == 0, f"bf16 {wname}/{xname}: {v2_vs_v4} v2 map elements != v4's")
+    # Rows 15, 14 and 12 at the cluster edges, on the bench's model and the
+    # narrow one, and the same frames' maps at three batch sizes: the
+    # pair's sum order does not depend on B, so they are equal bit for bit.
+    for wname in ("bench_seeded", "narrow_c32_c16_d32_nc2"):
+        bw = ib.make_bf16_weights(sets[wname], "cuda")
+        for b in BF16_CONV_EDGE_BATCHES:
+            x = x_seed[:b]
+            xe = ib.expand_taps_bf16(x)
+            maps = {"conv_stage_bf16_v4": (ib.conv_stage_bf16_v4(x, bw),
+                                           ib.conv_stage_bf16_v4_plain(x, bw)),
+                    "conv_stage_bf16_v2": (ib.conv_stage_bf16_v2(xe, bw),
+                                           ib.conv_stage_bf16_v2_plain(xe, bw)),
+                    "conv_stage_bf16": (ib.conv_stage_bf16(x, bw),
+                                        ib.conv_stage_bf16_plain(x, bw))}
+            torch.cuda.synchronize()
+            for kname, (got, want) in maps.items():
+                want = want[..., :bw.c2]
+                outside = probe.bf16_map_outside(got, want)
+                err = float((got.float() - want.float()).abs().max())
+                record(kname, outside, err)
+                checks.append({"kernel": kname, "weights": wname, "input": f"cluster_edge_b{b}",
+                               "n": b, "outside_tolerance": outside, "max_abs_diff": err})
+                require(outside == 0 and bool(torch.isfinite(got.float()).all()),
+                        f"bf16 {kname} {wname} B={b}: {outside} elements outside tolerance")
+            v2_vs_v4 = int((maps["conv_stage_bf16_v2"][0] != maps["conv_stage_bf16_v4"][0]).sum())
+            checks.append({"weights": wname, "input": f"cluster_edge_b{b}",
+                           "v2_map_vs_v4_map": v2_vs_v4})
+            require(v2_vs_v4 == 0, f"bf16 {wname} B={b}: {v2_vs_v4} v2 map elements != v4's")
+    bw = ib.make_bf16_weights(sets["bench_seeded"], "cuda")
+    x_many = torch.from_numpy((0.7 * np.random.default_rng(SEED + 1).standard_normal(
+        (max(BF16_CONV_SAME_BATCHES), 2, 128))).astype(np.float32)).cuda()
+    for kname, wrapper, inp in (("conv_stage_bf16_v4", ib.conv_stage_bf16_v4, x_many),
+                                ("conv_stage_bf16_v2", ib.conv_stage_bf16_v2,
+                                 ib.expand_taps_bf16(x_many)),
+                                ("conv_stage_bf16", ib.conv_stage_bf16, x_many)):
+        first = {b: wrapper(inp[:b], bw)[:2048] for b in BF16_CONV_SAME_BATCHES}
+        torch.cuda.synchronize()
+        for b in BF16_CONV_SAME_BATCHES[1:]:
+            differ = int((first[b] != first[BF16_CONV_SAME_BATCHES[0]]).sum())
+            record(kname, differ, 0.0)
+            checks.append({"kernel": kname, "weights": "bench_seeded",
+                           "input": f"first_2048_frames_b{b}_vs_b2048", "differing": differ})
+            require(differ == 0, f"bf16 {kname}: the first 2048 frames' map at B={b} differs "
+                    f"from B=2048 in {differ} elements")
+    del x_many
     # Rows 13 and 16 at their edges: tile and cluster edges (B = 1, 37,
     # 129, 4095, 4097: a ragged last tile, rows past B read as zeros; 16384:
     # one block per tile), maps near 2^50 under +-max weights, exact and
@@ -1066,6 +1128,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         for rec in probe.dense_old_vs_new(old_bf16, bw, probe.DENSE_BF16_STAGES):
             emit({"phase": "kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ: {rec}")
+    # Rows 15, 14 and 12 against their earlier body, where a copy of it was
+    # put at probe.OLD_CONV_BF16_SRC: old, new, new, old in this run, maps
+    # within the bf16 tolerance of each other, beside torch.matmul's conv2.
+    old_conv = probe.old_library(probe.OLD_CONV_BF16_SRC, probe.CONV_BF16_ENTRIES)
+    if old_conv is None:
+        emit({"phase": "kernels.old_vs_new", "skipped": "no earlier body at "
+              f"{os.path.relpath(probe.OLD_CONV_BF16_SRC, REPO)}"})
+    else:
+        for rec in probe.conv_bf16_old_vs_new(old_conv, bw, batches=(4096, 2048, 16384)):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ: {rec}")
     prologue_ms = time_ms(lambda: infer.tap_planes(x, qw.inv_sx), iters=20)
     rows_ms = time_ms(lambda: infer.expand_taps(x, qw.inv_sx), iters=20)
     filters_ms = time_ms(lambda: normalize.timing_filters(
@@ -1099,6 +1172,7 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     from modulationdetectioncnn_torch.ops import infer
     from modulationdetectioncnn_torch.ops.requant import quantize_input
     from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel, load_int8
+    from modulationdetectioncnn_torch.scripts import probe
     from modulationdetectioncnn_torch.utils.checkpoint import restore_model
 
     ck.reset_launch_counts()
@@ -1164,7 +1238,8 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
             got = ck.conv2_stacked(a1, w2, b2, out_dtype=out)
             want = ck.conv2_stacked_plain(a1, w2, b2, out)
             if out == torch.bfloat16:
-                record("conv2_stacked", f"{case}/bf16", got, want, BF16_RTOL, BF16_ATOL_OF_MAX)
+                record("conv2_stacked", f"{case}/bf16", got, want, probe.BF16_MAP_RTOL,
+                       probe.BF16_MAP_ATOL_OF_MAX)
             else:
                 record("conv2_stacked", f"{case}/float32", got, want, 0.0, 1e-5)
 
@@ -1195,7 +1270,8 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                    ck.conv2_stacked_int8_plain(a1, w2p, *rest))
         else:
             record("conv2_stacked", name, ck.conv2_stacked(a1, w2p, *rest),
-                   ck.conv2_stacked_plain(a1, w2p, *rest), BF16_RTOL, BF16_ATOL_OF_MAX)
+                   ck.conv2_stacked_plain(a1, w2p, *rest), probe.BF16_MAP_RTOL,
+                   probe.BF16_MAP_ATOL_OF_MAX)
     check_launches = ck.launch_counts()
     check_routes = ck.route_launch_counts()
     for c in checks:
@@ -1297,8 +1373,6 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     # Rows 18 and 20 against an earlier body (conv2's tile body alone),
     # where a copy of it was put at probe.OLD_CNN_SRC: old, new, new, old
     # in this run.
-    from modulationdetectioncnn_torch.scripts import probe
-
     old_lib = probe.old_library(probe.OLD_CNN_SRC, probe.CNN_ENTRIES)
     if old_lib is None:
         emit({"phase": "cnn_kernels.old_vs_new",

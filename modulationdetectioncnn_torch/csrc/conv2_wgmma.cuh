@@ -1,20 +1,22 @@
-// The conv2 consumer on Hopper (sm_90a) that cnn_kernels.cu's Hopper route
-// (rows 18 and 20: conv2 alone, the map from a TMA ring) and
-// conv_stage_int8.cu (row 1, v7: the map built on the chip by the block
-// itself) share:
+// The conv2 consumer on Hopper (sm_90a) that three kernels share:
+// cnn_kernels.cu's Hopper route (rows 18 and 20: conv2 alone, the map from a
+// TMA ring), conv_stage_int8.cu (row 1, v7: the map built on the chip by
+// the block itself) and conv_stage_bf16_v4.cu (rows 15, 14 and 12: the bf16
+// conv stages, each block of a 2-block cluster one I/Q plane of the map):
 //
-// - the warpgroup products, m64n40k16 bf16 and m64n80k32 s8, and the
-//   products of one ring stage: a stage holds 130 rows x 128 bytes of K in
-//   the 128-byte swizzle (16-byte segment s of row r at s ^ (r & 7), on a
-//   1024-byte-aligned stage); for tap k, A is the stage's tile moved down k
-//   rows, a descriptor start k * 128 bytes further, so the shift-add
+// - the warpgroup products, m64n40k16 and m64n80k16 bf16 and m64n80k32 s8,
+//   and the products of one ring stage: a stage holds 130 rows x 128 bytes
+//   of K in the 128-byte swizzle (16-byte segment s of row r at s ^ (r & 7),
+//   on a 1024-byte-aligned stage); for tap k, A is the stage's tile moved
+//   down k rows, a descriptor start k * 128 bytes further, so the shift-add
 //   happens in the accumulator (the 128-byte swizzle follows the address
 //   bits, so the moved start needs no base offset);
 // - the resident weight: 3 taps x NT channels as NB = 3 * NT columns
 //   (n = k*NT + c), K-major in 64-byte K tiles in the 64-byte swizzle
 //   (wgmma_desc's layout), staged once per block by the 256 consumer
 //   threads from w2p (K, 3Co) (a transpose) or from v7's w2t (Co, 3K) (a
-//   plain copy: it is K-major per tap already);
+//   plain copy: it is K-major per tap already); the bf16 stages place their
+//   plane's half of (3Co, 2K) rows with w_resident_offset themselves;
 // - the int8 epilogue, rq2 with its constants in registers for the launch,
 //   4-byte stores (to global memory, or to a tile in shared memory).
 #pragma once
@@ -51,6 +53,26 @@ __device__ __forceinline__ void wgmma_tap(float (&d)[20], uint64_t da, uint64_t 
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with B 80 x 16 and D 64 x 80 f32.
+__device__ __forceinline__ void wgmma_tap(float (&d)[40], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(1));
 }
 

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) pieces shared by the wgmma kernels (dense_argmax_int8.cu,
 // dense_argmax_bf16.cu, the conv2 route of cnn_kernels.cu and, through
-// conv2_wgmma.cuh, conv_stage_int8.cu): mbarriers, TMA tile loads, bulk
-// stores from shared memory, wgmma descriptors, fences and
-// the m64n256 products of the dense stages, cuTensorMapEncodeTiled looked
-// up through the runtime (no -lcuda), and the K-split cluster of the dense
-// stages: its size and the sum of its blocks' partial tiles.
+// conv2_wgmma.cuh, conv_stage_int8.cu and conv_stage_bf16_v4.cu):
+// mbarriers, TMA tile loads, bulk stores from shared memory, wgmma
+// descriptors, fences and the m64n256 products of the dense stages,
+// cuTensorMapEncodeTiled looked up through the runtime (no -lcuda), and
+// the K-split cluster of the dense stages: its size and the sum of its
+// blocks' partial tiles.
 #pragma once
 
 #include <cooperative_groups.h>

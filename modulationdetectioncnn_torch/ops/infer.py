@@ -53,14 +53,15 @@ needs no padding.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Mapping
 
 import torch
 
 from modulationdetectioncnn_torch.ops import _build
 from modulationdetectioncnn_torch.ops.requant import quantize_input, requantize
 from modulationdetectioncnn_torch.quant import (
-    C1, C2, DENSE, FRAME_LEN, N_CLASSES, T2, Int8Weights)
+    C1, C2, DENSE, FRAME_LEN, N_CLASSES, T2, Int8Weights, QuantizedModel,
+    int8_weights_from_numpy)
 
 
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -448,6 +449,36 @@ def _conv_stage_fn(version: str, qw: Int8Weights):
     return stage
 
 
+def carry_weights(qm, device: str | torch.device | None = None,
+                  interpret: bool = False) -> Int8Weights:
+    """The weights an int8 builder takes, carried to the port: an
+    ``Int8Weights`` passes straight through; the port's ``QuantizedModel``,
+    a mapping of NumPy arrays in the JAX package's layout (a JAX
+    ``QuantizedModel``'s fields) or an object whose ``tree()`` gives one is
+    carried by ``quant.int8_weights_from_numpy`` onto ``device`` (default:
+    the card, which raises without one). ``interpret=True`` asks for the
+    plain versions, the counterpart of Pallas's interpret mode, so the model
+    is carried to the CPU; weights already on a card, or a ``device`` other
+    than the CPU beside it, raise ``ValueError``: nothing moves silently."""
+    if isinstance(qm, Int8Weights):
+        if interpret and qm.device.type != "cpu":
+            raise ValueError("interpret=True runs the plain versions on the CPU, but the "
+                             f"Int8Weights are on {qm.device}; carry the model to the CPU")
+        if device is not None and torch.device(device) != qm.device:
+            raise ValueError(f"the Int8Weights are on {qm.device}, not on {device}")
+        return qm
+    if interpret:
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError(f"interpret=True runs the plain versions on the CPU, not on {device}")
+        device = "cpu"
+    if not isinstance(qm, (QuantizedModel, Mapping)):
+        if not callable(getattr(qm, "tree", None)):
+            raise TypeError("expected Int8Weights, a QuantizedModel or a mapping of its "
+                            f"arrays, got {type(qm).__name__}")
+        qm = qm.tree()
+    return int8_weights_from_numpy(qm, "cuda" if device is None else device)
+
+
 def _make_logits_forward(qw: Int8Weights, version: str):
     stage = _conv_stage_fn(version, qw)
 
@@ -457,27 +488,34 @@ def _make_logits_forward(qw: Int8Weights, version: str):
     return forward
 
 
-def make_int8_forward(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_int8_forward(qm, *, device: str | torch.device | None = None,
+                      interpret: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """v1 int8 forward, (B, 2, T) f32 -> (B, nc) f32 logits of the model's
     own classes: the v1 conv stage, then the dense stage without the
-    argmax (the JAX package's ``make_int8_forward``)."""
-    return _make_logits_forward(qw, "v1")
+    argmax (the JAX package's ``make_int8_forward``). ``qm``, ``device``
+    and ``interpret`` as ``carry_weights`` takes them."""
+    return _make_logits_forward(carry_weights(qm, device, interpret), "v1")
 
 
-def make_int8_forward_v2(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_int8_forward_v2(qm, *, device: str | torch.device | None = None,
+                         interpret: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """v2 int8 forward, (B, 2, T) f32 -> (B, nc) f32 logits of the model's
     own classes: the v2 conv stage, then the dense stage without the
-    argmax."""
-    return _make_logits_forward(qw, "v2")
+    argmax. ``qm``, ``device`` and ``interpret`` as ``carry_weights``
+    takes them."""
+    return _make_logits_forward(carry_weights(qm, device, interpret), "v2")
 
 
-def make_int8_predict(qw: Int8Weights, version: str = "v7") -> Callable[[torch.Tensor], torch.Tensor]:
+def make_int8_predict(qm, version: str = "v7", *, device: str | torch.device | None = None,
+                      interpret: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """Version-selectable int8 label predictor, (B, 2, T) f32 -> (B,) int32
     labels on the weights' device: the conv stage of ``version`` (v3, v4,
     v5, v6, v7, v9 or v10), then the dense + argmax stage; for v1 and v2,
     the argmax of ``make_int8_forward``'s or ``make_int8_forward_v2``'s
     logits, ties to the lowest index as ``jnp.argmax`` gives. Bit-exact
-    against golden/quant.py. Any other name raises ``ValueError``."""
+    against golden/quant.py. Any other name raises ``ValueError``. ``qm``,
+    ``device`` and ``interpret`` as ``carry_weights`` takes them."""
+    qw = carry_weights(qm, device, interpret)
     if version in ("v1", "v2"):
         forward = _make_logits_forward(qw, version)
         return lambda x: argmax_lowest(forward(x))
@@ -489,10 +527,34 @@ def make_int8_predict(qw: Int8Weights, version: str = "v7") -> Callable[[torch.T
     return classify
 
 
-def make_conv_stage(qw: Int8Weights, version: str = "v10"):
+def _classifier(version: str):
+    def make(qm, *, device: str | torch.device | None = None,
+             interpret: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+        return make_int8_predict(qm, version, device=device, interpret=interpret)
+
+    make.__name__ = make.__qualname__ = f"make_int8_classifier_{version}"
+    make.__doc__ = (f"The {version} int8 classifier, (B, 2, T) f32 -> (B,) int32 labels: "
+                    f"``make_int8_predict(qm, {version!r}, ...)``, the JAX package's "
+                    f"``make_int8_classifier_{version}``.")
+    return make
+
+
+make_int8_classifier_v3 = _classifier("v3")
+make_int8_classifier_v4 = _classifier("v4")
+make_int8_classifier_v5 = _classifier("v5")
+make_int8_classifier_v6 = _classifier("v6")
+make_int8_classifier_v7 = _classifier("v7")
+make_int8_classifier_v9 = _classifier("v9")
+make_int8_classifier_v10 = _classifier("v10")
+
+
+def make_conv_stage(qm, version: str = "v10", *, device: str | torch.device | None = None,
+                    interpret: bool = False):
     """The conv stage alone: (B, 2, T) f32 -> the model's (B, T-4, c2) int8
     map, through ``version``'s prologue and kernel (default v10, as in the
-    JAX package)."""
+    JAX package). ``qm``, ``device`` and ``interpret`` as ``carry_weights``
+    takes them."""
+    qw = carry_weights(qm, device, interpret)
     stage = _conv_stage_fn(version, qw)
 
     def conv_stage(x: torch.Tensor) -> torch.Tensor:

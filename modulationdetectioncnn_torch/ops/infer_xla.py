@@ -15,9 +15,8 @@ from typing import Callable
 
 import torch
 
-from modulationdetectioncnn_torch.ops.infer import tap_planes
+from modulationdetectioncnn_torch.ops.infer import carry_weights, tap_planes
 from modulationdetectioncnn_torch.ops.requant import requantize
-from modulationdetectioncnn_torch.quant import Int8Weights
 
 
 def _int_mm_takes(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -41,9 +40,12 @@ def _col_major(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous().t()
 
 
-def make_int8_forward_xla(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_int8_forward_xla(qm, *, device: str | torch.device | None = None,
+                          interpret: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """(B, 2, T) f32 -> (B, NC) f32 logits on the weights' device (the
-    carried width: padded classes read -inf)."""
+    carried width: padded classes read -inf). ``qm``, ``device`` and
+    ``interpret`` as ``ops/infer.py::carry_weights`` takes them."""
+    qw = carry_weights(qm, device, interpret)
     nc = qw.w4.shape[1]
     n4 = -(-nc // 8) * 8                        # dense2's N, padded for _int_mm
     w4 = torch.zeros((qw.w4.shape[0], n4), dtype=torch.int8, device=qw.device)
@@ -68,10 +70,11 @@ def make_int8_forward_xla(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Ten
     return forward
 
 
-def make_int8_predict_xla(qw: Int8Weights) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_int8_predict_xla(qm, *, device: str | torch.device | None = None,
+                          interpret: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """(B, 2, T) f32 -> (B,) int32 labels: argmax of the logits, ties to
     the lowest index."""
-    forward = make_int8_forward_xla(qw)
+    forward = make_int8_forward_xla(qm, device=device, interpret=interpret)
 
     def classify(x: torch.Tensor) -> torch.Tensor:
         return forward(x).argmax(-1).to(torch.int32)

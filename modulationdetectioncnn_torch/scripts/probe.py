@@ -48,7 +48,9 @@ their plain versions to against the JAX package's golden chain;
 ``dense_bf16_edge_cases`` the bf16 dense stage's (rows 13 and 16), held
 the same way against the JAX package's Pallas kernels in interpret mode;
 ``conv_v7_edge_cases`` the v7 conv stage's (row 1), held the same way
-(``tests/test_torch_v7_edges.py``).
+(``tests/test_torch_v7_edges.py``). ``conv_bf16_old_vs_new`` times the
+bf16 conv stages (rows 15, 14, 12) against an earlier body at
+``OLD_CONV_BF16_SRC`` for chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -553,6 +555,83 @@ def probe_conv_v7_old() -> list[dict]:
     recs = conv_v7_old_vs_new(lib, load_int8(device="cuda"))
     for rec in recs:
         print(json.dumps(rec), flush=True)
+    return recs
+
+
+OLD_CONV_BF16_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_bf16_old.cu")
+# Rows 15, 14 and 12 by wrapper: the weights their C entry takes after the
+# input and B, in its order.
+CONV_BF16_WEIGHTS = {"conv_stage_bf16_v4": ("w1e", "w2t", "b2"),
+                     "conv_stage_bf16_v2": ("w1e", "w2t", "b2"),
+                     "conv_stage_bf16": ("w1p", "b1", "w2t", "b2")}
+CONV_BF16_ENTRIES = tuple(CONV_BF16_WEIGHTS)
+# The bf16 conv maps against another computation of them (PERF.md section
+# 2): every element within one bf16 ulp of the reference plus 1e-3 of its
+# largest magnitude.
+BF16_MAP_RTOL, BF16_MAP_ATOL_OF_MAX = 2.0 ** -7, 1e-3
+
+
+def bf16_map_outside(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements of the bf16 map ``got`` outside the tolerance of ``want``."""
+    got, want = got.float(), want.float()
+    bound = BF16_MAP_RTOL * want.abs() + BF16_MAP_ATOL_OF_MAX * float(want.abs().max())
+    return int(((got - want).abs() > bound).sum())
+
+
+def _old_conv_bf16(lib: ctypes.CDLL, name: str, inp: torch.Tensor, bw) -> torch.Tensor:
+    """The old library's entry of the bf16 conv stage ``name`` on the
+    package wrapper's arguments: the (B, 124, 80) bf16 map."""
+    b = inp.shape[0]
+    out = torch.empty((b, 124, 80), dtype=torch.bfloat16, device=inp.device)
+    weights = (getattr(bw, k).data_ptr() for k in CONV_BF16_WEIGHTS[name])
+    code = getattr(lib, f"amc_{name}")(inp.data_ptr(), b, *weights, out.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
+    return out
+
+
+def conv_bf16_old_vs_new(lib: ctypes.CDLL, bw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 15, 14 and 12, the old body against the package's, on seeded
+    frames (0.7 N(0, 1); row 14 on their tap rows) under the full-width
+    weights ``bw``: each timed old, new, new, old (median of 5 runs of 20
+    calls between CUDA events, then the profiler's device time per call,
+    in the same order), beside ``torch.matmul`` on conv2's lane-packed
+    product, (B*126, 512) x (512, 240) bf16 (a yardstick), in the same
+    round. ``ok``: the new map within the bf16 map tolerance of the old."""
+    from modulationdetectioncnn_torch.ops import infer_bf16 as ib
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn):
+        return statistics.median(launch_ms_samples(fn))
+
+    dev, w_cm = bw.w2t.device, bw.w2t.T
+    recs = []
+    for b in batches:
+        x = 0.7 * _seeded((b, 2, T_IN), dev, seed=b)
+        xe = ib.expand_taps_bf16(x)
+        a1 = ib.conv1_bf16_plain(x, bw).reshape(-1, 512)
+        mm = lambda: torch.matmul(a1, w_cm)  # noqa: E731
+        lib_ms, lib_dev = ms(mm), device_ms_per_call(mm)
+        for name in CONV_BF16_ENTRIES:
+            inp = xe if name == "conv_stage_bf16_v2" else x
+            new = lambda: getattr(ib, name)(inp, bw)  # noqa: E731
+            old = lambda: _old_conv_bf16(lib, name, inp, bw)  # noqa: E731
+            got, want = new(), old()
+            outside = bf16_map_outside(got, want)
+            times = [ms(old), ms(new), ms(new), ms(old)]
+            dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+            recs.append({"probe": "conv_bf16_old", "name": name, "batch": b,
+                         "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                         "old_device_ms": [dev_ms[0], dev_ms[3]],
+                         "new_device_ms": [dev_ms[1], dev_ms[2]],
+                         "library_conv2_ms": lib_ms, "library_conv2_device_ms": lib_dev,
+                         "outside_tolerance_vs_old": outside,
+                         "bit_equal_share_vs_old": float((got == want).float().mean()),
+                         "ok": outside == 0 and bool(torch.isfinite(got.float()).all())})
+            del got, want
+        del x, xe, a1
     return recs
 
 
