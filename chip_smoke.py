@@ -15,11 +15,15 @@ Phases, each printing JSON lines (``"phase": ...``):
                for sm_90a (one nvcc per source, in parallel, then one link)
                and loads the library; build seconds and ptxas's report.
 3. kernels  -- each of the eleven int8 kernels against its plain PyTorch
-               version on the card, for five weight sets (the committed int8
+               version on the card, for six weight sets (the committed int8
                artifact, seeded random weights, the bench's own PTQ
-               weights, a narrow model padded to the kernels' widths, and
-               a model the v9/v10 fold refuses, which runs on v7, v5, v6,
-               v4, v3, v2 and v1 only), on 8192 seeded frames, on the stream
+               weights, a narrow model padded to the kernels' widths, a
+               seeded model at the edge of the v9/v10 fold's contract
+               (``scripts/probe.py::fold_edge_tree``: offsets to 16,711,680
+               of the 2^24 bound, shifts 0 to 31), and a model the fold
+               refuses, which runs on v7, v5, v6, v4, v3, v2 and v1 only,
+               and which ``make_int8_predict`` refuses for v9 and v10 when
+               it builds them), on 8192 seeded frames, on the stream
                demo's 1024 frames, at B=1, on a ragged 37-frame slice and on
                the bench's 4096 frames: 0 mismatching int8 activations over
                the whole valid map, 0 mismatching logits (v2's dense stage)
@@ -89,6 +93,21 @@ Phases, each printing JSON lines (``"phase": ...``):
                B=4096, 2048 and 16384 beside ``torch.matmul``'s conv2, the
                maps within the bf16 tolerance of each other
                (``kernels.old_vs_new`` lines).
+               Rows 3 and 4 (v10, v9: one body) also at B = 1, 37, 133,
+               1031, 2048, 4095, 4096, 4097 and 16384 on the artifact, the
+               seeded model and the fold-edge model, each map equal to the
+               plain version's and to row 1's kernel map, and conv1's whole
+               map on the artifact and the fold-edge model through 13
+               pass-through probes of conv2
+               (``scripts/probe.py::conv1_probe_trees``) at 1031 frames: 0
+               mismatching activations; v5, v1, v9 and v10 equal to v7 map
+               for map on every weight set and input above. Where an
+               earlier body of ``csrc/conv_stage_int8_v10.cu`` was copied to
+               ``_build/conv_stage_int8_v10_old.cu`` (never committed), rows
+               3 and 4 are timed against it, old, new, new, old, at B=4096,
+               2048 and 16384 beside row 1 and ``_int_mm`` on conv2's
+               lane-packed product, maps bit for bit (``kernels.old_vs_new``
+               lines).
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -295,8 +314,8 @@ SOURCES = {
 KERNEL_SYMBOLS = {
     "conv_stage_int8_v7": "conv_stage_int8_v7_kernel",
     "dense_argmax_int8": "dense_argmax_int8_kernel<true>",
-    "conv_stage_int8_v10": "conv_stage_folded_kernel<true>",
-    "conv_stage_int8_v9": "conv_stage_folded_kernel<false>",
+    "conv_stage_int8_v10": "conv_stage_folded_kernel",    # one body for v9 and v10
+    "conv_stage_int8_v9": "conv_stage_folded_kernel",
     "conv_stage_int8_v5": "conv_stage_int8_v5_kernel",
     "conv_stage_int8_v6": "conv_stage_int8_planes_kernel<true>",
     "conv_stage_int8_v4": "conv_stage_int8_planes_kernel<false>",
@@ -334,6 +353,10 @@ EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # Frames per kind of row 1's edge inputs (scripts/probe.py::conv_v7_edge_cases):
 # ragged against the 132 blocks, several frames a block.
 V7_EDGE_FRAMES = 1031
+# Rows 3 and 4 (v10, v9: one persistent block per SM): batches around one
+# frame a block and ragged against the 132 blocks, and the bench's sizes.
+FOLD_BATCHES = (1, 37, 133, V7_EDGE_FRAMES, 2048, 4095, 4096, 4097, 16384)
+FOLD_STAGES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 # The bf16 conv stages' cluster edges: 66 clusters of 2 expected on the
@@ -513,11 +536,49 @@ def conv_pairs(x: torch.Tensor, qw, versions) -> dict:
 
 
 def v7_siblings(pairs: dict) -> dict[str, int]:
-    """Mismatching activations of v5's and v1's maps (rows 5 and 10, v7's
-    function from the same frames) against v7's, among ``conv_pairs``'s."""
+    """Mismatching activations of v5's, v1's, v9's and v10's maps (rows 5,
+    10, 4 and 3: v7's function from the same frames) against v7's, among
+    ``conv_pairs``'s."""
     v7 = pairs["conv_stage_int8_v7"][0]
     return {k: compare(k, pairs[k][0], v7)[0]
-            for k in ("conv_stage_int8_v5", "conv_stage_int8_v1") if k in pairs}
+            for k in ("conv_stage_int8_v5", "conv_stage_int8_v1", *FOLD_STAGES) if k in pairs}
+
+
+def fold_stage_checks(weights: dict, trees: dict, x_all: torch.Tensor) -> list[dict]:
+    """Rows 3 and 4 (v10, v9) against their plain version on the card, one
+    record per kernel, model and input: on each model of ``weights`` at
+    FOLD_BATCHES frames of ``x_all`` (its map also against row 1's kernel
+    map on the same frames), and, for each model of ``trees``, conv1's
+    whole map through ``scripts/probe.py::conv1_probe_trees`` (conv2 a
+    pass-through, so a fault of the folded conv1 that rq2 would clip away
+    shows) at V7_EDGE_FRAMES frames."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+    from modulationdetectioncnn_torch.scripts import probe
+
+    recs = []
+
+    def check(wname, xname, x, qw, with_v7):
+        want = infer.conv_stage_int8_folded_plain(x, qw)[..., :qw.c2]
+        v7 = infer.conv_stage_int8_v7(x, qw) if with_v7 else None
+        for kname in FOLD_STAGES:
+            got = getattr(infer, kname)(x, qw)
+            torch.cuda.synchronize()
+            mism, err = compare(kname, got, want)
+            rec = {"kernel": kname, "weights": wname, "input": xname, "n": int(x.shape[0]),
+                   "mismatches": mism, "max_abs_err": err}
+            if with_v7:
+                rec["maps_vs_v7"] = compare(kname, got, v7)[0]
+            recs.append(rec)
+
+    for wname, qw in weights.items():
+        for b in FOLD_BATCHES:
+            check(wname, f"seeded_b{b}", x_all[:b], qw, True)
+    for tname, tree in trees.items():
+        for i, (pt, _, _) in enumerate(probe.conv1_probe_trees(tree)):
+            check(f"{tname}_conv1_probe{i}", f"seeded_b{V7_EDGE_FRAMES}",
+                  x_all[:V7_EDGE_FRAMES], int8_weights_from_numpy(pt, "cuda"), False)
+    return recs
 
 
 def stream_bench_frames(n_frames: int) -> torch.Tensor:
@@ -800,9 +861,11 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     art_np = QuantizedModel.from_npz(DEFAULT_ARTIFACT)
     # The bench's own PTQ weights and frames, as its int8 backends get them.
     bench_qw, bench_x = bench.make_int8_weights(AmcConfig(), BATCH)
+    fold_edge = probe.fold_edge_tree(SEED)
     weights = {"artifact": load_int8(device="cuda"),
                "seeded": random_weights(art_np, rng), "bench_ptq": bench_qw,
                "narrow_c32_c16_d32_nc2": narrow_weights(),
+               "fold_edge": int8_weights_from_numpy(fold_edge, "cuda"),
                "fold_refused": fold_refused_weights(art_np)}
     refused = weights["fold_refused"]
     try:
@@ -811,6 +874,13 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         emit({"phase": "kernels.fold_refused", "error": str(e)})
     else:
         raise CheckFailed("the fold accepted the fold_refused weights")
+    for v in ("v9", "v10"):   # refused when the classifier is built, not at a batch
+        try:
+            infer.make_int8_predict(refused, v)
+        except ValueError:
+            pass
+        else:
+            raise CheckFailed(f"make_int8_predict built {v} for the fold_refused weights")
     x_seed = torch.from_numpy(
         (0.7 * rng.standard_normal((N_CHECK, 2, 128))).astype(np.float32)).cuda()
     # Ragged batches and a slice that starts inside the tensor too.
@@ -874,6 +944,21 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                        "conv_live_fraction": round(float((v7_map > 0).float().mean()), 4),
                        "conv_saturated_fraction": round(float((v7_map == 127).float().mean()), 4)})
         require(all(m == 0 for m in v7_same.values()), f"v7_edge_{kind}: maps vs v7 {v7_same}")
+    # Rows 3 and 4 at their batch edges and the bench's sizes on the
+    # artifact and two seeded models (the second at the fold's 2^24 edge),
+    # each map also against v7's, and conv1's map whole on the artifact and
+    # the edge model.
+    x_fold = torch.from_numpy((0.7 * np.random.default_rng(SEED + 1).standard_normal(
+        (max(FOLD_BATCHES), 2, 128))).astype(np.float32)).cuda()
+    for rec in fold_stage_checks({k: weights[k] for k in ("artifact", "seeded", "fold_edge")},
+                                 {"artifact": art_np.tree(), "fold_edge": fold_edge}, x_fold):
+        st = stats[rec["kernel"]]
+        st["mismatches"] += rec["mismatches"]
+        st["checked"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], rec["max_abs_err"])
+        checks.append(rec)
+        require(rec.get("maps_vs_v7", 0) == 0, f"{rec}: map differs from v7's")
+    del x_fold
     # Rows 2 and 11 at their edges (scripts/probe.py::dense_edge_cases):
     # dense1 sums near 1.6e8, a seeded map over all of [0, 127], exact and
     # one-ulp ties, each at B = 4097 and 4095 (the last 128-frame tile
@@ -1021,6 +1106,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V7_SRC, REPO)}"})
     else:
         for rec in probe.conv_v7_old_vs_new(old_v7, qw, batches=(4096, 2048, 16384)):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
+    # Rows 3 and 4 against their earlier body, where a copy of it was put
+    # at probe.OLD_CONV_FOLD_SRC: old, new, new, old in this run, maps bit
+    # for bit, beside row 1 and _int_mm on conv2's lane-packed product.
+    old_fold = probe.old_library(probe.OLD_CONV_FOLD_SRC, probe.CONV_FOLD_ENTRIES)
+    if old_fold is None:
+        emit({"phase": "kernels.old_vs_new", "skipped": "no earlier body at "
+              f"{os.path.relpath(probe.OLD_CONV_FOLD_SRC, REPO)}"})
+    else:
+        for rec in probe.conv_fold_old_vs_new(old_fold, qw, batches=(4096, 2048, 16384)):
             emit({"phase": "kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # The timing FIR on the stream bench's 4096 frames with their own

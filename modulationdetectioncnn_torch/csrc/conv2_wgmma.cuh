@@ -1,8 +1,9 @@
-// The conv2 consumer on Hopper (sm_90a) that three kernels share:
+// The conv2 consumer on Hopper (sm_90a) that four kernel files share:
 // cnn_kernels.cu's Hopper route (rows 18 and 20: conv2 alone, the map from a
-// TMA ring), conv_stage_int8.cu (row 1, v7: the map built on the chip by
-// the block itself) and conv_stage_bf16_v4.cu (rows 15, 14 and 12: the bf16
-// conv stages, each block of a 2-block cluster one I/Q plane of the map):
+// TMA ring), conv_stage_int8.cu and conv_stage_int8_v10.cu (rows 1, 3 and
+// 4: the map built on the chip by the block itself) and
+// conv_stage_bf16_v4.cu (rows 15, 14 and 12: the bf16 conv stages, each
+// block of a 2-block cluster one I/Q plane of the map):
 //
 // - the warpgroup products, m64n40k16 and m64n80k16 bf16 and m64n80k32 s8,
 //   and the products of one ring stage: a stage holds 130 rows x 128 bytes
@@ -18,7 +19,10 @@
 //   plain copy: it is K-major per tap already); the bf16 stages place their
 //   plane's half of (3Co, 2K) rows with w_resident_offset themselves;
 // - the int8 epilogue, rq2 with its constants in registers for the launch,
-//   4-byte stores (to global memory, or to a tile in shared memory).
+//   4-byte stores (to global memory, or to a tile in shared memory);
+// - the whole consumer role of the int8 conv stages that build the map in
+//   a ring themselves (rows 1, 3 and 4): waits, products, releases, rq2 and
+//   one bulk copy of each warpgroup's rows per frame.
 #pragma once
 
 #include <stdint.h>
@@ -222,6 +226,69 @@ __device__ __forceinline__ void store_rq2(const int (&acc)[NT / 2], const int (&
       *reinterpret_cast<uint32_t*>(of + static_cast<long long>(row) * co + c4) =
           odd ? other | hi << 16 : lo | other << 16;
   }
+}
+
+// The consumer role of the int8 conv stages whose producers build the conv1
+// map on the chip (conv_stage_int8.cu, row 1; conv_stage_int8_v10.cu, rows 3
+// and 4), once the resident weight is staged at ws: frames f = blockIdx.x,
+// + gridDim.x, ...; stage c of the ring at base holds K chunk c, announced
+// on the mbarrier at full + 8c (phase: the frame's parity) and released on
+// empty + 8c, one arrival per consumer warp once the products that read it
+// are done, one product group left in flight. Warpgroup g owns output rows
+// 64g .. 64g + 63 (warp w of it rows 16(w%4) .. +15 of those), 64 and
+// T2 - 64 of them below T2. Its epilogue writes them into a tile in shared
+// memory (two per warpgroup at tiles, by frame parity), and its first
+// thread copies the tile out with one bulk copy: the map's rows are
+// contiguous. Named barriers 2 and 3.
+template <int C2, int T2, int CHUNKS>
+__device__ __forceinline__ void consume_ring_s8(const int* __restrict__ m2,
+                                                const int* __restrict__ o2,
+                                                int8_t* __restrict__ out, long long n,
+                                                uint8_t* smem_raw, uint32_t base, uint32_t ws,
+                                                uint32_t tiles, uint32_t full, uint32_t empty) {
+  static_assert(T2 > 64 && T2 <= 128, "two warpgroups of 64 output rows");
+  constexpr int NB = 3 * C2, TILE_BYTES = 64 * C2;
+  const uint32_t raw = smem_u32(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, a_row0 = wg * 64, rows = wg ? T2 - 64 : 64;
+  const int r_lo = (warp % 4) * 16 + (lane >> 2);
+  const bool issuer = warp % 4 == 0 && lane == 0;
+  int shift[C2 / 8][2], offset[C2 / 8][2];
+  load_rq2<C2>(m2, o2, 0, C2, shift, offset);
+  int it = 0;
+  for (long long f = blockIdx.x; f < n; f += gridDim.x, ++it) {
+    int acc[C2 / 2];
+#pragma unroll
+    for (int i = 0; i < C2 / 2; ++i) acc[i] = 0;
+#pragma unroll 1
+    for (int c = 0; c < CHUNKS; ++c) {
+      mbar_wait(full + 8 * c, it & 1);
+      __syncwarp();                  // converged again for the .aligned products
+      stage_products<C2>(acc, base + c * WG_STAGE + a_row0 * WG_CHUNK,
+                         ws + 2 * c * (NB * 64));
+      wgmma_wait<1>();               // the previous chunk's products are done:
+      __syncwarp();                  // this warp releases its stage
+      if (c > 0 && lane == 0) mbar_arrive(empty + 8 * (c - 1));
+    }
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (CHUNKS - 1));
+#pragma unroll
+    for (int i = 0; i < C2 / 2; ++i) pin(acc[i]);
+    const uint32_t tile = tiles + ((it & 1) * 2 + wg) * TILE_BYTES;
+    store_rq2<C2>(acc, shift, offset, reinterpret_cast<int8_t*>(smem_raw + (tile - raw)), r_lo,
+                  0, C2, rows);
+    fence_proxy_async();             // the tile's st.shared before the bulk copy reads it
+    // Frame f-1's copy has read its tile, so the one frame f+1 writes is free
+    // once every warp of the warpgroup has passed this barrier.
+    if (issuer) bulk_wait_read<0>();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+    if (issuer) {
+      bulk_store(out + f * (T2 * C2) + wg * TILE_BYTES, tile, rows * C2);
+      bulk_commit();
+    }
+  }
+  if (issuer) bulk_wait<0>();        // the last copies land before the block ends
 }
 
 }  // namespace

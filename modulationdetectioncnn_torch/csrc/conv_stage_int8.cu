@@ -53,7 +53,9 @@
 // left in flight. The epilogue writes each warpgroup's rows into a tile in
 // shared memory (two per warpgroup, by frame parity) and its first thread
 // copies the tile out with one bulk copy (the rows are contiguous in the
-// map) instead of 4-byte stores scattered over 16 rows. Shared memory:
+// map) instead of 4-byte stores scattered over 16 rows. That consumer role
+// is conv2_wgmma.cuh's consume_ring_s8, which conv_stage_int8_v10.cu
+// (rows 3 and 4, conv1 on the tensor cores) shares. Shared memory:
 // 1 KB of alignment, 68 KB of ring, 120 KB of weight, 20 KB of tiles; one
 // block per SM.
 //
@@ -237,49 +239,7 @@ conv_stage_int8_v7_kernel(const float* __restrict__ x, long long n,
   fence_proxy_async();
   asm volatile("bar.sync 1, %0;\n" :: "n"(WG_CONSUMERS) : "memory");
 
-  // Warpgroup g owns output rows 64g .. 64g + 63 (warp w of it rows
-  // 16(w%4) .. +15 of those), 64 and 60 of them below T2. Its epilogue
-  // writes them into a tile in shared memory, and its first thread copies
-  // the tile out with one bulk copy: the map's rows are contiguous.
-  const int wg = warp / 4, a_row0 = wg * 64, rows = wg ? T2 - 64 : 64;
-  const int r_lo = (warp % 4) * 16 + (lane >> 2);
-  const bool issuer = warp % 4 == 0 && lane == 0;
-  int shift[C2 / 8][2], offset[C2 / 8][2];
-  load_rq2<C2>(m2, o2, 0, C2, shift, offset);
-  int it = 0;
-  for (long long f = blockIdx.x; f < n; f += gridDim.x, ++it) {
-    int acc[C2 / 2];
-#pragma unroll
-    for (int i = 0; i < C2 / 2; ++i) acc[i] = 0;
-#pragma unroll 1
-    for (int c = 0; c < CHUNKS; ++c) {
-      mbar_wait(full + 8 * c, it & 1);
-      __syncwarp();                  // converged again for the .aligned products
-      stage_products<C2>(acc, base + c * WG_STAGE + a_row0 * WG_CHUNK,
-                         ws + 2 * c * (NB * 64));
-      wgmma_wait<1>();               // the previous chunk's products are done:
-      __syncwarp();                  // this warp releases its stage
-      if (c > 0 && lane == 0) mbar_arrive(empty + 8 * (c - 1));
-    }
-    wgmma_wait<0>();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * (CHUNKS - 1));
-#pragma unroll
-    for (int i = 0; i < C2 / 2; ++i) pin(acc[i]);
-    const uint32_t tile = tiles + ((it & 1) * 2 + wg) * TILE_BYTES;
-    store_rq2<C2>(acc, shift, offset, reinterpret_cast<int8_t*>(smem_raw + (tile - raw)), r_lo,
-                  0, C2, rows);
-    fence_proxy_async();             // the tile's st.shared before the bulk copy reads it
-    // Frame f-1's copy has read its tile, so the one frame f+1 writes is free
-    // once every warp of the warpgroup has passed this barrier.
-    if (issuer) bulk_wait_read<0>();
-    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
-    if (issuer) {
-      bulk_store(out + f * (T2 * C2) + wg * TILE_BYTES, tile, rows * C2);
-      bulk_commit();
-    }
-  }
-  if (issuer) bulk_wait<0>();        // the last copies land before the block ends
+  consume_ring_s8<C2, T2, CHUNKS>(m2, o2, out, n, smem_raw, base, ws, tiles, full, empty);
 }
 
 }  // namespace

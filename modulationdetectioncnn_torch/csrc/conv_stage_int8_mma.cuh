@@ -1,9 +1,8 @@
-// Shared pieces of the tensor-core conv stages, for Hopper (sm_90a): the
+// Shared pieces of the mma.sync conv stages, for Hopper (sm_90a): the
 // widths they are compiled for, the integer requantize, the mma.sync and
-// cp.async wrappers and the persistent launch (v4, v5, v6, v9, v10); the
-// integer conv1 on tap planes and conv2 with its requantize (v4, v5, v6;
-// conv_stage_int8_v10.cu writes the same conv2 out in its kernel, where it
-// compiles as tuned).
+// cp.async wrappers and the persistent launch (v2-v6, v1; the int8 dense
+// stage takes the widths and the requantize); the integer conv1 on tap
+// planes and conv2 with its requantize (v4, v5, v6).
 //
 // conv2, per frame, on the (130, 512) int8 conv1 tile a1s (rows 128 and 129
 // zero):

@@ -306,18 +306,19 @@ def conv_stage_int8_v7(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 
 def conv_stage_int8_v9(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v9 conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8: folded bf16
-    conv1 and int8 conv2 on the tensor cores, frame by frame. Launches
-    ``csrc/conv_stage_int8_v10.cu``'s v9 entry on a CUDA tensor; plain
-    version on the CPU."""
+    """v9 conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8: the folded bf16
+    conv1 (``mma.sync``, f32 sums) built by producer warps into a ring in
+    shared memory, int8 conv2 on ``wgmma`` with the weight resident.
+    Launches ``csrc/conv_stage_int8_v10.cu``'s v9 entry on a CUDA tensor;
+    plain version on the CPU."""
     return _run(conv_stage_int8_v9, conv_stage_int8_folded_plain, x, qw)[..., :qw.c2]
 
 
 def conv_stage_int8_v10(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v10 conv stage: v9's arithmetic, with the next frame's input
-    prefetched (``cp.async``) while the current frame's products run.
-    Launches ``csrc/conv_stage_int8_v10.cu``'s v10 entry on a CUDA tensor;
-    plain version on the CPU."""
+    """v10 conv stage: v9's function and kernel (the TPU's v10 differs from
+    its v9 only in how it overlaps its chunks, which the ring does for
+    both here). Launches ``csrc/conv_stage_int8_v10.cu``'s v10 entry on a
+    CUDA tensor; plain version on the CPU."""
     return _run(conv_stage_int8_v10, conv_stage_int8_folded_plain, x, qw)[..., :qw.c2]
 
 

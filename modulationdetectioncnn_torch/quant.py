@@ -120,8 +120,9 @@ class Int8Weights:
     @functools.cached_property
     def w1f(self) -> torch.Tensor:
         """(16, 2*C1) bf16 folded conv1 (``fold_conv1_weights``), padded
-        with zero rows to K=16 for the bf16 ``mma.sync.m16n8k16``. Built on
-        first use; raises ``ValueError`` if the model breaks the fold's
+        with zero rows to 16, the v9/v10 C entries' layout (their kernel
+        reads rows 0..7, the K=8 of ``mma.sync.m16n8k8``). Built on first
+        use; raises ``ValueError`` if the model breaks the fold's
         contract."""
         w = np.zeros((16, self.m1.shape[0]), np.float32)
         w[:8] = fold_conv1_weights(*(t.cpu().numpy() for t in (self.w1, self.m1, self.o1)))

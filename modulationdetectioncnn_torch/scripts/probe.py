@@ -50,7 +50,13 @@ the same way against the JAX package's Pallas kernels in interpret mode;
 ``conv_v7_edge_cases`` the v7 conv stage's (row 1), held the same way
 (``tests/test_torch_v7_edges.py``). ``conv_bf16_old_vs_new`` times the
 bf16 conv stages (rows 15, 14, 12) against an earlier body at
-``OLD_CONV_BF16_SRC`` for chip_smoke.py.
+``OLD_CONV_BF16_SRC`` for chip_smoke.py, ``conv_fold_old_vs_new`` rows 3
+and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``. ``fold_edge_tree``
+builds a model at the edge of the v9/v10 fold's contract and
+``conv1_probe_trees`` turns conv2 into a pass-through, so that a conv
+stage's map shows its conv1 map: chip_smoke.py holds rows 3 and 4 to
+both on the card, ``tests/test_torch_v10_fold.py`` their plain version to
+the JAX package's v10 kernel.
 """
 from __future__ import annotations
 
@@ -556,6 +562,142 @@ def probe_conv_v7_old() -> list[dict]:
     for rec in recs:
         print(json.dumps(rec), flush=True)
     return recs
+
+
+OLD_CONV_FOLD_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v10_old.cu")
+CONV_FOLD_ENTRIES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
+_FOLD_WEIGHTS = ("w1f", "w2l", "m2", "o2")   # the v9/v10 entries', in their order
+
+
+def _old_conv_fold(lib: ctypes.CDLL, name: str, x: torch.Tensor, qw) -> torch.Tensor:
+    """The old library's v9 or v10 entry on the package wrapper's arguments:
+    the (B, 124, 80) int8 map."""
+    b = x.shape[0]
+    out = torch.empty((b, 124, 80), dtype=torch.int8, device=x.device)
+    code = getattr(lib, f"amc_{name}")(x.data_ptr(), b,
+                                       *(getattr(qw, k).data_ptr() for k in _FOLD_WEIGHTS),
+                                       qw.inv_sx, out.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
+    return out
+
+
+def conv_fold_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 3 and 4 (v10, v9), the old body against the package's, on seeded
+    frames (0.7 N(0, 1)) under the full-width weights ``qw``: each timed
+    old, new, new, old (median of 5 runs of 20 calls between CUDA events,
+    then the profiler's device time per call, in the same order), beside
+    two yardsticks timed in the same round: row 1 (the package's v7, the
+    same map) and ``torch._int_mm`` on conv2's lane-packed product,
+    (B*126, 512) x (512, 240). ``ok``: the maps bit for bit."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn):
+        return statistics.median(launch_ms_samples(fn))
+
+    w_cm = qw.w2l.t().contiguous().t()                  # (512, 240), column-major
+    recs = []
+    for b in batches:
+        x = 0.7 * _seeded((b, 2, T_IN), qw.w2l.device, seed=b)
+        a1 = infer.conv1_int8_plain(x, qw).reshape(-1, 512)
+        mm = lambda: torch._int_mm(a1, w_cm)  # noqa: E731
+        v7 = lambda: infer.conv_stage_int8_v7(x, qw)  # noqa: E731
+        yard = {"row1_v7_ms": ms(v7), "row1_v7_device_ms": device_ms_per_call(v7),
+                "library_lane_packed_ms": ms(mm),
+                "library_lane_packed_device_ms": device_ms_per_call(mm)}
+        for name in CONV_FOLD_ENTRIES:
+            new = lambda: getattr(infer, name)(x, qw)  # noqa: E731
+            old = lambda: _old_conv_fold(lib, name, x, qw)  # noqa: E731
+            differ = int((new() != old()).sum())
+            times = [ms(old), ms(new), ms(new), ms(old)]
+            dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+            recs.append({"probe": "conv_fold_old", "name": name, "batch": b,
+                         "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                         "old_device_ms": [dev_ms[0], dev_ms[3]],
+                         "new_device_ms": [dev_ms[1], dev_ms[2]], **yard,
+                         "maps_differing": differ, "ok": differ == 0})
+        del x, a1
+    return recs
+
+
+# The fold-edge model's conv1 requantize, (shift, offset) for channel j at
+# j % 12: offsets with 8-bit significands (bf16-exact once scaled) up to
+# 16,711,680, so |acc| + |o1| reaches 16,760,067 of the fold's 2^24 bound;
+# shifts from 0 to 31, with sums whose rq1 lands far below 0, far above
+# 127, across 0, across 127 and at 2^24 units of 2^-31.
+FOLD_EDGE_RQ1 = ((0, 16711680), (0, -16711680), (1, 0), (8, 0), (12, 0), (12, 520192),
+                 (16, 8323072), (17, 16646144), (20, 16711680), (24, 16711680),
+                 (30, -16711680), (31, 16646144))
+
+
+def fold_edge_tree(seed: int) -> dict:
+    """The committed artifact's tree with conv1 at the edge of the v9/v10
+    fold's contract (``quant.fold_conv1_weights`` accepts it): taps +-127
+    (a seeded sign per tap and channel) on the even channels, seeded in
+    [-127, 127] on the odd ones, and ``FOLD_EDGE_RQ1``'s shift and offset
+    pairs; conv2's requantize moved so the map stays live (channel co: on
+    32 seeded frames, the offset takes off its sums' median and the shift
+    puts the 75th percentile of what is left at or under 127)."""
+    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel
+
+    rng = np.random.default_rng(seed)
+    tree = QuantizedModel.from_npz(DEFAULT_ARTIFACT).tree()
+    c1 = tree["w1p"].shape[1]
+    w1 = rng.integers(-127, 128, (3, c1))
+    w1[:, 0::2] = rng.choice(np.array([-127, 127]), (3, (c1 + 1) // 2))
+    rq = np.array(FOLD_EDGE_RQ1, np.int64)[np.arange(2 * c1) % len(FOLD_EDGE_RQ1)]
+    tree.update(w1p=w1.astype(np.int8), m1=rq[:, 0].astype(np.int32),
+                o1=rq[:, 1].astype(np.int32))
+    x = (0.7 * rng.standard_normal((32, 2, T_IN))).astype(np.float32)
+    acc2 = _v7_acc2(np.clip((_v7_acc1(x, tree["s_x"], tree["w1p"]) + tree["o1"])
+                            >> tree["m1"], 0, 127), tree["w2p"]).reshape(-1, tree["m2"].shape[0])
+    mid = np.median(acc2, axis=0)
+    p75 = np.percentile(np.abs(acc2 - mid), 75, axis=0)
+    tree["m2"] = np.ceil(np.log2(np.maximum(p75, 1) / 127)).clip(0, 30).astype(np.int32)
+    tree["o2"] = (-mid).astype(np.int32)
+    return tree
+
+
+# conv2 as a pass-through of conv1's map: probe i's output channel co shows
+# channel CONV1_PROBE_WIDTH * i + co % CONV1_PROBE_WIDTH of the map at tap 0
+# (co < CONV1_PROBE_WIDTH: map row t is conv1 row t) or at tap 2 (the rest:
+# conv1 row t + 2), so the probes' maps hold all 126 rows of the 512 channels.
+CONV1_PROBE_WIDTH = 40
+
+
+def conv1_probe_trees(tree: dict) -> list[tuple[dict, np.ndarray, np.ndarray]]:
+    """(tree, channel, tap) per probe: ``tree`` with conv2 replaced by the
+    pass-through above (weight 1, rq2 shift 0 and offset 0: conv1's map is
+    in [0, 127] already), ``channel[co]`` the conv1 channel its output
+    channel co shows (-1: none, a zero column) and ``tap[co]`` the tap."""
+    k1, c2 = tree["w2p"].shape[0], tree["m2"].shape[0]
+    probes = []
+    for i in range(-(-k1 // CONV1_PROBE_WIDTH)):
+        co = np.arange(c2)
+        ch = CONV1_PROBE_WIDTH * i + co % CONV1_PROBE_WIDTH
+        ch = np.where((ch < k1) & (co < 2 * CONV1_PROBE_WIDTH), ch, -1)
+        tap = np.where(co < CONV1_PROBE_WIDTH, 0, 2)
+        w2 = np.zeros((k1, 3 * c2), np.int8)
+        live = ch >= 0
+        w2[ch[live], tap[live] * c2 + co[live]] = 1
+        probes.append((dict(tree, w2p=w2, m2=np.zeros(c2, np.int32),
+                            o2=np.zeros(c2, np.int32)), ch, tap))
+    return probes
+
+
+def conv1_from_probe_maps(maps, probes) -> np.ndarray:
+    """conv1's (B, 126, 512) map assembled from the probes' (B, 124, >= c2)
+    conv maps (``conv1_probe_trees``' order)."""
+    b, t2 = maps[0].shape[:2]
+    k1 = probes[0][0]["w2p"].shape[0]
+    a1 = np.full((b, t2 + 2, k1), -1, np.int16)
+    for m, (_, ch, tap) in zip(maps, probes):
+        for co in np.flatnonzero(ch >= 0):
+            a1[:, tap[co]:tap[co] + t2, ch[co]] = m[:, :, co]
+    return a1
 
 
 OLD_CONV_BF16_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_bf16_old.cu")
