@@ -108,6 +108,18 @@ Phases, each printing JSON lines (``"phase": ...``):
                2048 and 16384 beside row 1 and ``_int_mm`` on conv2's
                lane-packed product, maps bit for bit (``kernels.old_vs_new``
                lines).
+               Rows 5 and 10 (v5, v1: one body, row 1's producers and
+               consumer) also at B = 1, 37, 133, 1031, 2048, 4095, 4096,
+               4097 and 16384 on the artifact, the seeded model and each
+               of ``scripts/probe.py::conv_v7_edge_cases``'s models on its
+               own frames, each map equal to the plain version's and to
+               row 1's kernel map: 0 mismatching activations. Where an
+               earlier body of ``csrc/conv_stage_int8_v5.cu`` was copied
+               to ``_build/conv_stage_int8_v5_old.cu`` (never committed),
+               rows 5 and 10 are timed against it, old, new, new, old, at
+               B=4096, 2048 and 16384 beside row 1 and ``_int_mm`` on
+               conv2's lane-packed product, maps bit for bit
+               (``kernels.old_vs_new`` lines).
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -316,7 +328,7 @@ KERNEL_SYMBOLS = {
     "dense_argmax_int8": "dense_argmax_int8_kernel<true>",
     "conv_stage_int8_v10": "conv_stage_folded_kernel",    # one body for v9 and v10
     "conv_stage_int8_v9": "conv_stage_folded_kernel",
-    "conv_stage_int8_v5": "conv_stage_int8_v5_kernel",
+    "conv_stage_int8_v5": "conv_stage_int8_v5_kernel",    # row 1's design, v5's weights
     "conv_stage_int8_v6": "conv_stage_int8_planes_kernel<true>",
     "conv_stage_int8_v4": "conv_stage_int8_planes_kernel<false>",
     "conv_stage_int8_v3": "conv_stage_int8_rows_kernel<true>",
@@ -353,10 +365,13 @@ EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # Frames per kind of row 1's edge inputs (scripts/probe.py::conv_v7_edge_cases):
 # ragged against the 132 blocks, several frames a block.
 V7_EDGE_FRAMES = 1031
-# Rows 3 and 4 (v10, v9: one persistent block per SM): batches around one
-# frame a block and ragged against the 132 blocks, and the bench's sizes.
+# Rows 3 and 4 (v10, v9) and 5 and 10 (v5, v1), each one persistent block
+# per SM: batches around one frame a block and ragged against the 132
+# blocks, and the bench's sizes.
 FOLD_BATCHES = (1, 37, 133, V7_EDGE_FRAMES, 2048, 4095, 4096, 4097, 16384)
 FOLD_STAGES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
+# Rows 5 and 10 (v5, v1: one body, row 1's), checked at FOLD_BATCHES too.
+V5_STAGES = ("conv_stage_int8_v5", "conv_stage_int8_v1")
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 # The bf16 conv stages' cluster edges: 66 clusters of 2 expected on the
@@ -544,6 +559,27 @@ def v7_siblings(pairs: dict) -> dict[str, int]:
             for k in ("conv_stage_int8_v5", "conv_stage_int8_v1", *FOLD_STAGES) if k in pairs}
 
 
+def _batch_check(recs: list, stages, plain, wname: str, xname: str, x: torch.Tensor, qw,
+                 with_v7: bool) -> None:
+    """Append one record per kernel of ``stages`` (wrapper names) on frames
+    ``x`` under ``qw``: its map against ``plain``'s (mismatching
+    activations, largest difference) and, ``with_v7``, against row 1's
+    kernel map."""
+    from modulationdetectioncnn_torch.ops import infer
+
+    want = plain(x, qw)[..., :qw.c2]
+    v7 = infer.conv_stage_int8_v7(x, qw) if with_v7 else None
+    for kname in stages:
+        got = getattr(infer, kname)(x, qw)
+        torch.cuda.synchronize()
+        mism, err = compare(kname, got, want)
+        rec = {"kernel": kname, "weights": wname, "input": xname, "n": int(x.shape[0]),
+               "mismatches": mism, "max_abs_err": err}
+        if with_v7:
+            rec["maps_vs_v7"] = compare(kname, got, v7)[0]
+        recs.append(rec)
+
+
 def fold_stage_checks(weights: dict, trees: dict, x_all: torch.Tensor) -> list[dict]:
     """Rows 3 and 4 (v10, v9) against their plain version on the card, one
     record per kernel, model and input: on each model of ``weights`` at
@@ -557,27 +593,39 @@ def fold_stage_checks(weights: dict, trees: dict, x_all: torch.Tensor) -> list[d
     from modulationdetectioncnn_torch.scripts import probe
 
     recs = []
-
-    def check(wname, xname, x, qw, with_v7):
-        want = infer.conv_stage_int8_folded_plain(x, qw)[..., :qw.c2]
-        v7 = infer.conv_stage_int8_v7(x, qw) if with_v7 else None
-        for kname in FOLD_STAGES:
-            got = getattr(infer, kname)(x, qw)
-            torch.cuda.synchronize()
-            mism, err = compare(kname, got, want)
-            rec = {"kernel": kname, "weights": wname, "input": xname, "n": int(x.shape[0]),
-                   "mismatches": mism, "max_abs_err": err}
-            if with_v7:
-                rec["maps_vs_v7"] = compare(kname, got, v7)[0]
-            recs.append(rec)
-
+    plain = infer.conv_stage_int8_folded_plain
     for wname, qw in weights.items():
         for b in FOLD_BATCHES:
-            check(wname, f"seeded_b{b}", x_all[:b], qw, True)
+            _batch_check(recs, FOLD_STAGES, plain, wname, f"seeded_b{b}", x_all[:b], qw, True)
     for tname, tree in trees.items():
         for i, (pt, _, _) in enumerate(probe.conv1_probe_trees(tree)):
-            check(f"{tname}_conv1_probe{i}", f"seeded_b{V7_EDGE_FRAMES}",
-                  x_all[:V7_EDGE_FRAMES], int8_weights_from_numpy(pt, "cuda"), False)
+            _batch_check(recs, FOLD_STAGES, plain, f"{tname}_conv1_probe{i}",
+                         f"seeded_b{V7_EDGE_FRAMES}", x_all[:V7_EDGE_FRAMES],
+                         int8_weights_from_numpy(pt, "cuda"), False)
+    return recs
+
+
+def v5_stage_checks(weights: dict, x_all: torch.Tensor) -> list[dict]:
+    """Rows 5 and 10 (v5, v1: row 1's producers and consumer under v5's
+    arguments) against their plain version and row 1's kernel map on the
+    card, one record per kernel, model and batch: at FOLD_BATCHES frames of
+    ``x_all`` on each model of ``weights``, and of each of
+    ``scripts/probe.py::conv_v7_edge_cases``'s models on its own frames
+    (quantize ties, the largest sums, requantize edges, the narrow padded
+    model, the fold-refused model)."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+    from modulationdetectioncnn_torch.scripts import probe
+
+    recs = []
+    plain = infer.conv_stage_int8_v5_plain
+    sets = {w: (qw, x_all) for w, qw in weights.items()}
+    for kind, (tree, frames) in probe.conv_v7_edge_cases(SEED, max(FOLD_BATCHES)).items():
+        sets[f"v7_edge_{kind}"] = (int8_weights_from_numpy(tree, "cuda"),
+                                   torch.from_numpy(frames).cuda())
+    for wname, (qw, x) in sets.items():
+        for b in FOLD_BATCHES:
+            _batch_check(recs, V5_STAGES, plain, wname, f"b{b}", x[:b], qw, True)
     return recs
 
 
@@ -947,11 +995,15 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # Rows 3 and 4 at their batch edges and the bench's sizes on the
     # artifact and two seeded models (the second at the fold's 2^24 edge),
     # each map also against v7's, and conv1's map whole on the artifact and
-    # the edge model.
+    # the edge model; rows 5 and 10 the same way on the artifact, the
+    # seeded model and row 1's edge models (each on its own frames).
     x_fold = torch.from_numpy((0.7 * np.random.default_rng(SEED + 1).standard_normal(
         (max(FOLD_BATCHES), 2, 128))).astype(np.float32)).cuda()
-    for rec in fold_stage_checks({k: weights[k] for k in ("artifact", "seeded", "fold_edge")},
-                                 {"artifact": art_np.tree(), "fold_edge": fold_edge}, x_fold):
+    batch_recs = fold_stage_checks(
+        {k: weights[k] for k in ("artifact", "seeded", "fold_edge")},
+        {"artifact": art_np.tree(), "fold_edge": fold_edge}, x_fold)
+    batch_recs += v5_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x_fold)
+    for rec in batch_recs:
         st = stats[rec["kernel"]]
         st["mismatches"] += rec["mismatches"]
         st["checked"] += 1
@@ -1106,6 +1158,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V7_SRC, REPO)}"})
     else:
         for rec in probe.conv_v7_old_vs_new(old_v7, qw, batches=(4096, 2048, 16384)):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
+    # Rows 5 and 10 against their earlier body, where a copy of it was put
+    # at probe.OLD_CONV_V5_SRC: old, new, new, old in this run, maps bit for
+    # bit, beside row 1 and _int_mm on conv2's lane-packed product.
+    old_v5 = probe.old_library(probe.OLD_CONV_V5_SRC, probe.CONV_V5_ENTRIES)
+    if old_v5 is None:
+        emit({"phase": "kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V5_SRC, REPO)}"})
+    else:
+        for rec in probe.conv_v5_old_vs_new(old_v5, qw, batches=(4096, 2048, 16384)):
             emit({"phase": "kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # Rows 3 and 4 against their earlier body, where a copy of it was put

@@ -35,7 +35,7 @@
 // cp.async while the current frame's products run, and v2 loads each frame
 // in turn. The two compute the same map. conv1_rows repeats the header's
 // conv1_planes with its own A loads rather than changing the header: an
-// edit there can change how nvcc schedules v4/v5/v6, which include it
+// edit there can change how nvcc schedules v4/v6, which include it
 // (PERF.md, Findings).
 #include "conv_stage_int8_mma.cuh"
 

@@ -20,10 +20,11 @@
 // (63.9 us at 1,979 TOP/s) against ~45 MB moved (~13.4 us at 3.35 TB/s):
 // operation-bound, ~64 us.
 //
-// Design (simple and right first): v5's body (a persistent block of 8
-// warps per SM, conv2's weight resident in shared memory, conv1 as one int8
-// mma.sync.m16n8k16 per 8 columns with the 8 planes on K, exact integer
-// rq1) reading each frame's 1 KB of planes instead of quantizing it. The
+// Design (simple and right first): the tap-plane body of
+// conv_stage_int8_mma.cuh, which v5 ran until it took row 1's design (a
+// persistent block of 8 warps per SM, conv2's weight resident in shared
+// memory, conv1 as one int8 mma.sync.m16n8k16 per 8 columns with the 8
+// planes on K, exact integer rq1), reading each frame's 1 KB of planes. The
 // TPU's v6 software-pipelined its chunk loop one chunk deep (the next
 // chunk's conv1 dot issued beside this chunk's requantize); here v6
 // (PREFETCH) copies the next frame's planes into a second buffer with

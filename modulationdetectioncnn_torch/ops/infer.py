@@ -8,23 +8,26 @@ compute one function (the integer spec of ``golden/quant.py``) from
 different inputs and with different conv1 arithmetic:
 
 - v7: frames in, conv1 on integers (``__dp4a`` on the CUDA cores, built
-  in shared memory), conv2 on int8 ``wgmma``;
+  in shared memory by producer warps), conv2 on int8 ``wgmma``;
 - v9, v10: frames in, conv1 as a bf16 product against requantize-folded
   weights (``quant.fold_conv1_weights``), conv2 on int8 tensor cores; v10
   also prefetches the next frame while the current one's products run;
-- v5: frames in, quantize and the tap planes in the kernel, conv1 as an
-  int8 tensor-core product, then integer rq1 and v10's conv2;
+- v5: frames in, v7's producers and consumer from the tap-plane conv1
+  ``w1e`` and the taps-on-N conv2 ``w2l`` (the weights the TPU's v5 read);
 - v1: v5's kernel body under its own entry point (the two TPU kernels
   differed only in how Mosaic scheduled conv1), feeding the dense stage
   that returns logits (``make_int8_forward``), whose argmax is the label;
 - v4, v6: (B, 8, T) int8 tap planes in (quantize and ``tap_planes`` in
-  plain torch first, as the JAX package did them in XLA), then v5's body;
-  v6 also prefetches the next frame's planes.
+  plain torch first, as the JAX package did them in XLA), then the
+  tap-plane/tap-row body on ``csrc/conv_stage_int8_mma.cuh`` (conv1 as an
+  int8 ``mma.sync`` product, integer rq1, v10's earlier conv2); v6 also
+  prefetches the next frame's planes.
 - v2, v3: (B, T-2, 8) int8 tap rows in (quantize and ``expand_taps`` in
   plain torch first, as in the JAX package), the transposed layout of the
-  planes, then the same body; v3 prefetches the next frame's rows and feeds
-  the dense + argmax stage, v2 feeds the dense stage that returns logits
-  (``make_int8_forward_v2``) and takes their argmax.
+  planes, then the same tap-plane/tap-row body; v3 prefetches the next
+  frame's rows and feeds the dense + argmax stage, v2 feeds the dense
+  stage that returns logits (``make_int8_forward_v2``) and takes their
+  argmax.
 
 v2 to v6 need no fold, so a model that the fold refuses still gets a
 tensor-core path. Each stage has three pieces in this module:
@@ -323,10 +326,11 @@ def conv_stage_int8_v10(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 
 def conv_stage_int8_v5(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v5 conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8: quantize and
-    tap planes in the kernel, conv1 and conv2 on the int8 tensor cores.
-    Launches ``csrc/conv_stage_int8_v5.cu`` on a CUDA tensor; plain version
-    on the CPU."""
+    """v5 conv stage, (B, 2, 128) f32 -> (B, 124, c2) int8: v7's kernel
+    design (conv1 + rq1 built in shared memory by producer warps, conv2 on
+    int8 ``wgmma``) from ``w1e`` and ``w2l``. Launches
+    ``csrc/conv_stage_int8_v5.cu`` on a CUDA tensor; plain version on the
+    CPU."""
     return _run(conv_stage_int8_v5, conv_stage_int8_v5_plain, x, qw)[..., :qw.c2]
 
 

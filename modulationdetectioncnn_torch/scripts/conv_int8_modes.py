@@ -1,21 +1,26 @@
-"""The int8 conv stages that build conv1 on the chip (rows 1, 3 and 4 of
-PERF.md's kernel table) on the card: a quick check of rows 3 and 4, and
-diagnostic modes of the two kernel bodies.
+"""The int8 conv stages that build conv1 on the chip (rows 1, 3, 4, 5 and 10
+of PERF.md's kernel table) on the card: a quick check of rows 3, 4, 5 and
+10, and diagnostic modes of rows 1 and 3.
 
   check  builds the package's kernels and prints ptxas's registers and
-         spills for rows 1, 3 and 4; holds rows 3 and 4 (v10, v9) to their
-         plain version and to row 1's map (``chip_smoke.py::
+         spills for rows 1, 3, 4, 5 and 10; holds rows 3 and 4 (v10, v9) to
+         their plain version and to row 1's map (``chip_smoke.py::
          fold_stage_checks``: B = 1 .. 16384 on the artifact, a seeded
          model and the fold-edge model, conv1's whole map through conv2
-         pass-throughs); then, with an earlier body at
+         pass-throughs), and rows 5 and 10 (v5, v1) the same way
+         (``chip_smoke.py::v5_stage_checks``: the artifact, a seeded model
+         and row 1's edge models); then, with an earlier body at
          ``probe.OLD_CONV_FOLD_SRC``, old, new, new, old beside row 1 and
-         ``_int_mm`` (``probe.conv_fold_old_vs_new``), and with one at
+         ``_int_mm`` (``probe.conv_fold_old_vs_new``), with one at
+         ``probe.OLD_CONV_V5_SRC`` the same for rows 5 and 10
+         (``probe.conv_v5_old_vs_new``), and with one at
          ``probe.OLD_CONV_V7_SRC`` the same for row 1
          (``probe.conv_v7_old_vs_new``).
   modes  copies ``csrc/conv_stage_int8_v10.cu`` (row 3) and
-         ``csrc/conv_stage_int8.cu`` (row 1), each with the consumer role's
-         header ``csrc/conv2_wgmma.cuh``, into ``_build/`` with parts taken
-         out, builds each copy (one nvcc each, all started together) and
+         ``csrc/conv_stage_int8.cu`` with its producer's header
+         ``csrc/conv1_producer_s8.cuh`` (row 1), each with the consumer
+         role's header ``csrc/conv2_wgmma.cuh``, into ``_build/`` with parts
+         taken out, builds each copy (one nvcc each, all started together) and
          times every mode of each row on the artifact's weights (CUDA
          events around 20 back-to-back launches, median of 5 runs), in
          the order of MODES and back, at B = 4096 and 16384: the whole
@@ -55,10 +60,13 @@ from modulationdetectioncnn_torch.scripts import probe
 from modulationdetectioncnn_torch.scripts.conv_bf16_modes import _frames, _out, _rep, _smoke
 
 HEADER = "conv2_wgmma.cuh"
-# row: (its source, its C entries, the old-body runner that launches one)
-ROWS = {"row3": ("conv_stage_int8_v10.cu", probe.CONV_FOLD_ENTRIES,
-                 lambda lib, x, qw: probe._old_conv_fold(lib, "conv_stage_int8_v10", x, qw)),
-        "row1": ("conv_stage_int8.cu", probe.CONV_V7_ENTRIES, probe._old_conv_v7)}
+# row: (its source, the file that holds its producer, its C entries, the
+# old-body runner that launches one)
+ROWS = {"row3": ("conv_stage_int8_v10.cu", "conv_stage_int8_v10.cu", probe.CONV_FOLD_ENTRIES,
+                 lambda lib, x, qw: probe._old_conv(lib, "conv_stage_int8_v10", x, qw)),
+        "row1": ("conv_stage_int8.cu", "conv1_producer_s8.cuh", probe.CONV_V7_ENTRIES,
+                 lambda lib, x, qw: probe._old_conv(lib, "conv_stage_int8_v7", x, qw))}
+KERNELS = ("conv_stage_folded_kernel", "conv_stage_int8_v7_kernel", "conv_stage_int8_v5_kernel")
 PIN = "    for (int i = 0; i < C2 / 2; ++i) pin(acc[i]);\n"
 SINK = """    {
       int sink = 0;
@@ -158,7 +166,7 @@ PACK_S16 = """__device__ __forceinline__ uint32_t pack_s16(int hi, int lo) {
 """
 
 
-# Each edit takes (row, kernel source, header source) and returns the pair.
+# Each edit takes (row, producer source, header source) and returns the pair.
 def _no_tail(row, src, hdr):
     return src, _rep(hdr, PIN, PIN + SINK + "    continue;\n")
 
@@ -259,7 +267,7 @@ def run_check() -> int:
         DEFAULT_ARTIFACT, QuantizedModel, int8_weights_from_numpy, load_int8)
 
     res = _build.build(force=True)
-    _out(ptxas=_ptxas_of(res["log"], ("conv_stage_folded_kernel", "conv_stage_int8_v7_kernel")))
+    _out(ptxas=_ptxas_of(res["log"], KERNELS))
     smoke = _smoke()
     art = QuantizedModel.from_npz(DEFAULT_ARTIFACT)
     edge = probe.fold_edge_tree(smoke.SEED)
@@ -267,12 +275,17 @@ def run_check() -> int:
                "seeded": smoke.random_weights(art, np.random.default_rng(smoke.SEED)),
                "fold_edge": int8_weights_from_numpy(edge, "cuda")}
     bad = 0
-    for rec in smoke.fold_stage_checks(weights, {"artifact": art.tree(), "fold_edge": edge},
-                                       _frames(max(smoke.FOLD_BATCHES), seed=1)):
+    x = _frames(max(smoke.FOLD_BATCHES), seed=1)
+    recs = smoke.fold_stage_checks(weights, {"artifact": art.tree(), "fold_edge": edge}, x)
+    recs += smoke.v5_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x)
+    for rec in recs:
         bad += rec["mismatches"] + rec.get("maps_vs_v7", 0)
         _out(**rec)
+    del x
     for src, entries, run in ((probe.OLD_CONV_FOLD_SRC, probe.CONV_FOLD_ENTRIES,
                                probe.conv_fold_old_vs_new),
+                              (probe.OLD_CONV_V5_SRC, probe.CONV_V5_ENTRIES,
+                               probe.conv_v5_old_vs_new),
                               (probe.OLD_CONV_V7_SRC, probe.CONV_V7_ENTRIES,
                                probe.conv_v7_old_vs_new)):
         lib = probe.old_library(src, entries)
@@ -293,16 +306,19 @@ def run_modes() -> None:
     with open(os.path.join(_build.CSRC_DIR, HEADER)) as f:
         hdr = f.read()
     jobs = {}
-    for row, (name, entries, _) in ROWS.items():
-        with open(os.path.join(_build.CSRC_DIR, name)) as f:
-            src = f.read()
+    for row, (name, producer, entries, _) in ROWS.items():
+        texts = {}
+        for fname in (name, producer):
+            with open(os.path.join(_build.CSRC_DIR, fname)) as f:
+                texts[fname] = f.read()
         for mode in ROW_MODES[row]:
             out_dir = os.path.join(_build.BUILD_DIR, "int8_modes", f"{row}_{mode}")
             os.makedirs(out_dir, exist_ok=True)
-            s, h = MODES[mode](row, src, hdr)
+            s, h = MODES[mode](row, texts[producer], hdr)
             path = os.path.join(out_dir, name)
-            for p, text in ((path, s), (os.path.join(out_dir, HEADER), h)):
-                with open(p, "w") as f:
+            # The copy's includes resolve in its own directory first.
+            for fname, text in {**texts, producer: s, HEADER: h}.items():
+                with open(os.path.join(out_dir, fname), "w") as f:
                     f.write(text)
             so = path[:-3] + ".so"
             cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-shared",
@@ -314,8 +330,7 @@ def run_modes() -> None:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {row} mode {mode}:\n{log[-3000:]}")
-        _out(row=row, mode=mode, ptxas=_ptxas_of(log, ("conv_stage_folded_kernel",
-                                                      "conv_stage_int8_v7_kernel")))
+        _out(row=row, mode=mode, ptxas=_ptxas_of(log, KERNELS))
         lib = ctypes.CDLL(so)
         for name in entries:
             fn = getattr(lib, f"amc_{name}")
@@ -331,12 +346,12 @@ def run_modes() -> None:
     x = _frames(4096, seed=3)
     for mode, lib in libs["row3"].items():
         if mode in ("whole", "f2i", "mma_first4") or mode.startswith("convert_"):
-            differ = {w: int((ROWS["row3"][2](lib, x, q) != infer.conv_stage_int8_v10(x, q)).sum())
+            differ = {w: int((ROWS["row3"][3](lib, x, q) != infer.conv_stage_int8_v10(x, q)).sum())
                       for w, q in (("artifact", qw), ("fold_edge", edge))}
             _out(row="row3", mode=mode, maps_differing_from_package=differ)
     for b in (4096, 16384):
         x = _frames(b, seed=b)
-        for row, (_, _, run) in ROWS.items():
+        for row, (_, _, _, run) in ROWS.items():
             order = list(libs[row]) + list(reversed(list(libs[row])))
             ms = {}
             for mode in order:

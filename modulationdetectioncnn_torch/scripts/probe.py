@@ -28,6 +28,10 @@ a function that one of the port's kernels computes (PERF.md section 6).
   conv_v7_old row 1 (v7) against an earlier body of ``csrc/conv_stage_int8.cu``
             (a copy at ``OLD_CONV_V7_SRC``) the same way, beside ``_int_mm``
             on conv2's im2col, maps bit for bit
+  conv_v5_old rows 5 and 10 (v5, v1) against an earlier body of
+            ``csrc/conv_stage_int8_v5.cu`` (a copy at ``OLD_CONV_V5_SRC``)
+            the same way, beside row 1 and ``_int_mm`` on conv2's
+            lane-packed product, maps bit for bit
   conv2_maps row 18 bf16 on the bench's conv1 map, a seeded map, its ReLU,
             zeros, and with one channel tile (Co 40), beside torch.matmul
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
@@ -51,7 +55,8 @@ the same way against the JAX package's Pallas kernels in interpret mode;
 (``tests/test_torch_v7_edges.py``). ``conv_bf16_old_vs_new`` times the
 bf16 conv stages (rows 15, 14, 12) against an earlier body at
 ``OLD_CONV_BF16_SRC`` for chip_smoke.py, ``conv_fold_old_vs_new`` rows 3
-and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``. ``fold_edge_tree``
+and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``, ``conv_v5_old_vs_new``
+rows 5 and 10 (v5, v1) against one at ``OLD_CONV_V5_SRC``. ``fold_edge_tree``
 builds a model at the edge of the v9/v10 fold's contract and
 ``conv1_probe_trees`` turns conv2 into a pass-through, so that a conv
 stage's map shows its conv1 map: chip_smoke.py holds rows 3 and 4 to
@@ -495,20 +500,25 @@ def probe_conv2_maps() -> list[dict]:
 
 OLD_CONV_V7_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_old.cu")
 CONV_V7_ENTRIES = ("conv_stage_int8_v7",)
-_V7_WEIGHTS = ("w1", "m1", "o1", "w2t", "m2", "o2")   # the v7 entry's, in its order
+OLD_CONV_FOLD_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v10_old.cu")
+CONV_FOLD_ENTRIES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
+OLD_CONV_V5_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v5_old.cu")
+CONV_V5_ENTRIES = ("conv_stage_int8_v5", "conv_stage_int8_v1")
 
 
-def _old_conv_v7(lib: ctypes.CDLL, x: torch.Tensor, qw) -> torch.Tensor:
-    """The old library's v7 entry on the package wrapper's arguments: the
-    (B, 124, 80) int8 map."""
+def _old_conv(lib: ctypes.CDLL, name: str, x: torch.Tensor, qw) -> torch.Tensor:
+    """The old library's entry ``amc_<name>`` of a frames-in int8 conv stage
+    on the package wrapper's arguments (the weights of
+    ``ops/infer.py::_ENTRIES``, in their order): the (B, 124, 80) int8 map."""
+    from modulationdetectioncnn_torch.ops import infer
+
     b = x.shape[0]
     out = torch.empty((b, 124, 80), dtype=torch.int8, device=x.device)
-    code = lib.amc_conv_stage_int8_v7(x.data_ptr(), b,
-                                      *(getattr(qw, k).data_ptr() for k in _V7_WEIGHTS),
-                                      qw.inv_sx, out.data_ptr(),
-                                      torch.cuda.current_stream().cuda_stream)
+    weights = (getattr(qw, k).data_ptr() for k in infer._ENTRIES[name][0])
+    code = getattr(lib, f"amc_{name}")(x.data_ptr(), b, *weights, qw.inv_sx, out.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"old amc_conv_stage_int8_v7 failed to launch: CUDA error {code}")
+        raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
     return out
 
 
@@ -533,7 +543,7 @@ def conv_v7_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> lis
         cols = torch.randint(0, 128, (b * 124, 1536), dtype=torch.int8, device=dev,
                              generator=torch.Generator(dev).manual_seed(b))
         new = lambda: infer.conv_stage_int8_v7(x, qw)  # noqa: E731
-        old = lambda: _old_conv_v7(lib, x, qw)  # noqa: E731
+        old = lambda: _old_conv(lib, "conv_stage_int8_v7", x, qw)  # noqa: E731
         mm = lambda: torch._int_mm(cols, w_cm)  # noqa: E731
         differ = int((new() != old()).sum())
         times = [ms(old), ms(new), ms(new), ms(old)]
@@ -552,45 +562,19 @@ def conv_v7_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> lis
 def probe_conv_v7_old() -> list[dict]:
     """Row 1 against an earlier body of ``csrc/conv_stage_int8.cu`` (a copy
     at ``OLD_CONV_V7_SRC``) on the committed artifact's weights."""
-    from modulationdetectioncnn_torch.quant import load_int8
-
-    _header("conv_v7_old")
-    lib = old_library(OLD_CONV_V7_SRC, CONV_V7_ENTRIES)
-    if lib is None:
-        raise SystemExit(f"conv_v7_old: no earlier body at {OLD_CONV_V7_SRC}")
-    recs = conv_v7_old_vs_new(lib, load_int8(device="cuda"))
-    for rec in recs:
-        print(json.dumps(rec), flush=True)
-    return recs
+    return _conv_old("conv_v7_old", OLD_CONV_V7_SRC, CONV_V7_ENTRIES, conv_v7_old_vs_new)
 
 
-OLD_CONV_FOLD_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v10_old.cu")
-CONV_FOLD_ENTRIES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
-_FOLD_WEIGHTS = ("w1f", "w2l", "m2", "o2")   # the v9/v10 entries', in their order
-
-
-def _old_conv_fold(lib: ctypes.CDLL, name: str, x: torch.Tensor, qw) -> torch.Tensor:
-    """The old library's v9 or v10 entry on the package wrapper's arguments:
-    the (B, 124, 80) int8 map."""
-    b = x.shape[0]
-    out = torch.empty((b, 124, 80), dtype=torch.int8, device=x.device)
-    code = getattr(lib, f"amc_{name}")(x.data_ptr(), b,
-                                       *(getattr(qw, k).data_ptr() for k in _FOLD_WEIGHTS),
-                                       qw.inv_sx, out.data_ptr(),
-                                       torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
-    return out
-
-
-def conv_fold_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
-    """Rows 3 and 4 (v10, v9), the old body against the package's, on seeded
-    frames (0.7 N(0, 1)) under the full-width weights ``qw``: each timed
-    old, new, new, old (median of 5 runs of 20 calls between CUDA events,
-    then the profiler's device time per call, in the same order), beside
-    two yardsticks timed in the same round: row 1 (the package's v7, the
-    same map) and ``torch._int_mm`` on conv2's lane-packed product,
-    (B*126, 512) x (512, 240). ``ok``: the maps bit for bit."""
+def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
+                     batches) -> list[dict]:
+    """The frames-in conv stages ``entries``, the old body against the
+    package's, on seeded frames (0.7 N(0, 1)) under the full-width weights
+    ``qw``: each timed old, new, new, old (median of 5 runs of 20 calls
+    between CUDA events, then the profiler's device time per call, in the
+    same order), beside two yardsticks timed in the same round: row 1 (the
+    package's v7, the same map) and ``torch._int_mm`` on conv2's
+    lane-packed product, (B*126, 512) x (512, 240). ``ok``: the maps bit
+    for bit."""
     from modulationdetectioncnn_torch.ops import infer
     from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
     from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
@@ -608,18 +592,49 @@ def conv_fold_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> l
         yard = {"row1_v7_ms": ms(v7), "row1_v7_device_ms": device_ms_per_call(v7),
                 "library_lane_packed_ms": ms(mm),
                 "library_lane_packed_device_ms": device_ms_per_call(mm)}
-        for name in CONV_FOLD_ENTRIES:
+        for name in entries:
             new = lambda: getattr(infer, name)(x, qw)  # noqa: E731
-            old = lambda: _old_conv_fold(lib, name, x, qw)  # noqa: E731
+            old = lambda: _old_conv(lib, name, x, qw)  # noqa: E731
             differ = int((new() != old()).sum())
             times = [ms(old), ms(new), ms(new), ms(old)]
             dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
-            recs.append({"probe": "conv_fold_old", "name": name, "batch": b,
+            recs.append({"probe": tag, "name": name, "batch": b,
                          "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
                          "old_device_ms": [dev_ms[0], dev_ms[3]],
                          "new_device_ms": [dev_ms[1], dev_ms[2]], **yard,
                          "maps_differing": differ, "ok": differ == 0})
         del x, a1
+    return recs
+
+
+def conv_fold_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 3 and 4 (v10, v9) against an earlier body (``_conv_old_vs_new``)."""
+    return _conv_old_vs_new(lib, qw, CONV_FOLD_ENTRIES, "conv_fold_old", batches)
+
+
+def conv_v5_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 5 and 10 (v5, v1) against an earlier body (``_conv_old_vs_new``)."""
+    return _conv_old_vs_new(lib, qw, CONV_V5_ENTRIES, "conv_v5_old", batches)
+
+
+def probe_conv_v5_old() -> list[dict]:
+    """Rows 5 and 10 against an earlier body of ``csrc/conv_stage_int8_v5.cu``
+    (a copy at ``OLD_CONV_V5_SRC``) on the committed artifact's weights."""
+    return _conv_old("conv_v5_old", OLD_CONV_V5_SRC, CONV_V5_ENTRIES, conv_v5_old_vs_new)
+
+
+def _conv_old(tag: str, src: str, entries: tuple[str, ...], run) -> list[dict]:
+    """The probe ``tag``: ``run`` on the old body at ``src`` under the
+    committed artifact's weights, one printed record per batch and entry."""
+    from modulationdetectioncnn_torch.quant import load_int8
+
+    _header(tag)
+    lib = old_library(src, entries)
+    if lib is None:
+        raise SystemExit(f"{tag}: no earlier body at {src}")
+    recs = run(lib, load_int8(device="cuda"))
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
     return recs
 
 
@@ -1115,6 +1130,7 @@ PROBES = {
     "conv2_old": probe_conv2_old,
     "conv2_maps": probe_conv2_maps,
     "conv_v7_old": probe_conv_v7_old,
+    "conv_v5_old": probe_conv_v5_old,
     "batch": probe_batch,
     "r3stream": probe_r3stream,
     "r5cfo": probe_r5cfo,
