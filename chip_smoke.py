@@ -120,6 +120,22 @@ Phases, each printing JSON lines (``"phase": ...``):
                B=4096, 2048 and 16384 beside row 1 and ``_int_mm`` on
                conv2's lane-packed product, maps bit for bit
                (``kernels.old_vs_new`` lines).
+               Rows 6 and 7 (v6, v4: one body, row 1's producers reading
+               tap planes and its consumer) also at B = 1, 37, 133, 1031,
+               2048, 4095, 4096, 4097 and 16384 on the artifact, the seeded
+               model and each of ``scripts/probe.py::conv_v7_edge_cases``'s
+               models, on the tap planes of its own frames (each map equal
+               to the plain version's and to row 1's kernel map of the
+               frames) and on seeded random planes, all 8 planes and the two
+               tail columns drawn (each map equal to the plain version's):
+               0 mismatching activations. Where an earlier body of
+               ``csrc/conv_stage_int8_v6.cu`` was copied to
+               ``_build/conv_stage_int8_v6_old.cu`` (never committed, with
+               the ``conv_stage_int8_mma.cuh`` it includes beside it), rows
+               6 and 7 are timed against it, old, new, new, old, at B=4096,
+               2048 and 16384 beside rows 5 and 1 and ``_int_mm`` on
+               conv2's lane-packed product, maps bit for bit
+               (``kernels.old_vs_new`` lines).
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
                version's, one torch call on the kernel's largest product as
@@ -329,8 +345,8 @@ KERNEL_SYMBOLS = {
     "conv_stage_int8_v10": "conv_stage_folded_kernel",    # one body for v9 and v10
     "conv_stage_int8_v9": "conv_stage_folded_kernel",
     "conv_stage_int8_v5": "conv_stage_int8_v5_kernel",    # row 1's design, v5's weights
-    "conv_stage_int8_v6": "conv_stage_int8_planes_kernel<true>",
-    "conv_stage_int8_v4": "conv_stage_int8_planes_kernel<false>",
+    "conv_stage_int8_v6": "conv_stage_int8_v6_kernel",    # row 1's design from tap planes
+    "conv_stage_int8_v4": "conv_stage_int8_v6_kernel",    # v6's body
     "conv_stage_int8_v3": "conv_stage_int8_rows_kernel<true>",
     "conv_stage_int8_v2": "conv_stage_int8_rows_kernel<false>",
     "dense_int8": "dense_argmax_int8_kernel<false>",
@@ -365,13 +381,15 @@ EVAL_PATH = ("v5", "v6", "v4", "v3", "v2")      # slices 3 and 4's kernels
 # Frames per kind of row 1's edge inputs (scripts/probe.py::conv_v7_edge_cases):
 # ragged against the 132 blocks, several frames a block.
 V7_EDGE_FRAMES = 1031
-# Rows 3 and 4 (v10, v9) and 5 and 10 (v5, v1), each one persistent block
+# Rows 3 and 4 (v10, v9), 5 and 10 (v5, v1) and 6 and 7 (v6, v4), each one persistent block
 # per SM: batches around one frame a block and ragged against the 132
 # blocks, and the bench's sizes.
 FOLD_BATCHES = (1, 37, 133, V7_EDGE_FRAMES, 2048, 4095, 4096, 4097, 16384)
 FOLD_STAGES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
 # Rows 5 and 10 (v5, v1: one body, row 1's), checked at FOLD_BATCHES too.
 V5_STAGES = ("conv_stage_int8_v5", "conv_stage_int8_v1")
+# Rows 6 and 7 (v6, v4: one body, row 1's from tap planes), the same.
+V6_STAGES = ("conv_stage_int8_v6", "conv_stage_int8_v4")
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 # The bf16 conv stages' cluster edges: 66 clusters of 2 expected on the
@@ -560,17 +578,19 @@ def v7_siblings(pairs: dict) -> dict[str, int]:
 
 
 def _batch_check(recs: list, stages, plain, wname: str, xname: str, x: torch.Tensor, qw,
-                 with_v7: bool) -> None:
-    """Append one record per kernel of ``stages`` (wrapper names) on frames
-    ``x`` under ``qw``: its map against ``plain``'s (mismatching
-    activations, largest difference) and, ``with_v7``, against row 1's
-    kernel map."""
+                 with_v7: bool, inp: torch.Tensor | None = None) -> None:
+    """Append one record per kernel of ``stages`` (wrapper names) on
+    ``inp`` (the frames ``x`` when None, else an input made from them, such
+    as their tap planes) under ``qw``: its map against ``plain``'s on the
+    same input (mismatching activations, largest difference) and,
+    ``with_v7``, against row 1's kernel map of ``x``."""
     from modulationdetectioncnn_torch.ops import infer
 
-    want = plain(x, qw)[..., :qw.c2]
+    inp = x if inp is None else inp
+    want = plain(inp, qw)[..., :qw.c2]
     v7 = infer.conv_stage_int8_v7(x, qw) if with_v7 else None
     for kname in stages:
-        got = getattr(infer, kname)(x, qw)
+        got = getattr(infer, kname)(inp, qw)
         torch.cuda.synchronize()
         mism, err = compare(kname, got, want)
         rec = {"kernel": kname, "weights": wname, "input": xname, "n": int(x.shape[0]),
@@ -626,6 +646,39 @@ def v5_stage_checks(weights: dict, x_all: torch.Tensor) -> list[dict]:
     for wname, (qw, x) in sets.items():
         for b in FOLD_BATCHES:
             _batch_check(recs, V5_STAGES, plain, wname, f"b{b}", x[:b], qw, True)
+    return recs
+
+
+def v6_stage_checks(weights: dict, x_all: torch.Tensor) -> list[dict]:
+    """Rows 6 and 7 (v6, v4: row 1's producers and consumer, reading tap
+    planes) against their plain version on the card, one record per kernel,
+    model, input and batch, at FOLD_BATCHES frames: on each model of
+    ``weights`` with ``x_all`` and on each of
+    ``scripts/probe.py::conv_v7_edge_cases``'s models with its own frames,
+    the frames' tap planes (the map also against row 1's kernel map of the
+    frames), and seeded random int8 planes, all 8 planes and the two tail
+    columns drawn, which the kernel must map as the plain version does while
+    it reads only planes 0..5 and each plane's own block of w1e."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+    from modulationdetectioncnn_torch.scripts import probe
+
+    recs = []
+    plain = infer.conv_stage_int8_planes_plain
+    b_max = max(FOLD_BATCHES)
+    random_planes = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
+        -128, 128, (b_max, 8, 128), dtype=np.int8)).cuda()
+    sets = {w: (qw, x_all) for w, qw in weights.items()}
+    for kind, (tree, frames) in probe.conv_v7_edge_cases(SEED, b_max).items():
+        sets[f"v7_edge_{kind}"] = (int8_weights_from_numpy(tree, "cuda"),
+                                   torch.from_numpy(frames).cuda())
+    for wname, (qw, x) in sets.items():
+        planes = infer.tap_planes(x, qw.inv_sx)
+        for b in FOLD_BATCHES:
+            _batch_check(recs, V6_STAGES, plain, wname, f"tap_planes_b{b}", x[:b], qw, True,
+                         planes[:b])
+            _batch_check(recs, V6_STAGES, plain, wname, f"random_planes_b{b}",
+                         random_planes[:b], qw, False)
     return recs
 
 
@@ -996,13 +1049,15 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # artifact and two seeded models (the second at the fold's 2^24 edge),
     # each map also against v7's, and conv1's map whole on the artifact and
     # the edge model; rows 5 and 10 the same way on the artifact, the
-    # seeded model and row 1's edge models (each on its own frames).
+    # seeded model and row 1's edge models (each on its own frames), and
+    # rows 6 and 7 on the tap planes of the same and on random planes.
     x_fold = torch.from_numpy((0.7 * np.random.default_rng(SEED + 1).standard_normal(
         (max(FOLD_BATCHES), 2, 128))).astype(np.float32)).cuda()
     batch_recs = fold_stage_checks(
         {k: weights[k] for k in ("artifact", "seeded", "fold_edge")},
         {"artifact": art_np.tree(), "fold_edge": fold_edge}, x_fold)
     batch_recs += v5_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x_fold)
+    batch_recs += v6_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x_fold)
     for rec in batch_recs:
         st = stats[rec["kernel"]]
         st["mismatches"] += rec["mismatches"]
@@ -1169,6 +1224,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V5_SRC, REPO)}"})
     else:
         for rec in probe.conv_v5_old_vs_new(old_v5, qw, batches=(4096, 2048, 16384)):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
+    # Rows 6 and 7 against their earlier body, where a copy of it was put
+    # at probe.OLD_CONV_V6_SRC: old, new, new, old in this run on the same
+    # tap planes, maps bit for bit, beside rows 5 and 1 and _int_mm.
+    old_v6 = probe.old_library(probe.OLD_CONV_V6_SRC, probe.CONV_V6_ENTRIES)
+    if old_v6 is None:
+        emit({"phase": "kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V6_SRC, REPO)}"})
+    else:
+        for rec in probe.conv_v6_old_vs_new(old_v6, qw, batches=(4096, 2048, 16384)):
             emit({"phase": "kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # Rows 3 and 4 against their earlier body, where a copy of it was put

@@ -1,9 +1,10 @@
-// The producer role of the int8 conv stages that build conv1 from f32
-// frames on the CUDA cores with the integer spec, for Hopper (sm_90a):
-// conv_stage_int8.cu (row 1, v7) and conv_stage_int8_v5.cu (rows 5 and 10,
-// v5 and v1). Their consumer role is conv2_wgmma.cuh's consume_ring_s8;
-// this header holds the ring's geometry, the block's shared memory, the
-// kernels' launch and the producer warps' conv1 + rq1:
+// The producer role of the int8 conv stages that build conv1 on the CUDA
+// cores with the integer spec, for Hopper (sm_90a): conv_stage_int8.cu
+// (row 1, v7) and conv_stage_int8_v5.cu (rows 5 and 10, v5 and v1) from f32
+// frames, conv_stage_int8_v6.cu (rows 6 and 7, v6 and v4) from int8 tap
+// planes. Their consumer role is conv2_wgmma.cuh's consume_ring_s8; this
+// header holds the ring's geometry, the block's shared memory, the kernels'
+// launch and the producer warps' conv1 + rq1:
 //
 //   xq  = clip(round_half_even(x * inv_sx), -127, 127)               int8
 //   a1[t, h*256+c] = clip((sum_k xq[h, t+k] * w[k, c] + o1) >> m1, 0, 127)
@@ -11,10 +12,16 @@
 // (the multiply by inv_sx rounded on its own, no FMA, then rint; the shift
 // arithmetic), with the taps w[k, c] of plane h read from one of two
 // layouts (TAP_SETS): row 1's w1 (3, 256), one tap set for both planes, or
-// the tap-plane w1e (8, 512) of rows 5 and 10, w1e[3h+k, h*256+c], each
-// plane's taps from its own block (quant.py::expand_conv1_weights writes
-// both blocks from w1, the other plane's columns and rows 6, 7 zero; the
-// producer never reads those).
+// the tap-plane w1e (8, 512) of rows 5, 10, 6 and 7, w1e[3h+k, h*256+c],
+// each plane's taps from its own block (quant.py::expand_conv1_weights
+// writes both blocks from w1, the other plane's columns and rows 6, 7 zero;
+// the producer never reads those). From tap planes xp (8, 128) int8 the
+// window of row t is (xp[3h][t], xp[3h+1][t], xp[3h+2][t]) in place of
+// (xq[h, t], xq[h, t+1], xq[h, t+2]): a1[t, n] = clip((sum_j xp[j, t] *
+// w1e[j, n] + o1) >> m1, 0, 127), the TPU's v4/v6 conv1, where planes 6, 7
+// meet w1e's zero rows and the other plane's block of w1e is zero, so they
+// are not read either, nor columns 126, 127 (they feed only conv1 rows
+// 126, 127, which feed no stored output).
 //
 // A ring stage is one 128-byte K chunk of the map, 128 channels of one I/Q
 // plane (channel = h*256 + c), 130 rows x 128 bytes in the 128-byte
@@ -24,10 +31,13 @@
 // which are never stored. Each producer lane keeps conv1's constants for
 // the launch in registers (its 4 channels' taps packed as (w0, w1, w2, 0)
 // bytes for each plane half of each tap set, and m1/o1 for all 4 chunks)
-// and quantizes 4 samples of each plane per frame, loaded as float4 one
-// frame ahead (x 16-byte aligned); a funnel shift of its word and its
+// and holds its part of the next frame, loaded one frame ahead: from
+// frames (FramesIn; x 16-byte aligned), 4 samples of each plane as a
+// float4, quantized into one word, and a funnel shift of its word and its
 // neighbour's makes the (x[t], x[t+1], x[t+2], .) window of every row this
-// warp owns. Warp p writes rows t = p, p + 8, ... of a stage (t & 7 = p:
+// warp owns; from tap planes (PlanesIn), one 4-byte word of columns
+// 4l..4l+3 of each of planes 0..5, and two byte permutes make the same
+// window. Warp p writes rows t = p, p + 8, ... of a stage (t & 7 = p:
 // one swizzle phase), one 128-byte row a step and 4 channels a lane: a
 // shuffle of the window, a __dp4a per channel with the offset as its
 // addend, the shift, then rq1's clamp on int16 pairs (a saturating pack,
@@ -90,15 +100,56 @@ __device__ __forceinline__ uint32_t pack_sat_s16(int hi, int lo) {
   return d;
 }
 
+// The producers' input policies. A lane holds its part of one frame
+// (Lane), loaded one frame ahead, and makes from it the window of byte
+// p % 4 of its 4-sample span of plane h: (x[t], x[t+1], x[t+2], .) of
+// t = 4 * lane + p % 4 (byte 3 meets a zero tap).
+struct FramesIn {   // (B, 2, T) f32 frames, quantized here
+  const float* __restrict__ x;
+  float inv_sx;
+  struct Lane {
+    float4 v[2];
+  };
+  __device__ __forceinline__ void load(Lane& in, long long f, int lane) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) in.v[h] = __ldg(reinterpret_cast<const float4*>(x + f * 2 * T + h * T) + lane);
+  }
+  __device__ __forceinline__ uint32_t window(const Lane& in, int h, int p) const {
+    const uint32_t q = quantize4(in.v[h], inv_sx);
+    const uint32_t next = __shfl_down_sync(0xffffffffu, q, 1);   // lane 31: its own, unused
+    return __funnelshift_r(q, next, 8 * (p & 3));
+  }
+};
+
+struct PlanesIn {   // (B, 8, T) int8 tap planes: plane 3h+k holds xq[h, t+k] at t
+  const int8_t* __restrict__ xp;
+  struct Lane {
+    uint32_t v[2][3];   // columns 4l..4l+3 of planes 3h+k
+  };
+  __device__ __forceinline__ void load(Lane& in, long long f, int lane) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        in.v[h][k] = __ldg(reinterpret_cast<const uint32_t*>(xp + (f * 8 + 3 * h + k) * T) + lane);
+  }
+  __device__ __forceinline__ uint32_t window(const Lane& in, int h, int p) const {
+    const uint32_t b = p & 3;   // byte b of each plane's word: column 4 * lane + b
+    const uint32_t pair = __byte_perm(in.v[h][0], in.v[h][1], b | (b + 4) << 4);
+    return __byte_perm(pair, in.v[h][2], 0x3010u | (b + 4) << 8);
+  }
+};
+
 // Producer warp p (of PRODUCERS): conv1 + rq1 of rows t = p + 8q of every
-// chunk of every frame this block walks. TAP_SETS = 1: w1 is (3, C1), the
-// taps of both planes; TAP_SETS = 2: w1 is the tap-plane (8, K1), plane h's
-// tap k in row 3h + k, columns h*C1 .. h*C1 + C1 - 1.
-template <int TAP_SETS>
-__device__ __forceinline__ void produce(const float* __restrict__ x, long long n,
+// chunk of every frame this block walks, from the input policy `in`.
+// TAP_SETS = 1: w1 is (3, C1), the taps of both planes; TAP_SETS = 2: w1
+// is the tap-plane (8, K1), plane h's tap k in row 3h + k, columns h*C1 ..
+// h*C1 + C1 - 1.
+template <int TAP_SETS, typename In>
+__device__ __forceinline__ void produce(const In in, long long n,
                                         const int8_t* __restrict__ w1,
                                         const int* __restrict__ m1, const int* __restrict__ o1,
-                                        float inv_sx, uint8_t* ring, uint32_t full,
+                                        uint8_t* ring, uint32_t full,
                                         uint32_t empty, int p, int lane) {
   static_assert(TAP_SETS == 1 || TAP_SETS == 2, "one tap set, or one per plane");
   constexpr int SETS = 2 * TAP_SETS, W_ROW = TAP_SETS * C1;
@@ -124,32 +175,22 @@ __device__ __forceinline__ void produce(const float* __restrict__ x, long long n
       shift[c][e] = __ldg(m1 + j);
       offset[c][e] = __ldg(o1 + j);
     }
-  // Row t = p + 8q: its window starts at byte p % 4 of lane t / 4's word,
-  // and its segment s sits at s ^ (t & 7) = s ^ p in the swizzle.
-  const int src0 = p >> 2, shift_bits = 8 * (p & 3);
+  // Row t = p + 8q: its window is byte p % 4 of lane t / 4's, and its
+  // segment s sits at s ^ (t & 7) = s ^ p in the swizzle.
+  const int src0 = p >> 2;
   const int col = (((lane >> 2) ^ p) << 4) + 4 * (lane & 3);
   uint8_t* rows = ring + p * WG_CHUNK + col;
 
   const long long step = gridDim.x;
   long long f = blockIdx.x;
-  float4 xv[2];
-  if (f < n) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) xv[h] = __ldg(reinterpret_cast<const float4*>(x + f * 2 * T + h * T) + lane);
-  }
+  typename In::Lane held;
+  if (f < n) in.load(held, f, lane);
   for (int it = 0; f < n; f += step, ++it) {
     uint32_t window[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t q = quantize4(xv[h], inv_sx);
-      const uint32_t next = __shfl_down_sync(0xffffffffu, q, 1);   // lane 31: its own, unused
-      window[h] = __funnelshift_r(q, next, shift_bits);
-    }
-    if (f + step < n) {   // the next frame's samples, in flight while this one is built
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        xv[h] = __ldg(reinterpret_cast<const float4*>(x + (f + step) * 2 * T + h * T) + lane);
-    }
+    for (int h = 0; h < 2; ++h) window[h] = in.window(held, h, p);
+    // The next frame's input, in flight while this one is built.
+    if (f + step < n) in.load(held, f + step, lane);
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       mbar_wait(empty + 8 * c, (it & 1) ^ 1);
@@ -177,19 +218,17 @@ __device__ __forceinline__ void produce(const float* __restrict__ x, long long n
   }
 }
 
-// The kernels of rows 1, 5 and 10 take (x, n, conv1 taps, m1, o1, conv2,
-// m2, o2, inv_sx, out).
-using RingKernel = void (*)(const float*, long long, const int8_t*, const int*, const int*,
-                            const int8_t*, const int*, const int*, float, int8_t*);
-
-// One persistent block per SM, fewer for a batch of fewer frames; returns
-// the launch's CUDA error code (0 for n <= 0, which launches nothing).
-inline int launch_ring(RingKernel kernel, const void* x, long long n, const void* w1,
-                       const void* m1, const void* o1, const void* w2, const void* m2,
-                       const void* o2, float inv_sx, void* out, void* stream) {
+// Launch a ring kernel: one persistent block per SM, fewer for a batch of
+// fewer frames, `args` cast to the kernel's parameters; returns the
+// launch's CUDA error code (0 for n <= 0, which launches nothing; invalid
+// value for an input or output not 16-byte aligned: float4 loads, bulk
+// copies).
+template <typename... Params, typename... Args>
+inline int launch_ring_kernel(void (*kernel)(Params...), long long n, const void* in,
+                              const void* out, void* stream, Args... args) {
   if (n <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);   // float4 loads, bulk copies
+  if (reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -199,10 +238,29 @@ inline int launch_ring(RingKernel kernel, const void* x, long long n, const void
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = n < sms ? n : sms;
   kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n, static_cast<const int8_t*>(w1), static_cast<const int*>(m1),
-      static_cast<const int*>(o1), static_cast<const int8_t*>(w2), static_cast<const int*>(m2),
-      static_cast<const int*>(o2), inv_sx, static_cast<int8_t*>(out));
+      static_cast<Params>(args)...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernels of rows 1, 5 and 10 take (x, n, conv1 taps, m1, o1, conv2,
+// m2, o2, inv_sx, out); those of rows 6 and 7 the same with tap planes xp
+// for x and no inv_sx.
+using RingKernel = void (*)(const float*, long long, const int8_t*, const int*, const int*,
+                            const int8_t*, const int*, const int*, float, int8_t*);
+using PlanesRingKernel = void (*)(const int8_t*, long long, const int8_t*, const int*,
+                                  const int*, const int8_t*, const int*, const int*, int8_t*);
+
+inline int launch_ring(RingKernel kernel, const void* x, long long n, const void* w1,
+                       const void* m1, const void* o1, const void* w2, const void* m2,
+                       const void* o2, float inv_sx, void* out, void* stream) {
+  return launch_ring_kernel(kernel, n, x, out, stream, x, n, w1, m1, o1, w2, m2, o2, inv_sx,
+                            out);
+}
+
+inline int launch_ring(PlanesRingKernel kernel, const void* xp, long long n, const void* w1e,
+                       const void* m1, const void* o1, const void* w2l, const void* m2,
+                       const void* o2, void* out, void* stream) {
+  return launch_ring_kernel(kernel, n, xp, out, stream, xp, n, w1e, m1, o1, w2l, m2, o2, out);
 }
 
 }  // namespace

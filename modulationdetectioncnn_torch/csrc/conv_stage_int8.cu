@@ -92,7 +92,7 @@ conv_stage_int8_v7_kernel(const float* __restrict__ x, long long n,
   __syncthreads();
 
   if (warp >= WG_CONSUMERS / 32) {
-    produce<1>(x, n, w1, m1, o1, inv_sx, smem_raw + (base - raw), full, empty,
+    produce<1>(FramesIn{x, inv_sx}, n, w1, m1, o1, smem_raw + (base - raw), full, empty,
                warp - WG_CONSUMERS / 32, lane);
     return;
   }

@@ -84,7 +84,7 @@ conv_stage_int8_v5_kernel(const float* __restrict__ x, long long n,
   __syncthreads();
 
   if (warp >= WG_CONSUMERS / 32) {
-    produce<2>(x, n, w1e, m1, o1, inv_sx, smem_raw + (base - raw), full, empty,
+    produce<2>(FramesIn{x, inv_sx}, n, w1e, m1, o1, smem_raw + (base - raw), full, empty,
                warp - WG_CONSUMERS / 32, lane);
     return;
   }

@@ -18,13 +18,17 @@ different inputs and with different conv1 arithmetic:
   differed only in how Mosaic scheduled conv1), feeding the dense stage
   that returns logits (``make_int8_forward``), whose argmax is the label;
 - v4, v6: (B, 8, T) int8 tap planes in (quantize and ``tap_planes`` in
-  plain torch first, as the JAX package did them in XLA), then the
-  tap-plane/tap-row body on ``csrc/conv_stage_int8_mma.cuh`` (conv1 as an
-  int8 ``mma.sync`` product, integer rq1, v10's earlier conv2); v6 also
-  prefetches the next frame's planes.
+  plain torch first, as the JAX package did them in XLA), then v5's
+  producers and consumer with the producers reading the planes (planes
+  0..5 and each plane's own block of ``w1e``: the window of a row is its
+  column of planes 3h..3h+2) in place of quantizing frames; one kernel
+  body under both entry points (the two TPU kernels differed only in how
+  Mosaic scheduled the chunk loop).
 - v2, v3: (B, T-2, 8) int8 tap rows in (quantize and ``expand_taps`` in
   plain torch first, as in the JAX package), the transposed layout of the
-  planes, then the same tap-plane/tap-row body; v3 prefetches the next
+  planes, then the tap-row body on ``csrc/conv_stage_int8_mma.cuh`` (conv1
+  as an int8 ``mma.sync`` product, integer rq1, conv2 on ``mma.sync`` with
+  the weight resident); v3 prefetches the next
   frame's rows and feeds the dense + argmax stage, v2 feeds the dense
   stage that returns logits (``make_int8_forward_v2``) and takes their
   argmax.
@@ -343,17 +347,17 @@ def conv_stage_int8_v1(x: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 def conv_stage_int8_v6(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """v6 conv stage, (B, 8, 128) int8 tap planes (``tap_planes``) ->
-    (B, 124, c2) int8: conv1 and conv2 on the int8 tensor cores, the next
-    frame's planes prefetched (``cp.async``). Launches
-    ``csrc/conv_stage_int8_v6.cu``'s v6 entry on a CUDA tensor; plain
-    version on the CPU."""
+    (B, 124, c2) int8: v5's kernel design (conv1 + rq1 built in shared
+    memory by producer warps, here from the planes and ``w1e``, conv2 on
+    int8 ``wgmma`` from ``w2l``). Launches ``csrc/conv_stage_int8_v6.cu``'s
+    v6 entry on a CUDA tensor; plain version on the CPU."""
     return _run(conv_stage_int8_v6, conv_stage_int8_planes_plain, xp, qw)[..., :qw.c2]
 
 
 def conv_stage_int8_v4(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v4 conv stage: v6 without the prefetch. Launches
-    ``csrc/conv_stage_int8_v6.cu``'s v4 entry on a CUDA tensor; plain
-    version on the CPU."""
+    """v4 conv stage, v6's function and kernel body: (B, 8, 128) int8 tap
+    planes -> (B, 124, c2) int8. Launches ``csrc/conv_stage_int8_v6.cu``'s
+    v4 entry on a CUDA tensor; plain version on the CPU."""
     return _run(conv_stage_int8_v4, conv_stage_int8_planes_plain, xp, qw)[..., :qw.c2]
 
 

@@ -1,21 +1,31 @@
-"""The int8 conv stages that build conv1 on the chip (rows 1, 3, 4, 5 and 10
-of PERF.md's kernel table) on the card: a quick check of rows 3, 4, 5 and
-10, and diagnostic modes of rows 1 and 3.
+"""The int8 conv stages that build conv1 on the chip (rows 1, 3, 4, 5, 6, 7
+and 10 of PERF.md's kernel table) on the card: a quick check of rows 3, 4,
+5, 6, 7 and 10, and diagnostic modes of rows 1 and 3.
 
   check  builds the package's kernels and prints ptxas's registers and
-         spills for rows 1, 3, 4, 5 and 10; holds rows 3 and 4 (v10, v9) to
+         spills for rows 1, 3, 4, 5, 6, 7 and 10; holds rows 3 and 4 (v10, v9) to
          their plain version and to row 1's map (``chip_smoke.py::
          fold_stage_checks``: B = 1 .. 16384 on the artifact, a seeded
          model and the fold-edge model, conv1's whole map through conv2
          pass-throughs), and rows 5 and 10 (v5, v1) the same way
          (``chip_smoke.py::v5_stage_checks``: the artifact, a seeded model
-         and row 1's edge models); then, with an earlier body at
+         and row 1's edge models), and rows 6 and 7 (v6, v4) the same way
+         on the tap planes of those frames and on random planes
+         (``chip_smoke.py::v6_stage_checks``); then, with an earlier body at
          ``probe.OLD_CONV_FOLD_SRC``, old, new, new, old beside row 1 and
          ``_int_mm`` (``probe.conv_fold_old_vs_new``), with one at
          ``probe.OLD_CONV_V5_SRC`` the same for rows 5 and 10
-         (``probe.conv_v5_old_vs_new``), and with one at
+         (``probe.conv_v5_old_vs_new``), with one at
+         ``probe.OLD_CONV_V6_SRC`` the same for rows 6 and 7 beside row 5
+         too (``probe.conv_v6_old_vs_new``), and with one at
          ``probe.OLD_CONV_V7_SRC`` the same for row 1
          (``probe.conv_v7_old_vs_new``).
+  sass   disassembles (``cuobjdump -sass``) the package's rows 1, 5 and 10
+         and their earlier bodies at ``probe.OLD_CONV_V7_SRC`` and
+         ``probe.OLD_CONV_V5_SRC`` (each built with the headers beside it)
+         and reports, per kernel, whether the instructions are the same:
+         an edit to a shared header that should leave a kernel's machine
+         code as it was is held to that.
   modes  copies ``csrc/conv_stage_int8_v10.cu`` (row 3) and
          ``csrc/conv_stage_int8.cu`` with its producer's header
          ``csrc/conv1_producer_s8.cuh`` (row 1), each with the consumer
@@ -42,12 +52,13 @@ of PERF.md's kernel table) on the card: a quick check of rows 3, 4, 5 and
 One JSON line per record; the card's name and power limit first. Needs a
 card (and nvcc); run from the repo root:
 
-    python -m modulationdetectioncnn_torch.scripts.conv_int8_modes check modes
+    python -m modulationdetectioncnn_torch.scripts.conv_int8_modes check sass modes
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,7 +77,8 @@ ROWS = {"row3": ("conv_stage_int8_v10.cu", "conv_stage_int8_v10.cu", probe.CONV_
                  lambda lib, x, qw: probe._old_conv(lib, "conv_stage_int8_v10", x, qw)),
         "row1": ("conv_stage_int8.cu", "conv1_producer_s8.cuh", probe.CONV_V7_ENTRIES,
                  lambda lib, x, qw: probe._old_conv(lib, "conv_stage_int8_v7", x, qw))}
-KERNELS = ("conv_stage_folded_kernel", "conv_stage_int8_v7_kernel", "conv_stage_int8_v5_kernel")
+KERNELS = ("conv_stage_folded_kernel", "conv_stage_int8_v7_kernel", "conv_stage_int8_v5_kernel",
+           "conv_stage_int8_v6_kernel")
 PIN = "    for (int i = 0; i < C2 / 2; ++i) pin(acc[i]);\n"
 SINK = """    {
       int sink = 0;
@@ -278,6 +290,7 @@ def run_check() -> int:
     x = _frames(max(smoke.FOLD_BATCHES), seed=1)
     recs = smoke.fold_stage_checks(weights, {"artifact": art.tree(), "fold_edge": edge}, x)
     recs += smoke.v5_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x)
+    recs += smoke.v6_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x)
     for rec in recs:
         bad += rec["mismatches"] + rec.get("maps_vs_v7", 0)
         _out(**rec)
@@ -286,6 +299,8 @@ def run_check() -> int:
                                probe.conv_fold_old_vs_new),
                               (probe.OLD_CONV_V5_SRC, probe.CONV_V5_ENTRIES,
                                probe.conv_v5_old_vs_new),
+                              (probe.OLD_CONV_V6_SRC, probe.CONV_V6_ENTRIES,
+                               probe.conv_v6_old_vs_new),
                               (probe.OLD_CONV_V7_SRC, probe.CONV_V7_ENTRIES,
                                probe.conv_v7_old_vs_new)):
         lib = probe.old_library(src, entries)
@@ -297,6 +312,51 @@ def run_check() -> int:
             _out(**rec)
     _out(check_failures=bad)
     return bad
+
+
+def _sass(lib_path: str) -> dict[str, list[str]]:
+    """{mangled kernel name: its instructions} of the library ``lib_path``
+    (``cuobjdump -sass``; addresses and encodings dropped)."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", ln)
+        if name and m:
+            funcs[name].append(" ".join(m.group(1).split()))
+    return funcs
+
+
+def run_sass() -> int:
+    """The sass step above; returns the count of kernels whose code differs
+    (0 when no earlier body is there)."""
+    new = _sass(_build.build()["path"])
+    differ = 0
+    for src, entries, kernels in ((probe.OLD_CONV_V7_SRC, probe.CONV_V7_ENTRIES,
+                                   ("conv_stage_int8_v7_kernel",)),
+                                  (probe.OLD_CONV_V5_SRC, probe.CONV_V5_ENTRIES,
+                                   ("conv_stage_int8_v5_kernel",))):
+        lib = probe.old_library(src, entries)
+        if lib is None:
+            _out(skipped=f"no earlier body at {src}")
+            continue
+        old = _sass(lib._name)
+        for k in kernels:
+            (a,) = [v for n, v in old.items() if k in n]
+            (b,) = [v for n, v in new.items() if k in n]
+            same = a == b
+            differ += 0 if same else 1
+            _out(sass=k, old=os.path.relpath(src, _build.PKG_DIR), instructions=[len(a), len(b)],
+                 identical=same,
+                 first_difference=None if same else next(
+                     (i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b))))
+    return differ
 
 
 def run_modes() -> None:
@@ -362,9 +422,9 @@ def run_modes() -> None:
 
 def main(argv: list[str] | None = None) -> int:
     names = (sys.argv[1:] if argv is None else argv) or ["check"]
-    unknown = [n for n in names if n not in ("check", "modes")]
+    unknown = [n for n in names if n not in ("check", "sass", "modes")]
     if unknown:
-        raise SystemExit(f"unknown step(s) {unknown}; use check, modes")
+        raise SystemExit(f"unknown step(s) {unknown}; use check, sass, modes")
     if not torch.cuda.is_available():
         raise SystemExit("conv_int8_modes needs a CUDA card")
     _build.load_library()
@@ -375,6 +435,8 @@ def main(argv: list[str] | None = None) -> int:
     with torch.no_grad():
         if "check" in names:
             failures = run_check()
+        if "sass" in names:
+            failures += run_sass()
         if "modes" in names:
             run_modes()
     return 1 if failures else 0

@@ -32,6 +32,11 @@ a function that one of the port's kernels computes (PERF.md section 6).
             ``csrc/conv_stage_int8_v5.cu`` (a copy at ``OLD_CONV_V5_SRC``)
             the same way, beside row 1 and ``_int_mm`` on conv2's
             lane-packed product, maps bit for bit
+  conv_v6_old rows 6 and 7 (v6, v4) against an earlier body of
+            ``csrc/conv_stage_int8_v6.cu`` (a copy at ``OLD_CONV_V6_SRC``,
+            with the header it includes beside it) the same way, on the tap
+            planes of the same frames, beside row 5, row 1 and ``_int_mm``
+            on conv2's lane-packed product, maps bit for bit
   conv2_maps row 18 bf16 on the bench's conv1 map, a seeded map, its ReLU,
             zeros, and with one channel tile (Co 40), beside torch.matmul
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
@@ -56,7 +61,9 @@ the same way against the JAX package's Pallas kernels in interpret mode;
 bf16 conv stages (rows 15, 14, 12) against an earlier body at
 ``OLD_CONV_BF16_SRC`` for chip_smoke.py, ``conv_fold_old_vs_new`` rows 3
 and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``, ``conv_v5_old_vs_new``
-rows 5 and 10 (v5, v1) against one at ``OLD_CONV_V5_SRC``. ``fold_edge_tree``
+rows 5 and 10 (v5, v1) against one at ``OLD_CONV_V5_SRC``,
+``conv_v6_old_vs_new`` rows 6 and 7 (v6, v4) against one at
+``OLD_CONV_V6_SRC``. ``fold_edge_tree``
 builds a model at the edge of the v9/v10 fold's contract and
 ``conv1_probe_trees`` turns conv2 into a pass-through, so that a conv
 stage's map shows its conv1 map: chip_smoke.py holds rows 3 and 4 to
@@ -504,18 +511,27 @@ OLD_CONV_FOLD_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v10_old.cu")
 CONV_FOLD_ENTRIES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
 OLD_CONV_V5_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v5_old.cu")
 CONV_V5_ENTRIES = ("conv_stage_int8_v5", "conv_stage_int8_v1")
+# The tap-plane body that rows 6 and 7 ran first includes
+# conv_stage_int8_mma.cuh: a copy of the header of the same commit goes
+# beside OLD_CONV_V6_SRC.
+OLD_CONV_V6_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v6_old.cu")
+CONV_V6_ENTRIES = ("conv_stage_int8_v6", "conv_stage_int8_v4")
 
 
 def _old_conv(lib: ctypes.CDLL, name: str, x: torch.Tensor, qw) -> torch.Tensor:
-    """The old library's entry ``amc_<name>`` of a frames-in int8 conv stage
-    on the package wrapper's arguments (the weights of
-    ``ops/infer.py::_ENTRIES``, in their order): the (B, 124, 80) int8 map."""
+    """The old library's entry ``amc_<name>`` of an int8 conv stage on the
+    package wrapper's arguments (its input, frames or tap planes, then the
+    weights of ``ops/infer.py::_ENTRIES`` in their order, and inv_sx for
+    frames): the (B, 124, 80) int8 map."""
     from modulationdetectioncnn_torch.ops import infer
 
     b = x.shape[0]
     out = torch.empty((b, 124, 80), dtype=torch.int8, device=x.device)
-    weights = (getattr(qw, k).data_ptr() for k in infer._ENTRIES[name][0])
-    code = getattr(lib, f"amc_{name}")(x.data_ptr(), b, *weights, qw.inv_sx, out.data_ptr(),
+    keys, kind = infer._ENTRIES[name]
+    args = [x.data_ptr(), b, *(getattr(qw, k).data_ptr() for k in keys)]
+    if kind == infer._FRAMES:
+        args.append(qw.inv_sx)
+    code = getattr(lib, f"amc_{name}")(*args, out.data_ptr(),
                                        torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"old amc_{name} failed to launch: CUDA error {code}")
@@ -566,15 +582,16 @@ def probe_conv_v7_old() -> list[dict]:
 
 
 def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
-                     batches) -> list[dict]:
-    """The frames-in conv stages ``entries``, the old body against the
-    package's, on seeded frames (0.7 N(0, 1)) under the full-width weights
-    ``qw``: each timed old, new, new, old (median of 5 runs of 20 calls
-    between CUDA events, then the profiler's device time per call, in the
-    same order), beside two yardsticks timed in the same round: row 1 (the
-    package's v7, the same map) and ``torch._int_mm`` on conv2's
-    lane-packed product, (B*126, 512) x (512, 240). ``ok``: the maps bit
-    for bit."""
+                     batches, with_v5: bool = False) -> list[dict]:
+    """The int8 conv stages ``entries``, the old body against the
+    package's, on seeded frames (0.7 N(0, 1)) or their tap planes (the
+    entries that take planes) under the full-width weights ``qw``: each
+    timed old, new, new, old (median of 5 runs of 20 calls between CUDA
+    events, then the profiler's device time per call, in the same order),
+    beside yardsticks timed in the same round: row 1 (the package's v7, the
+    same map), ``with_v5`` row 5 (v5, the same map from the frames) and
+    ``torch._int_mm`` on conv2's lane-packed product, (B*126, 512) x (512,
+    240). ``ok``: the maps bit for bit."""
     from modulationdetectioncnn_torch.ops import infer
     from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
     from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
@@ -589,12 +606,17 @@ def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
         a1 = infer.conv1_int8_plain(x, qw).reshape(-1, 512)
         mm = lambda: torch._int_mm(a1, w_cm)  # noqa: E731
         v7 = lambda: infer.conv_stage_int8_v7(x, qw)  # noqa: E731
-        yard = {"row1_v7_ms": ms(v7), "row1_v7_device_ms": device_ms_per_call(v7),
-                "library_lane_packed_ms": ms(mm),
-                "library_lane_packed_device_ms": device_ms_per_call(mm)}
+        yard = {"row1_v7_ms": ms(v7), "row1_v7_device_ms": device_ms_per_call(v7)}
+        if with_v5:
+            v5 = lambda: infer.conv_stage_int8_v5(x, qw)  # noqa: E731
+            yard.update(row5_v5_ms=ms(v5), row5_v5_device_ms=device_ms_per_call(v5))
+        yard.update(library_lane_packed_ms=ms(mm),
+                    library_lane_packed_device_ms=device_ms_per_call(mm))
+        planes = infer.tap_planes(x, qw.inv_sx)
         for name in entries:
-            new = lambda: getattr(infer, name)(x, qw)  # noqa: E731
-            old = lambda: _old_conv(lib, name, x, qw)  # noqa: E731
+            inp = planes if infer._ENTRIES[name][1] == infer._PLANES else x
+            new = lambda: getattr(infer, name)(inp, qw)  # noqa: E731
+            old = lambda: _old_conv(lib, name, inp, qw)  # noqa: E731
             differ = int((new() != old()).sum())
             times = [ms(old), ms(new), ms(new), ms(old)]
             dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
@@ -603,7 +625,7 @@ def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
                          "old_device_ms": [dev_ms[0], dev_ms[3]],
                          "new_device_ms": [dev_ms[1], dev_ms[2]], **yard,
                          "maps_differing": differ, "ok": differ == 0})
-        del x, a1
+        del x, a1, planes
     return recs
 
 
@@ -617,10 +639,22 @@ def conv_v5_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> lis
     return _conv_old_vs_new(lib, qw, CONV_V5_ENTRIES, "conv_v5_old", batches)
 
 
+def conv_v6_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 6 and 7 (v6, v4) against an earlier body (``_conv_old_vs_new``,
+    beside row 5 too)."""
+    return _conv_old_vs_new(lib, qw, CONV_V6_ENTRIES, "conv_v6_old", batches, with_v5=True)
+
+
 def probe_conv_v5_old() -> list[dict]:
     """Rows 5 and 10 against an earlier body of ``csrc/conv_stage_int8_v5.cu``
     (a copy at ``OLD_CONV_V5_SRC``) on the committed artifact's weights."""
     return _conv_old("conv_v5_old", OLD_CONV_V5_SRC, CONV_V5_ENTRIES, conv_v5_old_vs_new)
+
+
+def probe_conv_v6_old() -> list[dict]:
+    """Rows 6 and 7 against an earlier body of ``csrc/conv_stage_int8_v6.cu``
+    (a copy at ``OLD_CONV_V6_SRC``) on the committed artifact's weights."""
+    return _conv_old("conv_v6_old", OLD_CONV_V6_SRC, CONV_V6_ENTRIES, conv_v6_old_vs_new)
 
 
 def _conv_old(tag: str, src: str, entries: tuple[str, ...], run) -> list[dict]:
@@ -1131,6 +1165,7 @@ PROBES = {
     "conv2_maps": probe_conv2_maps,
     "conv_v7_old": probe_conv_v7_old,
     "conv_v5_old": probe_conv_v5_old,
+    "conv_v6_old": probe_conv_v6_old,
     "batch": probe_batch,
     "r3stream": probe_r3stream,
     "r5cfo": probe_r5cfo,

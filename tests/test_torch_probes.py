@@ -85,7 +85,7 @@ def test_probes_raise_without_a_card(no_card, name, capsys):
 def test_probe_names():
     assert set(probe.PROBES) == {"ceil", "stage", "dense", "dense_old", "dense_bf16_old",
                                  "conv2_old", "conv2_maps", "conv_v7_old", "conv_v5_old",
-                                 "batch",
+                                 "conv_v6_old", "batch",
                                  "r3stream", "r5cfo"}
     with pytest.raises(SystemExit, match="unknown probe"):
         probe.main(["r4"])
