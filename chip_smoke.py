@@ -215,18 +215,22 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                the default C 256, Co 80: three row tiles on conv2's Hopper
                route), and conv2 on its edges (int8: a map all 127 under
                weights all +-127, sums near +-2.5e7, offsets across the
-               clip; bf16: magnitudes near 2^50): float conv1 (bf16 and
-               float32 out) and both int8 kernels bit for bit, float conv2
-               within 1e-5 of the map's largest magnitude (float32) or the
-               bf16 map tolerance; row 19 -> row 20 equal to v7's map and,
-               through the dense stage, its labels; conv2's launches per
-               route (the default widths on the Hopper route); times at
-               B=4096 beside bound, plain and library. Where an earlier
-               body of ``csrc/cnn_kernels.cu`` (conv2's tile body alone)
-               was copied to ``_build/cnn_kernels_old.cu`` (never
-               committed), rows 18 (bf16, float32) and 20 are timed
-               against it, old, new, new, old, at B = 4096, 2048 and 16384
-               (``cnn_kernels.old_vs_new`` lines).
+               clip; bf16: magnitudes near 2^50; float32: map channels
+               spanning 2^-20 .. 2^20 under weights of both signs): float
+               conv1 (bf16 and float32 out) and both int8 kernels bit for
+               bit, float conv2 within 1e-5 of the map's largest magnitude
+               (float32) or the bf16 map tolerance; row 19 -> row 20 equal
+               to v7's map and, through the dense stage, its labels;
+               conv2's launches per route (the default widths on the
+               Hopper route in bf16 and int8, on the FFMA route in
+               float32; float32 at T 40, C 33, Co 7 on the general route);
+               times at B=4096 beside bound, plain and library. Where an
+               earlier body of ``csrc/cnn_kernels.cu`` was copied to
+               ``_build/cnn_kernels_old.cu`` (never committed), rows 18
+               (bf16, float32) and 20 are timed against it, each against
+               the copy's entry of its own route where the copy has one,
+               else its general body, old, new, new, old, at B = 4096,
+               2048 and 16384 (``cnn_kernels.old_vs_new`` lines).
 - probe_kernels (after cnn_kernels) -- the two kernels of the JAX
                package's probe suite that no product kernel computes
                (``ops/probe_kernels.py``: the copy and the int8 prologue
@@ -363,6 +367,7 @@ KERNEL_SYMBOLS = {
     "copy_bytes": "copy_bytes_kernel",
     "quantize_tap_planes": "tap_planes_kernel",
 }
+F32_CONV2_SYMBOL = "conv2_ffma_kernel<float>"               # row 18 float32, the FFMA route
 CNN_KERNELS = ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8")
 PROBE_KERNELS = ("copy_bytes", "quantize_tap_planes")
 CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2", "v1")
@@ -1385,7 +1390,8 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     and two channel tiles; T 300 at C 256, Co 80, three row tiles on the
     Hopper route), and conv2 on its edges (``conv2_edge_cases``): rows 17
     (bf16 and float32 out), 19 and 20 bit for bit,
-    row 18 within 1e-5 of the map's largest magnitude in float32 and within
+    row 18 within 1e-5 of the map's largest magnitude in float32 (on the
+    FFMA route, and on the general route at T 40, C 33, Co 7) and within
     the bf16 map tolerance in bf16. Float weights: the bench's seeded model
     and the exported checkpoint; int8: the committed artifact. On the
     quantized frames row 19 -> row 20 must equal v7's map (row 1) bit for
@@ -1460,8 +1466,12 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
             record("conv1_stacked", f"{case}/{str(out)[6:]}", a1,
                    ck.conv1_stacked_plain(x, w1p, b1, out))
             w2 = w2p.to(out).contiguous()
+            before = dict(ck.conv2_stacked.route_launches)
             got = ck.conv2_stacked(a1, w2, b2, out_dtype=out)
             want = ck.conv2_stacked_plain(a1, w2, b2, out)
+            if out == torch.float32:
+                f32_routes[case] = [r for r, c in ck.conv2_stacked.route_launches.items()
+                                    if c != before[r]]
             if out == torch.bfloat16:
                 record("conv2_stacked", f"{case}/bf16", got, want, probe.BF16_MAP_RTOL,
                        probe.BF16_MAP_ATOL_OF_MAX)
@@ -1476,6 +1486,7 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         return a2
 
     chain = {}
+    f32_routes = {}      # case: the routes its float32 conv2 launch counted
     for xname, x in inputs.items():
         for wname, fw in float_sets.items():
             float_pair(f"{wname}/{xname}", x, *fw)
@@ -1493,6 +1504,9 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         if a1.dtype == torch.int8:
             record("conv2_stacked_int8", name, ck.conv2_stacked_int8(a1, w2p, *rest),
                    ck.conv2_stacked_int8_plain(a1, w2p, *rest))
+        elif a1.dtype == torch.float32:
+            record("conv2_stacked", name, ck.conv2_stacked(a1, w2p, *rest, out_dtype=a1.dtype),
+                   ck.conv2_stacked_plain(a1, w2p, *rest, a1.dtype), 0.0, 1e-5)
         else:
             record("conv2_stacked", name, ck.conv2_stacked(a1, w2p, *rest),
                    ck.conv2_stacked_plain(a1, w2p, *rest), probe.BF16_MAP_RTOL,
@@ -1502,10 +1516,14 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     for c in checks:
         emit({"phase": "cnn_kernels.check", **c})
     emit({"phase": "cnn_kernels.chain", "row19_row20_vs_v7": chain})
-    emit({"phase": "cnn_kernels.routes", "check_launches_per_route": check_routes})
+    emit({"phase": "cnn_kernels.routes", "check_launches_per_route": check_routes,
+          "float32_routes": f32_routes})
     for kname, st in stats.items():
         require(st["mismatches"] == 0, f"{kname}: {st['mismatches']} elements outside "
                 "tolerance of the plain version")
+    # float32 on both bodies: the FFMA route but at the narrow odd shape.
+    require(all(r == (["general"] if c.startswith("t40_") else ["ffma"])
+                for c, r in f32_routes.items()), f"float32 conv2 routes: {f32_routes}")
     require(all(c["map_vs_v7"] == 0 and c["labels_vs_v7"] == 0 for c in chain.values()),
             f"row 19 -> row 20 differs from v7: {chain}")
 
@@ -1554,13 +1572,19 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
           "torch._int_mm, z = (B*126, 512) x (512, 240)"),
          (conv2_ops, "int8"), nbytes(a1q, *i8[3:]) + b * (t1 - 2) * 80),
     )
-    # The default widths take the Hopper route.
+    # The default widths take the Hopper route in bf16 and int8, the FFMA
+    # route in float32.
     ck.reset_launch_counts()
     plans[1][1]()
     plans[3][1]()
     timed_routes = ck.route_launch_counts()
-    require(all(timed_routes[k] == {"wgmma": 1, "general": 0} for k in timed_routes),
+    require(all(timed_routes[k] == {"wgmma": 1, "ffma": 0, "general": 0} for k in timed_routes),
             f"conv2 at the default widths did not take the Hopper route: {timed_routes}")
+    ck.reset_launch_counts()
+    ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32)
+    f32_timed_route = ck.route_launch_counts()["conv2_stacked"]
+    require(f32_timed_route == {"wgmma": 0, "ffma": 1, "general": 0},
+            f"float32 conv2 at the default widths did not take the FFMA route: {f32_timed_route}")
     rows = []
     for kname, kernel, plain, lib, (ops, kind), nb in plans:
         t_ops, t_bytes = ops / peaks[kind] * 1e3, nb / bw * 1e3
@@ -1585,13 +1609,16 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     f32_ops_ms = conv2_ops / peaks["f32"] * 1e3
     f32_bytes = nbytes(a1f, w2p, b2) + b * (t1 - 2) * 80 * 4
     rows[1]["float32"] = {
+        "conv2_route": "ffma",
         "ms": time_ms(lambda: ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32), iters=5),
         "device_ms": device_ms(lambda: ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32),
-                               "conv2_kernel<2", iters=5),
+                               F32_CONV2_SYMBOL, iters=5),
         "bound_ms": max(f32_ops_ms, f32_bytes / bw * 1e3),
         "bound_by": "operations" if f32_ops_ms >= f32_bytes / bw * 1e3 else "bytes",
         "library_ms": time_ms(lambda: torch.matmul(a1f.reshape(-1, 512), w2p), iters=5),
         "library_call": "torch.matmul f32 (TF32 off), z = (B*126, 512) x (512, 240)"}
+    require(rows[1]["float32"]["device_ms"] is not None,
+            f"conv2_stacked: the profiler shows no {F32_CONV2_SYMBOL}")
     rows[0]["float32_out_ms"] = time_ms(
         lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32), iters=20)
     emit({"phase": "cnn_kernels", "timed": rows, "check_launches": check_launches})
@@ -1621,7 +1648,13 @@ def conv2_edge_cases(seed: int) -> dict:
       of 17-18 and offsets of +-2^22 put the requantized values below 0,
       inside [0, 127] and above it;
     - ``bf16_large``: a seeded bf16 map and weights near 2^50, sums near
-      2^100 (float32 holds them; bf16 rounds them)."""
+      2^100 (float32 holds them; bf16 rounds them);
+    - ``f32_wide_range``: float32 out of a map whose channels span 2^-20 ..
+      2^20 under weights of both signs (``probe.conv2_f32_wide_range``):
+      the largest channels' terms cancel in many sums, the ReLU cuts about
+      half of them."""
+    from modulationdetectioncnn_torch.scripts.probe import conv2_f32_wide_range
+
     r = np.random.default_rng(seed)
     b, t, k, co = 133, 126, 512, 80
     share = np.linspace(0.0, 1.0, co)
@@ -1638,7 +1671,8 @@ def conv2_edge_cases(seed: int) -> dict:
 
     return {"int8_saturated": (torch.full((b, t, k), 127, dtype=torch.int8, device="cuda"),
                                dev(w2p), dev(m2), dev(o2)),
-            "bf16_large": (dev(a1f).to(torch.bfloat16), dev(w2f).to(torch.bfloat16), dev(bias))}
+            "bf16_large": (dev(a1f).to(torch.bfloat16), dev(w2f).to(torch.bfloat16), dev(bias)),
+            "f32_wide_range": tuple(map(dev, conv2_f32_wide_range(b, seed + 1)))}
 
 
 def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:

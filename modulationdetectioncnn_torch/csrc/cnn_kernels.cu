@@ -5,8 +5,8 @@
 //   (ops/cnn_kernels.py:78, reached by pl.pallas_call in conv1_stacked,
 //   ops/cnn_kernels.py:111) with amc_conv1_stacked,
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv2_kernel
-//   (:129, conv2_stacked, :165) with amc_conv2_stacked and
-//   amc_conv2_stacked_wgmma (two routes, below),
+//   (:129, conv2_stacked, :165) with amc_conv2_stacked,
+//   amc_conv2_stacked_wgmma and amc_conv2_stacked_ffma (three routes, below),
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv1_int8_kernel
 //   (:223, conv1_stacked_int8, :249) with amc_conv1_stacked_int8, and
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv2_int8_kernel
@@ -51,7 +51,7 @@
 // once; the pair of two channels is one 4-byte (bf16), 8-byte (f32) or
 // 2-byte (int8) store, aligned because 2C is even.
 //
-// conv2 has two bodies; ops/cnn_kernels.py::conv2_route picks one from the
+// conv2 has three bodies; ops/cnn_kernels.py::conv2_route picks one from the
 // widths, the dtype and the alignment (a dispatch by shape, never a retry):
 //
 // - The Hopper route (amc_conv2_stacked_wgmma, amc_conv2_stacked_int8_wgmma;
@@ -95,8 +95,48 @@
 //   cluster multicasting each box (each bf16 frame read once) and
 //   warpgroups taking alternate items from rings of their own both ran
 //   slower.
+// - The FFMA route (amc_conv2_stacked_ffma; float32, K a multiple of 4, Co a
+//   multiple of 4, a1s and w2p 16-byte aligned, any K: the default widths
+//   always). IEEE f32 FMAs on the CUDA cores, no TF32: its bound is the
+//   124.8 GFLOP at 67 TFLOP/s, 1.86 ms at B = 4096 (the bytes take 0.36).
+//   Persistent blocks, one per SM, walk work items of 128 consecutive rows
+//   of the map taken as B * t_in rows (a tile may span two frames; its rows
+//   t >= t_out mix two frames and are not stored: 2 of 126 rows at T 128,
+//   against 4 of 128 for tiles of one frame's 124 outputs, and 4032 items
+//   at B = 4096 where those gave 4096) for one 80-channel tile. A producer
+//   warp keeps a 4-stage ring full on full/empty mbarriers, running ahead
+//   across items; a stage is K j .. j+31: the map's box (130 rows x 128
+//   bytes, the 128-byte swizzle; rows past B * t_in and K past k_in arrive
+//   as zeros) and three boxes of w2p (32 rows x 80 columns k*Co + 80y ..,
+//   one a tap, straight from its (K, 3Co) layout: no transpose, no integer
+//   division), 47 KB in all. The weight is streamed, not resident, so K has
+//   no limit; it crosses L2 once per item (2.0 GB at B = 4096, far under
+//   L2's rate). Eight consumer warps (two a scheduler: ten would leave two
+//   schedulers three) do register-blocked outer products: a thread owns 8
+//   rows (pairs 16 apart) x 5 channels (4 from one 16-byte load, 1 of
+//   channels 64-79), 40 sums; per 4 K a warp issues 480 FFMA beside 16 map
+//   and 24 weight loads and 4 XORs of the swizzle: the 4 lanes of a row
+//   share each map load, and the 8 rows of a load fall on 4 swizzle phases
+//   (2 wavefronts). Tap k of a row reads map row + k, so the shift-add
+//   happens in the accumulator, as in the other routes. The epilogue (bias,
+//   ReLU, one rounding) stores 16 bytes (f32) or 8 (bf16) for the 4
+//   channels and one element for the fifth, masked at the tile's edges.
+//   163-166 registers, 0 spills. What bounds it (PERF.md section 6,
+//   scripts/conv2_ffma_modes.py): FFMA issue at 1,980 MHz, and the weight
+//   loads: 24 instructions beside 480 FFMA, they cost 12 % of the time
+//   (their 16-byte loads 8 %), while the map's loads cost nothing
+//   measurable and the waits for a stage's data 3.5 %; 2.76 ms at B =
+//   4096, 1.5x the bound, 2-4 % over torch.matmul's f32 z. Found on the
+//   way, with code not kept (its numbers are not recorded): a thread's rows
+//   8 apart or in fours, tiles of one frame, 4 consumer warps of 16 rows,
+//   4 lanes a warp along rows in place of 8, a barrier across the
+//   consumers each stage, and the next chunk's
+//   weights loaded into a second register set (which needs 8 warps in all
+//   for its 221 registers: a ninth warp puts three on one scheduler, whose
+//   16,384 registers then hold each thread to 168, whatever setmaxnreg or
+//   __maxnreg__ ask) all ran no faster.
 // - The general route (amc_conv2_stacked, amc_conv2_stacked_int8; any
-//   width, and float32 always): one block of 8 warps per (frame, 128 output
+//   width): one block of 8 warps per (frame, 128 output
 //   rows, 80 channels) tile. K is walked in 64-byte chunks: the tile's 130
 //   input rows and the chunk of all three taps' weights, transposed to
 //   [k*80 + co][j], are staged in shared memory (16-byte loads when the rows
@@ -603,6 +643,258 @@ int launch_conv2_wgmma(const void* a, long long b, int t_in, int k_in, int co,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- conv2 float32, the FFMA route
+
+constexpr int FF_BN = 80;                       // channels a block owns: 16 quads + 16 singles
+constexpr int FF_KC = WG_CHUNK / 4;             // K a stage holds: one 128-byte row of floats
+constexpr int FF_STAGES = 4;
+constexpr int FF_WARPS = 8;                     // consumer warps, 2 per scheduler
+constexpr int FF_CONSUMERS = 32 * FF_WARPS;
+constexpr int FF_THREADS = FF_CONSUMERS + 32;   // and one producer warp
+constexpr int FF_P = 2;                         // a thread's rows: runs of FF_P, 8 FF_P apart
+constexpr int FF_WARP_ROWS = BM * 4 / FF_WARPS; // rows a warp owns (4 warps side by side)
+constexpr int FF_W_TAP = FF_KC * FF_BN * 4;     // one tap's weight box: 10,240 bytes
+constexpr int FF_W_ROWS4 = 4 * FF_BN * 4;       // 4 rows of a tap's box, bytes
+constexpr int FF_STAGE = WG_STAGE + 3 * FF_W_TAP;
+constexpr int FF_TX = A_ROWS * WG_CHUNK + 3 * FF_W_TAP;    // bytes one stage's boxes bring
+constexpr int FF_SMEM = 1024 + FF_STAGES * FF_STAGE + 2 * FF_STAGES * 8;
+static_assert(FF_BN == 4 * 16 + 16, "16 threads a row: 4 channels and 1 each");
+static_assert(FF_WARPS % 4 == 0 && FF_WARP_ROWS % (8 * FF_P) == 0,
+              "whole warps per scheduler; a warp's rows in runs of 8 P");
+static_assert(FF_STAGE % 1024 == 0, "stages on the swizzle's 1024-byte atom");
+static_assert(FF_SMEM <= 232448, "the ring fits the 227 KB a block may have");
+static_assert(2 * FF_SMEM > 228 * 1024, "one block per SM: the grid is one block per SM");
+
+__device__ __forceinline__ void store4(float* o, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(o) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// A thread's weights for 4 rows j of a stage (w_j: the first row of tap
+// 0's box): per row q and tap k, channels 4n .. 4n+3 and 64 + n.
+struct FfWeights {
+  float4 quad[4][3];
+  float one[4][3];
+};
+
+__device__ __forceinline__ void ff_load_weights(FfWeights& w, const uint8_t* w_j, int n) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint8_t* p = w_j + k * FF_W_TAP + q * FF_BN * 4;
+      w.quad[q][k] = *reinterpret_cast<const float4*>(p + 16 * n);
+      w.one[q][k] = *reinterpret_cast<const float*>(p + 4 * (64 + n));
+    }
+}
+
+// The products of chunk j4 (K j .. j+3) into a thread's M x P rows x 5
+// channels: map row row0 + d + 8P m's chunk j4 lies at aoff[d] ^ (j4 << 4)
+// plus 1024 P m of the stage; tap k of row e reads map row e + k, so the
+// shift-add happens in the accumulator.
+template <int M, int P, int D>
+__device__ __forceinline__ void ff_chunk(float (&acc)[M][P][5], const FfWeights& w,
+                                         const uint8_t* a_st, const uint32_t (&aoff)[D], int j4) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float4 a[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      a[d] = *reinterpret_cast<const float4*>(a_st + ((aoff[d] ^ (j4 << 4)) +
+                                                      m * 8 * P * WG_CHUNK));
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int e = 0; e < P; ++e) {
+          const float x = lane4(a[e + k], q);
+          float* o = acc[m][e];
+          o[0] = fmaf(x, w.quad[q][k].x, o[0]);
+          o[1] = fmaf(x, w.quad[q][k].y, o[1]);
+          o[2] = fmaf(x, w.quad[q][k].z, o[2]);
+          o[3] = fmaf(x, w.quad[q][k].w, o[3]);
+          o[4] = fmaf(x, w.one[q][k], o[4]);
+        }
+  }
+}
+
+// a: the map as B * t_in rows of K floats (a 2-D tensor map), boxes of 130
+// rows x 32 floats in the 128-byte swizzle; w: w2p (K, 3Co) as a 2-D tensor
+// map, boxes of 32 rows x 80 columns, no swizzle. Rows past B * t_in and
+// columns past K or 3Co read as zeros. Work item w is the 128 rows from
+// 128 w on (a tile may span two frames: its rows t >= t_out mix two frames
+// and are not stored); block (x, y) takes items x, x + gridDim.x, ... for
+// channels [80y, 80y + 80). A stage holds K j .. j+31: the map's box, then
+// tap k's box of w2p's columns k*Co + 80y .. +79 (columns of the next tap
+// or past 3Co, where the tile passes Co, feed only channels not stored).
+template <typename OutT>
+__global__ void __launch_bounds__(FF_THREADS, 1)
+conv2_ffma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+                  int items, int rows, int t_in, int co, int k_stages,
+                  const float* __restrict__ b2, OutT* __restrict__ out) {
+  constexpr int P = FF_P, M = FF_WARP_ROWS / (8 * P), D = P + 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - raw);
+  const uint32_t full = base + FF_STAGES * FF_STAGE, empty = full + 8 * FF_STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int co0 = blockIdx.y * FF_BN;
+  if (tid == 0) {
+    for (int s = 0; s < FF_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, FF_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == FF_WARPS) {  // the producer: lane 0 keeps the ring full
+    if (lane == 0) {
+      int it = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        for (int c = 0; c < k_stages; ++c, ++it) {
+          const int s = it % FF_STAGES;
+          const uint32_t bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((it / FF_STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar, FF_TX);
+          tma_load(sm + s * FF_STAGE, &amap, c * FF_KC, w * BM, bar);
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            tma_load(sm + s * FF_STAGE + WG_STAGE + k * FF_W_TAP, &wmap, k * co + co0, c * FF_KC,
+                     bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // Thread (lane / 4, lane % 4) of warp w owns tile rows row0 + 8P m + e
+  // (m < M, e < P), row0 = FF_WARP_ROWS (w / 4) + P (lane / 4), and
+  // channels 4n .. 4n+3 and 64 + n of the block's 80, n = 4 (w % 4) + lane % 4:
+  // the 4 lanes of a row read one map address (a broadcast), the 8 rows of
+  // an instruction fall on 8/P swizzle phases. aoff[d] is map row row0 + d
+  // with its swizzle phase folded in (ff_chunk).
+  const int n = 4 * (warp & 3) + (lane & 3);
+  const int row0 = FF_WARP_ROWS * (warp >> 2) + P * (lane >> 2);
+  uint32_t aoff[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) aoff[d] = (row0 + d) * WG_CHUNK | ((row0 + d) & 7) << 4;
+  float bias[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int ch = co0 + (i < 4 ? 4 * n + i : 64 + n);
+    bias[i] = ch < co ? __ldg(b2 + ch) : 0.0f;
+  }
+  const int t_out = t_in - 2;
+  int it = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    float acc[M][P][5];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int e = 0; e < P; ++e)
+#pragma unroll
+        for (int i = 0; i < 5; ++i) acc[m][e][i] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < k_stages; ++c, ++it) {
+      const int s = it % FF_STAGES;
+      mbar_wait(full + 8 * s, (it / FF_STAGES) & 1);
+      const uint8_t* a_st = sm + s * FF_STAGE;
+      const uint8_t* w_st = a_st + WG_STAGE;
+#pragma unroll 2
+      for (int j4 = 0; j4 < FF_KC / 4; ++j4) {   // K j .. j+3: one 16-byte chunk of each row
+        FfWeights wj;
+        ff_load_weights(wj, w_st + j4 * FF_W_ROWS4, n);
+        ff_chunk(acc, wj, a_st, aoff, j4);
+      }
+      __syncwarp();                  // the warp is done with the stage: release it
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int e = 0; e < P; ++e) {
+        const int r = w * BM + row0 + 8 * P * m + e, f = r / t_in, t = r - f * t_in;
+        if (r >= rows || t >= t_out) continue;
+        OutT* o = out + (static_cast<long long>(f) * t_out + t) * co + co0;
+        const float* v = acc[m][e];
+        if (co0 + 4 * n < co)     // Co % 4 == 0: the 4 channels are all in or all out
+          store4(o + 4 * n, fmaxf(__fadd_rn(v[0], bias[0]), 0.0f),
+                 fmaxf(__fadd_rn(v[1], bias[1]), 0.0f), fmaxf(__fadd_rn(v[2], bias[2]), 0.0f),
+                 fmaxf(__fadd_rn(v[3], bias[3]), 0.0f));
+        if (co0 + 64 + n < co) store1(o + 64 + n, fmaxf(__fadd_rn(v[4], bias[4]), 0.0f));
+      }
+  }
+}
+
+// The FFMA route's envelope (ops/cnn_kernels.py::conv2_route): rows of
+// whole 16-byte units for both tensor maps (the map's K * 4 bytes, w2p's
+// 3 Co * 4 bytes), channels in groups of 4 (the epilogue's 16-byte
+// stores). The weight is streamed, so K has no limit.
+bool conv2_ffma_fits(int k_in, int co) {
+  return k_in >= 4 && k_in % 4 == 0 && co >= 4 && co % 4 == 0;
+}
+
+// Persistent blocks, one per SM (the 4-stage ring takes 189 KB): sms /
+// channel tiles blocks per channel tile. cudaErrorInvalidValue outside the
+// envelope, for an unaligned pointer, or if a tensor map cannot be made.
+template <typename OutT>
+int launch_conv2_ffma(const void* a, long long b, int t_in, int k_in, int co, const void* w2p,
+                      const float* b2, void* out, void* stream) {
+  if (!conv2_ffma_fits(k_in, co) || t_in < 3 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w2p) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0) return 0;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = b * t_in;     // row coordinates and items are int
+  if (rows > 0x7fffffffLL - 2 * BM) return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap amap, wmap;
+  const cuuint64_t adims[2] = {static_cast<cuuint64_t>(k_in), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t astrides[1] = {static_cast<cuuint64_t>(k_in) * 4};
+  const cuuint32_t abox[2] = {FF_KC, A_ROWS};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(3) * co, static_cast<cuuint64_t>(k_in)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(3) * co * 4};
+  const cuuint32_t wbox[2] = {FF_BN, FF_KC};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (encode(&amap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(a), adims, astrides,
+             abox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w2p), wdims, wstrides,
+             wbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int items = static_cast<int>((rows + BM - 1) / BM);
+  const int k_stages = (k_in + FF_KC - 1) / FF_KC;
+  const int tiles_c = (co + FF_BN - 1) / FF_BN;
+  if (tiles_c > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = conv2_ffma_kernel<OutT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FF_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int gx = sms / tiles_c;
+  gx = gx < 1 ? 1 : gx > items ? items : gx;
+  const dim3 grid(gx, tiles_c);
+  kernel<<<grid, FF_THREADS, FF_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      amap, wmap, items, static_cast<int>(rows), t_in, co, k_stages, b2,
+      static_cast<OutT*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 long long conv1_blocks(long long b, int t_in) {
   return (b * (t_in - 2) + C1_WARPS - 1) / C1_WARPS;
 }
@@ -685,6 +977,18 @@ extern "C" int amc_conv2_stacked_wgmma(const void* a1s, long long b, int t_in, i
                  : launch_conv2_wgmma<BF16_MMA, __nv_bfloat16>(a1s, b, t_in, k_in, co, w2p,
                                                                bias, nullptr, nullptr, out,
                                                                stream);
+}
+
+// The FFMA route of amc_conv2_stacked, for float32 a1s and w2p inside
+// conv2_ffma_fits, both 16-byte aligned (else cudaErrorInvalidValue):
+// b2 (co,) f32 -> (B, t_in-2, co), bf16 (out_f32 0) or f32.
+extern "C" int amc_conv2_stacked_ffma(const void* a1s, long long b, int t_in, int k_in, int co,
+                                      const void* w2p, const void* b2, int out_f32, void* out,
+                                      void* stream) {
+  const auto* bias = static_cast<const float*>(b2);
+  return out_f32 ? launch_conv2_ffma<float>(a1s, b, t_in, k_in, co, w2p, bias, out, stream)
+                 : launch_conv2_ffma<__nv_bfloat16>(a1s, b, t_in, k_in, co, w2p, bias, out,
+                                                    stream);
 }
 
 // The Hopper route of amc_conv2_stacked_int8, on the same terms.

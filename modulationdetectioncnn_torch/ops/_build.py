@@ -89,6 +89,9 @@ _SIGNATURES = {
     # a1s, n, t_in, k, co, w2p, b2, out_f32, out, stream
     "amc_conv2_stacked_wgmma": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, _P, _P, ctypes.c_int, _P, _P],
+    # a1s, n, t_in, k, co, w2p, b2, out_f32, out, stream
+    "amc_conv2_stacked_ffma": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, _P, _P, ctypes.c_int, _P, _P],
     # a1s, n, t_in, k, co, w2p, m, o, out, stream
     "amc_conv2_stacked_int8_wgmma": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, _P, _P, _P, _P, _P],

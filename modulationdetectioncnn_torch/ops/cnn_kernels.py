@@ -19,11 +19,13 @@ Each of the four has three pieces, as in ``ops/infer.py``:
 - the kernel's note at the top of ``csrc/cnn_kernels.cu``: the TPU kernel it
   replaces, its bound on the H100 and what its design does about it.
 
-conv2 has two bodies on the card, and ``conv2_route`` picks one from the
+conv2 has three bodies on the card, and ``conv2_route`` picks one from the
 widths, the dtype and the alignment (a dispatch by shape, not a fallback):
-the Hopper route (TMA, ``wgmma``, the weight resident per block) or the
-general route. The two conv2 wrappers count their launches per route in
-``route_launches`` beside ``launches``.
+the Hopper route for bf16 and int8 (TMA, ``wgmma``, the weight resident per
+block), the FFMA route for float32 (TMA, the weight streamed beside the
+map, outer products on the CUDA cores) or the general route. The two conv2
+wrappers count their launches per route in ``route_launches`` beside
+``launches``.
 
 Unlike the classifiers' kernels, these take the widths at run time: any B,
 T, C, Cin and Co, and return the caller's own shape. ``block_b`` is the TPU
@@ -169,28 +171,33 @@ def conv2_stacked_int8_plain(a1s_i8: torch.Tensor, w2p_i8: torch.Tensor,
 # ------------------------------------------------------- kernel launches
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
-CONV2_ROUTES = ("wgmma", "general")
+CONV2_ROUTES = ("wgmma", "ffma", "general")
 WGMMA_MAX_K = 512      # the resident weight's budget: 3 * 80 int8 or 3 * 40 bf16 columns
 
 
 def conv2_route(k: int, co: int, dtype: torch.dtype, aligned: bool = True) -> str:
     """The conv2 body a launch on the card takes, from the widths and the
-    dtype of ``a1s`` (B and T do not matter):
+    dtype of ``a1s`` (B and T do not matter). Each needs ``co`` a multiple
+    of 4 (its stores) and ``aligned`` (``a1s`` and ``w2p`` start on 16-byte
+    boundaries), and ``k`` times the element size a multiple of 16 bytes
+    (the rows a TMA box may stride):
 
     - ``"wgmma"`` (``amc_conv2_stacked_wgmma``, ``amc_conv2_stacked_int8_wgmma``)
-      when ``a1s`` is bf16 or int8, ``k`` times its element size is a multiple
-      of 16 bytes (the rows a TMA box may stride), ``k <= 512`` (the weight
-      resident in a block), ``co`` a multiple of 4 (4-byte stores) and
-      ``aligned`` (``a1s`` and ``w2p`` start on 16-byte boundaries). The
-      default widths (K 512, Co 80) always take it;
+      when ``a1s`` is bf16 or int8 and ``k <= 512`` (the weight resident in
+      a block);
+    - ``"ffma"`` (``amc_conv2_stacked_ffma``) when ``a1s`` is float32, at
+      any ``k`` (the weight is streamed beside the map);
     - ``"general"`` (the tile body of ``amc_conv2_stacked``,
-      ``amc_conv2_stacked_int8``) otherwise, and for float32 always."""
-    es = {torch.bfloat16: 2, torch.int8: 1}.get(dtype)
-    if es is None or not aligned:
+      ``amc_conv2_stacked_int8``) otherwise.
+
+    The default widths (K 512, Co 80) take ``"wgmma"`` in bf16 and int8 and
+    ``"ffma"`` in float32."""
+    es = {torch.bfloat16: 2, torch.int8: 1, torch.float32: 4}.get(dtype)
+    if es is None or not aligned or k < 1 or k * es % 16 or co < 4 or co % 4:
         return "general"
-    if 1 <= k <= WGMMA_MAX_K and k * es % 16 == 0 and co >= 4 and co % 4 == 0:
-        return "wgmma"
-    return "general"
+    if dtype == torch.float32:
+        return "ffma"
+    return "wgmma" if k <= WGMMA_MAX_K else "general"
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
@@ -274,10 +281,11 @@ def conv2_stacked(a1s: torch.Tensor, w2p: torch.Tensor, b2: torch.Tensor, *,
     ``csrc/cnn_kernels.cu``'s conv2 on a CUDA tensor (a1s and w2p both bf16,
     on the tensor cores, or both float32, on the CUDA cores; b2 float32);
     the plain version on the CPU. On the card the body is
-    ``conv2_route(2Cin, Co, a1s.dtype, aligned)``'s: the Hopper route
-    (``"wgmma"``) for bf16 with 2Cin a multiple of 8 and at most 512, Co a
-    multiple of 4, a1s and w2p 16-byte aligned; the general route otherwise
-    (float32 always)."""
+    ``conv2_route(2Cin, Co, a1s.dtype, aligned)``'s, with Co a multiple of
+    4 and a1s and w2p 16-byte aligned: the Hopper route (``"wgmma"``) for
+    bf16 with 2Cin a multiple of 8 and at most 512, the FFMA route
+    (``"ffma"``) for float32 with 2Cin a multiple of 4; the general route
+    otherwise. A launch that fails raises; no route retries on another."""
     _check_block_b(block_b)
     if a1s.device.type == "cpu":
         return conv2_stacked_plain(a1s, w2p, b2, out_dtype)
@@ -296,8 +304,8 @@ def conv2_stacked(a1s: torch.Tensor, w2p: torch.Tensor, b2: torch.Tensor, *,
     if out.numel():
         route = conv2_route(k, co, a1s.dtype, _aligned(a1s, w2p))
         out_f32 = int(out_dtype == torch.float32)
-        if route == "wgmma":
-            _call(conv2_stacked, "amc_conv2_stacked_wgmma", dev, a1s.data_ptr(), b, t, k,
+        if route in ("wgmma", "ffma"):
+            _call(conv2_stacked, f"amc_conv2_stacked_{route}", dev, a1s.data_ptr(), b, t, k,
                   co, w2p.data_ptr(), b2.data_ptr(), out_f32, out.data_ptr(), route=route)
         else:
             vec = int(k * a1s.element_size() % 16 == 0 and a1s.data_ptr() % 16 == 0)

@@ -380,26 +380,63 @@ def probe_dense_bf16_old() -> list[dict]:
                       DENSE_BF16_STAGES)
 
 
+def _old_entry(lib: ctypes.CDLL, a1s: torch.Tensor, w2p: torch.Tensor) -> str:
+    """The old library's conv2 entry for these arguments: the one of the
+    route the package takes (``ops/cnn_kernels.py::conv2_route``) where the
+    old library has it, declared as the package declares it, else its
+    general entry (``amc_conv2_stacked``, ``amc_conv2_stacked_int8``)."""
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+
+    general = "amc_conv2_stacked_int8" if a1s.dtype == torch.int8 else "amc_conv2_stacked"
+    route = ck.conv2_route(a1s.shape[2], w2p.shape[1] // 3, a1s.dtype,
+                           a1s.data_ptr() % 16 == 0 and w2p.data_ptr() % 16 == 0)
+    name = f"{general}_{route}"
+    if route == "general" or not hasattr(lib, name):
+        return general
+    fn = getattr(lib, name)
+    fn.argtypes = _build._SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return name
+
+
 def _old_conv2(lib: ctypes.CDLL, a1s: torch.Tensor, w2p: torch.Tensor, *rest) -> torch.Tensor:
-    """The old library's conv2 on the package wrapper's arguments: ``rest``
-    is (b2, out dtype) for the float modes, (shift, offset) for int8."""
+    """The old library's conv2 (``_old_entry``'s) on the package wrapper's
+    arguments: ``rest`` is (b2, out dtype) for the float modes, (shift,
+    offset) for int8."""
     b, t, k = a1s.shape
     co = w2p.shape[1] // 3
     stream = torch.cuda.current_stream().cuda_stream
-    vec = int(k * a1s.element_size() % 16 == 0 and a1s.data_ptr() % 16 == 0)
+    entry = _old_entry(lib, a1s, w2p)
+    routed = entry not in ("amc_conv2_stacked", "amc_conv2_stacked_int8")
+    vec = [] if routed else [int(k * a1s.element_size() % 16 == 0 and a1s.data_ptr() % 16 == 0)]
     if a1s.dtype == torch.int8:
         out = torch.empty((b, t - 2, co), dtype=torch.int8, device=a1s.device)
-        code = lib.amc_conv2_stacked_int8(a1s.data_ptr(), b, t, k, co, w2p.data_ptr(),
-                                          rest[0].data_ptr(), rest[1].data_ptr(), vec,
-                                          out.data_ptr(), stream)
+        args = [rest[0].data_ptr(), rest[1].data_ptr()]     # shift, offset
     else:
         out = torch.empty((b, t - 2, co), dtype=rest[1], device=a1s.device)
-        code = lib.amc_conv2_stacked(a1s.data_ptr(), b, t, k, co, w2p.data_ptr(),
-                                     rest[0].data_ptr(), int(a1s.dtype == torch.float32),
-                                     int(rest[1] == torch.float32), vec, out.data_ptr(), stream)
+        in_f32 = [] if routed else [int(a1s.dtype == torch.float32)]
+        args = [rest[0].data_ptr(), *in_f32, int(rest[1] == torch.float32)]
+    code = getattr(lib, entry)(a1s.data_ptr(), b, t, k, co, w2p.data_ptr(), *args, *vec,
+                               out.data_ptr(), stream)
     if code != 0:
-        raise RuntimeError(f"old conv2 failed to launch: CUDA error {code}")
+        raise RuntimeError(f"old conv2 ({entry}) failed to launch: CUDA error {code}")
     return out
+
+
+def conv2_f32_wide_range(b: int, seed: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Row 18's float32 edge at the default widths (T 126, K 512, Co 80):
+    a1s (B, 126, 512) whose channel j is 2^(-20 + 40 j / 511) times abs of a
+    normal (a ReLU map, its channels spanning 2^-20 .. 2^20), w2p of both
+    signs, so the largest channels' terms cancel in many sums and the ReLU
+    cuts about half of them; b2 0.1 normal. chip_smoke.py holds the kernel
+    to the plain version on it, the CPU tests the plain version to the JAX
+    kernel, both within 1e-5 of the map's largest magnitude."""
+    r = np.random.default_rng(seed)
+    t, k, co = 126, 512, 80
+    a1s = np.abs(r.standard_normal((b, t, k))) * 2.0 ** np.linspace(-20.0, 20.0, k)
+    w2p = r.standard_normal((k, 3 * co)) / np.sqrt(3 * k)
+    b2 = 0.1 * r.standard_normal(co)
+    return a1s.astype(np.float32), w2p.astype(np.float32), b2.astype(np.float32)
 
 
 def conv2_old_vs_new(lib: ctypes.CDLL, w2p: torch.Tensor, b2: torch.Tensor, w2p_i8: torch.Tensor,
@@ -410,10 +447,12 @@ def conv2_old_vs_new(lib: ctypes.CDLL, w2p: torch.Tensor, b2: torch.Tensor, w2p_
     w2p (512, 240), b2 (80,); int8 w2p, shift, offset): each timed old, new,
     new, old (median of 5 runs of back-to-back calls between CUDA events,
     then the profiler's device time per call, in the same order), beside
-    the library call on conv2's z in the same round. ``differing`` counts
-    output elements outside the row's tolerance against the old body: int8
-    bit for bit, bf16 one bf16 ulp plus 1e-3 of the map's largest
-    magnitude, float32 1e-5 of it."""
+    the library call on conv2's z in the same round. The old body is the
+    old library's entry of the package's route where it has one, else its
+    general entry (``old_entry``). ``differing`` counts output elements
+    outside the row's tolerance against the old body: int8 bit for bit,
+    bf16 one bf16 ulp plus 1e-3 of the map's largest magnitude, float32
+    1e-5 of it."""
     from modulationdetectioncnn_torch.ops import cnn_kernels as ck
     from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
     from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
@@ -429,17 +468,18 @@ def conv2_old_vs_new(lib: ctypes.CDLL, w2p: torch.Tensor, b2: torch.Tensor, w2p_
         ab = af.to(torch.bfloat16)
         ai = _seeded((b, 126, 512), dev, 0, 128, np.int8, seed=b + 1)
         cases = (
-            ("conv2_stacked bf16", lambda: ck.conv2_stacked(ab, w2b, b2),
+            ("conv2_stacked bf16", (ab, w2b), lambda: ck.conv2_stacked(ab, w2b, b2),
              lambda: _old_conv2(lib, ab, w2b, b2, torch.bfloat16),
              lambda: torch.matmul(ab.reshape(-1, 512), w2b), (2.0 ** -7, 1e-3), 20),
-            ("conv2_stacked float32",
+            ("conv2_stacked float32", (af, w2p),
              lambda: ck.conv2_stacked(af, w2p, b2, out_dtype=torch.float32),
              lambda: _old_conv2(lib, af, w2p, b2, torch.float32),
              lambda: torch.matmul(af.reshape(-1, 512), w2p), (0.0, 1e-5), 5),
-            ("conv2_stacked_int8", lambda: ck.conv2_stacked_int8(ai, w2p_i8, m2, o2),
+            ("conv2_stacked_int8", (ai, w2p_i8), lambda: ck.conv2_stacked_int8(ai, w2p_i8, m2, o2),
              lambda: _old_conv2(lib, ai, w2p_i8, m2, o2),
              lambda: torch._int_mm(ai.reshape(-1, 512), w2i_cm), (0.0, 0.0), 20))
-        for name, new, old, library, (rtol, atol_of_max), iters in cases:
+        for name, (a_in, w_in), new, old, library, (rtol, atol_of_max), iters in cases:
+            entry, route = _old_entry(lib, a_in, w_in), ck.conv2_route(512, 80, a_in.dtype)
             got, want = new(), old()
             g, w = got.double(), want.double()
             bound = rtol * w.abs() + atol_of_max * float(w.abs().max())
@@ -447,6 +487,7 @@ def conv2_old_vs_new(lib: ctypes.CDLL, w2p: torch.Tensor, b2: torch.Tensor, w2p_
             times = [ms(old, iters), ms(new, iters), ms(new, iters), ms(old, iters)]
             dev_ms = [device_ms_per_call(f, iters) for f in (old, new, new, old)]
             recs.append({"probe": "conv2_old", "name": name, "batch": b,
+                         "old_entry": entry, "new_route": route,
                          "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
                          "old_device_ms": [dev_ms[0], dev_ms[3]],
                          "new_device_ms": [dev_ms[1], dev_ms[2]],

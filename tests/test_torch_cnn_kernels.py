@@ -214,18 +214,19 @@ def test_cpu_wrappers_take_plain_versions_without_counting():
 
 
 # conv2's route on the card, from the widths and the dtype: (K, Co) per
-# shape, then the route per dtype. K must be whole 16-byte rows for TMA and
-# at most 512 (the resident weight), Co a multiple of 4; float32 always
-# takes the general body.
+# shape, then the route per dtype. K must be whole 16-byte rows for TMA, Co
+# a multiple of 4; bf16 and int8 take the Hopper route up to K 512 (the
+# resident weight), float32 the FFMA route at any K (the weight streamed).
 ROUTE_SHAPES = {"default": (512, 80), "narrow_odd": (66, 7), "t300": (512, 80),
                 "k200_not_16_bytes_in_int8": (200, 80), "co100": (96, 100),
-                "k1024_too_wide": (1024, 80)}
-ROUTES = {"default": ("wgmma", "general", "wgmma"),            # bf16, float32, int8
+                "k1024_too_wide": (1024, 80), "co90_not_4": (512, 90)}
+ROUTES = {"default": ("wgmma", "ffma", "wgmma"),                # bf16, float32, int8
           "narrow_odd": ("general", "general", "general"),
-          "t300": ("wgmma", "general", "wgmma"),
-          "k200_not_16_bytes_in_int8": ("wgmma", "general", "general"),
-          "co100": ("wgmma", "general", "wgmma"),
-          "k1024_too_wide": ("general", "general", "general")}
+          "t300": ("wgmma", "ffma", "wgmma"),
+          "k200_not_16_bytes_in_int8": ("wgmma", "ffma", "general"),
+          "co100": ("wgmma", "ffma", "wgmma"),
+          "k1024_too_wide": ("general", "ffma", "general"),
+          "co90_not_4": ("general", "general", "general")}
 
 
 @pytest.mark.parametrize("shape", ROUTE_SHAPES, ids=list(ROUTE_SHAPES))
@@ -240,8 +241,8 @@ def test_conv2_route_by_shape_and_dtype(shape, dtype):
 def test_conv2_route_counts_start_at_zero():
     tck.reset_launch_counts()
     assert tck.route_launch_counts() == {
-        "conv2_stacked": {"wgmma": 0, "general": 0},
-        "conv2_stacked_int8": {"wgmma": 0, "general": 0}}
+        "conv2_stacked": {"wgmma": 0, "ffma": 0, "general": 0},
+        "conv2_stacked_int8": {"wgmma": 0, "ffma": 0, "general": 0}}
 
 
 def test_conv2_int8_saturated_sums_equal_jax():
@@ -261,6 +262,39 @@ def test_conv2_int8_saturated_sums_equal_jax():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, gq.conv2_int8(a1, w2p, m2, o2))
     assert (got == 0).any() and (got == 127).any() and ((got > 0) & (got < 127)).any()
+
+
+def test_conv2_float32_wide_range_within_tolerance_of_jax():
+    """chip_smoke.py's ``f32_wide_range`` conv2 edge (``probe.conv2_f32_wide_range``)
+    at B 2: map channels spanning 2^-20 .. 2^20 under weights of both
+    signs. The port's plain version is within 1e-5 of the map's largest
+    magnitude of the JAX kernel, and the ReLU cuts a good share of the sums."""
+    from modulationdetectioncnn_torch.scripts.probe import conv2_f32_wide_range
+
+    a1, w2p, b2 = conv2_f32_wide_range(2, seed=10)
+    got = tck.conv2_stacked(_t(a1), _t(w2p), _t(b2), out_dtype=torch.float32).numpy()
+    want = jck.conv2_stacked(*_j(a1, w2p, b2), out_dtype=jnp.float32, block_b=2, interpret=True)
+    _assert_close(got, np.asarray(want), 0.0, 1e-5)
+    assert 0.3 < float((got == 0).mean()) < 0.7, float((got == 0).mean())
+
+
+def test_conv2_ffma_modes_edit_the_kernel_source():
+    """``scripts/conv2_ffma_modes.py`` times copies of ``csrc/cnn_kernels.cu``
+    with parts of the FFMA body changed: each mode's edit still finds its
+    text exactly once (the whole body is the source itself), and the script
+    exits without a card."""
+    import os
+
+    from modulationdetectioncnn_torch.ops import _build
+    from modulationdetectioncnn_torch.scripts import conv2_ffma_modes as modes
+
+    with open(os.path.join(_build.CSRC_DIR, "cnn_kernels.cu")) as f:
+        src = f.read()
+    for name, edit in modes.MODES.items():
+        assert (edit(src) == src) == (name == "whole"), name
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            modes.main(["check"])
 
 
 def test_float_conv_weights_pack_a_state_dict_as_the_flax_layout_packs():
