@@ -131,10 +131,26 @@ Phases, each printing JSON lines (``"phase": ...``):
                0 mismatching activations. Where an earlier body of
                ``csrc/conv_stage_int8_v6.cu`` was copied to
                ``_build/conv_stage_int8_v6_old.cu`` (never committed, with
-               the ``conv_stage_int8_mma.cuh`` it includes beside it), rows
+               the headers of its commit it includes beside it), rows
                6 and 7 are timed against it, old, new, new, old, at B=4096,
                2048 and 16384 beside rows 5 and 1 and ``_int_mm`` on
                conv2's lane-packed product, maps bit for bit
+               (``kernels.old_vs_new`` lines).
+               Rows 8 and 9 (v3, v2: one body, row 1's producers reading
+               tap rows and its consumer) also at B = 1, 2, 37, 133, 1031,
+               2048, 4095, 4096, 4097 and 16384 on the artifact, the seeded
+               model and each of ``scripts/probe.py::conv_v7_edge_cases``'s
+               models, on the tap rows of its own frames (each map equal
+               to the plain version's and to row 1's kernel map of the
+               frames) and on seeded random rows, all 8 lanes of every row
+               drawn (each map equal to the plain version's): 0
+               mismatching activations. Where an earlier body of
+               ``csrc/conv_stage_int8_v3.cu`` was copied to
+               ``_build/conv_stage_int8_v3_old.cu`` (never committed, with
+               the ``conv_stage_int8_mma.cuh`` of its commit beside it),
+               rows 8 and 9 are timed against it, old, new, new, old, at
+               B=4096, 2048 and 16384 beside rows 6 and 1 and ``_int_mm``
+               on conv2's lane-packed product, maps bit for bit
                (``kernels.old_vs_new`` lines).
                Times at the bench's sizes (CUDA events around runs
                of back-to-back launches, median of 5 runs), the plain
@@ -351,8 +367,8 @@ KERNEL_SYMBOLS = {
     "conv_stage_int8_v5": "conv_stage_int8_v5_kernel",    # row 1's design, v5's weights
     "conv_stage_int8_v6": "conv_stage_int8_v6_kernel",    # row 1's design from tap planes
     "conv_stage_int8_v4": "conv_stage_int8_v6_kernel",    # v6's body
-    "conv_stage_int8_v3": "conv_stage_int8_rows_kernel<true>",
-    "conv_stage_int8_v2": "conv_stage_int8_rows_kernel<false>",
+    "conv_stage_int8_v3": "conv_stage_int8_v3_kernel",    # row 1's design from tap rows
+    "conv_stage_int8_v2": "conv_stage_int8_v3_kernel",    # v3's body
     "dense_int8": "dense_argmax_int8_kernel<false>",
     "conv_stage_int8_v1": "conv_stage_int8_v5_kernel",    # v5's body
     "conv_stage_bf16_v4": "conv_stage_bf16_kernel<0>",
@@ -395,6 +411,10 @@ FOLD_STAGES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
 V5_STAGES = ("conv_stage_int8_v5", "conv_stage_int8_v1")
 # Rows 6 and 7 (v6, v4: one body, row 1's from tap planes), the same.
 V6_STAGES = ("conv_stage_int8_v6", "conv_stage_int8_v4")
+# Rows 8 and 9 (v3, v2: one body, row 1's from tap rows), at FOLD_BATCHES
+# and B = 2 (two blocks of one frame each).
+V3_STAGES = ("conv_stage_int8_v3", "conv_stage_int8_v2")
+V3_BATCHES = tuple(sorted((2, *FOLD_BATCHES)))
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 # The bf16 conv stages' cluster edges: 66 clusters of 2 expected on the
@@ -684,6 +704,39 @@ def v6_stage_checks(weights: dict, x_all: torch.Tensor) -> list[dict]:
                          planes[:b])
             _batch_check(recs, V6_STAGES, plain, wname, f"random_planes_b{b}",
                          random_planes[:b], qw, False)
+    return recs
+
+
+def v3_stage_checks(weights: dict, x_all: torch.Tensor) -> list[dict]:
+    """Rows 8 and 9 (v3, v2: row 1's producers and consumer, reading tap
+    rows) against their plain version on the card, one record per kernel,
+    model, input and batch, at V3_BATCHES frames: on each model of
+    ``weights`` with ``x_all`` and on each of
+    ``scripts/probe.py::conv_v7_edge_cases``'s models with its own frames,
+    the frames' tap rows (the map also against row 1's kernel map of the
+    frames), and seeded random int8 rows, all 8 lanes of every row drawn on
+    their own, which the kernel must map as the plain version does while
+    each producer lane reads lanes 0..5 of its own row only."""
+    from modulationdetectioncnn_torch.ops import infer
+    from modulationdetectioncnn_torch.quant import int8_weights_from_numpy
+    from modulationdetectioncnn_torch.scripts import probe
+
+    recs = []
+    plain = infer.conv_stage_int8_taps_plain
+    b_max = max(V3_BATCHES)
+    random_rows = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        -128, 128, (b_max, 126, 8), dtype=np.int8)).cuda()
+    sets = {w: (qw, x_all) for w, qw in weights.items()}
+    for kind, (tree, frames) in probe.conv_v7_edge_cases(SEED, b_max).items():
+        sets[f"v7_edge_{kind}"] = (int8_weights_from_numpy(tree, "cuda"),
+                                   torch.from_numpy(frames).cuda())
+    for wname, (qw, x) in sets.items():
+        rows = infer.expand_taps(x, qw.inv_sx)
+        for b in V3_BATCHES:
+            _batch_check(recs, V3_STAGES, plain, wname, f"tap_rows_b{b}", x[:b], qw, True,
+                         rows[:b])
+            _batch_check(recs, V3_STAGES, plain, wname, f"random_rows_b{b}",
+                         random_rows[:b], qw, False)
     return recs
 
 
@@ -1054,8 +1107,9 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # artifact and two seeded models (the second at the fold's 2^24 edge),
     # each map also against v7's, and conv1's map whole on the artifact and
     # the edge model; rows 5 and 10 the same way on the artifact, the
-    # seeded model and row 1's edge models (each on its own frames), and
-    # rows 6 and 7 on the tap planes of the same and on random planes.
+    # seeded model and row 1's edge models (each on its own frames), rows 6
+    # and 7 on the tap planes of the same and on random planes, and rows 8
+    # and 9 on their tap rows and on random rows.
     x_fold = torch.from_numpy((0.7 * np.random.default_rng(SEED + 1).standard_normal(
         (max(FOLD_BATCHES), 2, 128))).astype(np.float32)).cuda()
     batch_recs = fold_stage_checks(
@@ -1063,6 +1117,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
         {"artifact": art_np.tree(), "fold_edge": fold_edge}, x_fold)
     batch_recs += v5_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x_fold)
     batch_recs += v6_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x_fold)
+    batch_recs += v3_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x_fold)
     for rec in batch_recs:
         st = stats[rec["kernel"]]
         st["mismatches"] += rec["mismatches"]
@@ -1240,6 +1295,17 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
               "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V6_SRC, REPO)}"})
     else:
         for rec in probe.conv_v6_old_vs_new(old_v6, qw, batches=(4096, 2048, 16384)):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
+    # Rows 8 and 9 against their earlier body, where a copy of it was put
+    # at probe.OLD_CONV_V3_SRC: old, new, new, old in this run on the same
+    # tap rows, maps bit for bit, beside rows 6 and 1 and _int_mm.
+    old_v3 = probe.old_library(probe.OLD_CONV_V3_SRC, probe.CONV_V3_ENTRIES)
+    if old_v3 is None:
+        emit({"phase": "kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_CONV_V3_SRC, REPO)}"})
+    else:
+        for rec in probe.conv_v3_old_vs_new(old_v3, qw, batches=(4096, 2048, 16384)):
             emit({"phase": "kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # Rows 3 and 4 against their earlier body, where a copy of it was put

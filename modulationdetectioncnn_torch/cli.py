@@ -95,20 +95,27 @@ COMMANDS = ("train", "eval", "quantize", "qat", "stream", "bench", "scaling")
 EVAL_BACKENDS = ("flax", "golden", "int8")
 
 
-def _build_dataset(cfg: AmcConfig):
+def _build_dataset(cfg: AmcConfig, snrs=None):
+    """``(x, y, snr, classes)``: the configured dataset, or with ``snrs`` the
+    synthetic one at those SNRs alone (the JAX CLI's ``snrs``)."""
+    from modulationdetectioncnn_torch.data import synthetic
     from modulationdetectioncnn_torch.data.radioml import load_dataset
 
+    if snrs is not None:
+        x, y, s = synthetic.make_dataset(cfg.data, snrs=snrs)
+        return x, y, s, cfg.data.classes
     return load_dataset(cfg.data)
 
 
-def cmd_train(cfg: AmcConfig):
-    """Train on the configured dataset's training split, evaluating on the
-    held-out part. Returns (model, records, (x, y, snr) held out, classes)."""
+def cmd_train(cfg: AmcConfig, snrs=None):
+    """Train on the configured dataset's training split (with ``snrs``, the
+    synthetic one at those SNRs), evaluating on the held-out part. Returns
+    (model, records, (x, y, snr) held out, classes)."""
     from modulationdetectioncnn_torch.data.synthetic import train_test_split
     from modulationdetectioncnn_torch.train import loop
 
     resolve_device(cfg.device)
-    x, y, s, classes = _build_dataset(cfg)
+    x, y, s, classes = _build_dataset(cfg, snrs)
     logging.getLogger("amc").info("dataset: %s frames, %d classes", x.shape, len(classes))
     (xtr, ytr, _), (xte, yte, ste) = train_test_split(x, y, s, test_frac=0.2)
     model, history = loop.train(cfg, (xtr, ytr), (xte, yte))
@@ -247,6 +254,14 @@ def cmd_stream(cfg: AmcConfig):
     from modulationdetectioncnn_torch.dsp import pipeline
 
     return pipeline.run_stream_demo(cfg)
+
+
+def cmd_bench(cfg: AmcConfig) -> dict:
+    """The port's benchmark on ``cfg`` (``bench.run``); returns its contract
+    line. ``main`` reads ``bench``'s bare words itself (``bench.main``)."""
+    from modulationdetectioncnn_torch import bench
+
+    return bench.run(cfg)
 
 
 def cmd_scaling(cfg: AmcConfig) -> dict:

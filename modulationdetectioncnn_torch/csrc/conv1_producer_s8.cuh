@@ -2,7 +2,8 @@
 // cores with the integer spec, for Hopper (sm_90a): conv_stage_int8.cu
 // (row 1, v7) and conv_stage_int8_v5.cu (rows 5 and 10, v5 and v1) from f32
 // frames, conv_stage_int8_v6.cu (rows 6 and 7, v6 and v4) from int8 tap
-// planes. Their consumer role is conv2_wgmma.cuh's consume_ring_s8; this
+// planes, conv_stage_int8_v3.cu (rows 8 and 9, v3 and v2) from int8 tap
+// rows. Their consumer role is conv2_wgmma.cuh's consume_ring_s8; this
 // header holds the ring's geometry, the block's shared memory, the kernels'
 // launch and the producer warps' conv1 + rq1:
 //
@@ -12,7 +13,7 @@
 // (the multiply by inv_sx rounded on its own, no FMA, then rint; the shift
 // arithmetic), with the taps w[k, c] of plane h read from one of two
 // layouts (TAP_SETS): row 1's w1 (3, 256), one tap set for both planes, or
-// the tap-plane w1e (8, 512) of rows 5, 10, 6 and 7, w1e[3h+k, h*256+c],
+// the tap-plane w1e (8, 512) of rows 5, 10, 6, 7, 8 and 9, w1e[3h+k, h*256+c],
 // each plane's taps from its own block (quant.py::expand_conv1_weights
 // writes both blocks from w1, the other plane's columns and rows 6, 7 zero;
 // the producer never reads those). From tap planes xp (8, 128) int8 the
@@ -21,7 +22,10 @@
 // w1e[j, n] + o1) >> m1, 0, 127), the TPU's v4/v6 conv1, where planes 6, 7
 // meet w1e's zero rows and the other plane's block of w1e is zero, so they
 // are not read either, nor columns 126, 127 (they feed only conv1 rows
-// 126, 127, which feed no stored output).
+// 126, 127, which feed no stored output). From tap rows xe (126, 8) int8,
+// the transpose of planes 0..7 without those columns, the window of row t
+// is (xe[t, 3h], xe[t, 3h+1], xe[t, 3h+2]): the TPU's v2/v3 conv1, whose
+// lanes 6, 7 meet w1e's zero rows and are not read.
 //
 // A ring stage is one 128-byte K chunk of the map, 128 channels of one I/Q
 // plane (channel = h*256 + c), 130 rows x 128 bytes in the 128-byte
@@ -37,8 +41,11 @@
 // neighbour's makes the (x[t], x[t+1], x[t+2], .) window of every row this
 // warp owns; from tap planes (PlanesIn), one 4-byte word of columns
 // 4l..4l+3 of each of planes 0..5, and two byte permutes make the same
-// window. Warp p writes rows t = p, p + 8, ... of a stage (t & 7 = p:
-// one swizzle phase), one 128-byte row a step and 4 channels a lane: a
+// window; from tap rows (RowsIn), the 8 bytes of the one row 4l + p % 4
+// that its warp's byte names, whose lanes 0..2 and 3..5 are the two
+// planes' windows already (a funnel shift moves plane 1's down). Warp p
+// writes rows t = p, p + 8, ... of a stage (t & 7 = p: one swizzle
+// phase), one 128-byte row a step and 4 channels a lane: a
 // shuffle of the window, a __dp4a per channel with the offset as its
 // addend, the shift, then rq1's clamp on int16 pairs (a saturating pack,
 // one DPX min/relu per pair, one byte permute) and a 4-byte st.shared,
@@ -137,6 +144,26 @@ struct PlanesIn {   // (B, 8, T) int8 tap planes: plane 3h+k holds xq[h, t+k] at
     const uint32_t b = p & 3;   // byte b of each plane's word: column 4 * lane + b
     const uint32_t pair = __byte_perm(in.v[h][0], in.v[h][1], b | (b + 4) << 4);
     return __byte_perm(pair, in.v[h][2], 0x3010u | (b + 4) << 8);
+  }
+};
+
+struct RowsIn {   // (B, T1, 8) int8 tap rows: lane 3h+k of row t holds xq[h, t+k]
+  const int8_t* __restrict__ xe;
+  int b;            // the producer warp's byte, p % 4: its lanes' row is 4 * lane + b
+  struct Lane {
+    uint2 v;        // lanes 0..7 of row 4 * lane + b
+  };
+  __device__ __forceinline__ void load(Lane& in, long long f, int lane) const {
+    // Rows 126 and 127 (lane 31, b >= 2) do not exist: past the last
+    // frame's end they lie past the buffer. They feed only conv1 rows that
+    // are never written, so they load as zero.
+    const int t = 4 * lane + b;
+    in.v = t < T1 ? __ldg(reinterpret_cast<const uint2*>(xe + (f * T1 + t) * 8))
+                  : make_uint2(0u, 0u);
+  }
+  __device__ __forceinline__ uint32_t window(const Lane& in, int h, int p) const {
+    // Plane 0: lanes 0..3; plane 1: lanes 3..6. Byte 3 meets the zero tap.
+    return h == 0 ? in.v.x : __funnelshift_r(in.v.x, in.v.y, 24);
   }
 };
 
@@ -244,7 +271,7 @@ inline int launch_ring_kernel(void (*kernel)(Params...), long long n, const void
 
 // The kernels of rows 1, 5 and 10 take (x, n, conv1 taps, m1, o1, conv2,
 // m2, o2, inv_sx, out); those of rows 6 and 7 the same with tap planes xp
-// for x and no inv_sx.
+// for x and no inv_sx, and those of rows 8 and 9 with tap rows xe for xp.
 using RingKernel = void (*)(const float*, long long, const int8_t*, const int*, const int*,
                             const int8_t*, const int*, const int*, float, int8_t*);
 using PlanesRingKernel = void (*)(const int8_t*, long long, const int8_t*, const int*,

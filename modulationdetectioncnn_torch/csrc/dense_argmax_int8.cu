@@ -56,11 +56,14 @@
 // Times at B = 4096 (PERF.md, kernel table rows 2, 11): the earlier body
 // (__dp4a on the CUDA cores, one 32-frame block per SM) 0.325 ms of device
 // time, this one 0.032, old, new, new, old in one run of chip_smoke.py.
-#include "conv_stage_int8_mma.cuh"
+#include "conv2_wgmma.cuh"   // requant
 #include "tma_wgmma.cuh"
 
 namespace {
 
+constexpr int T2 = 124;                    // conv map rows
+constexpr int C2 = 80;                     // conv map channels
+constexpr int THREADS = 256;               // two warpgroups
 constexpr int KD = T2 * C2;                // dense1 reduction length (9920)
 constexpr int D = 256;                     // dense1 outputs
 constexpr int NC = 11;                     // classes

@@ -26,12 +26,12 @@ different inputs and with different conv1 arithmetic:
   Mosaic scheduled the chunk loop).
 - v2, v3: (B, T-2, 8) int8 tap rows in (quantize and ``expand_taps`` in
   plain torch first, as in the JAX package), the transposed layout of the
-  planes, then the tap-row body on ``csrc/conv_stage_int8_mma.cuh`` (conv1
-  as an int8 ``mma.sync`` product, integer rq1, conv2 on ``mma.sync`` with
-  the weight resident); v3 prefetches the next
-  frame's rows and feeds the dense + argmax stage, v2 feeds the dense
-  stage that returns logits (``make_int8_forward_v2``) and takes their
-  argmax.
+  planes, then v6's producers and consumer with the producers reading the
+  rows (lanes 0..5 of row t are both planes' windows of conv1 row t) in
+  place of the planes; one kernel body under both entry points (the two
+  TPU kernels differed in layout and in how they overlapped their loads).
+  v3 feeds the dense + argmax stage, v2 the dense stage that returns
+  logits (``make_int8_forward_v2``) and takes their argmax.
 
 v2 to v6 need no fold, so a model that the fold refuses still gets a
 tensor-core path. Each stage has three pieces in this module:
@@ -363,17 +363,17 @@ def conv_stage_int8_v4(xp: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
 
 def conv_stage_int8_v3(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
     """v3 conv stage, (B, 126, 8) int8 tap rows (``expand_taps``) ->
-    (B, 124, c2) int8: conv1 and conv2 on the int8 tensor cores, the next
-    frame's rows prefetched (``cp.async``). Launches
-    ``csrc/conv_stage_int8_v3.cu``'s v3 entry on a CUDA tensor; plain
-    version on the CPU."""
+    (B, 124, c2) int8: v6's kernel design (conv1 + rq1 built in shared
+    memory by producer warps, here from the rows and ``w1e``, conv2 on int8
+    ``wgmma`` from ``w2l``). Launches ``csrc/conv_stage_int8_v3.cu``'s v3
+    entry on a CUDA tensor; plain version on the CPU."""
     return _run(conv_stage_int8_v3, conv_stage_int8_taps_plain, xe, qw)[..., :qw.c2]
 
 
 def conv_stage_int8_v2(xe: torch.Tensor, qw: Int8Weights) -> torch.Tensor:
-    """v2 conv stage: v3 without the prefetch. Launches
-    ``csrc/conv_stage_int8_v3.cu``'s v2 entry on a CUDA tensor; plain
-    version on the CPU."""
+    """v2 conv stage, v3's function and kernel body: (B, 126, 8) int8 tap
+    rows -> (B, 124, c2) int8. Launches ``csrc/conv_stage_int8_v3.cu``'s v2
+    entry on a CUDA tensor; plain version on the CPU."""
     return _run(conv_stage_int8_v2, conv_stage_int8_taps_plain, xe, qw)[..., :qw.c2]
 
 
@@ -570,3 +570,17 @@ def make_conv_stage(qm, version: str = "v10", *, device: str | torch.device | No
         return stage(x)[..., :qw.c2]
 
     return conv_stage
+
+
+# The JAX package's ops/infer.py holds its bf16 builders too; the port keeps
+# them in ops/infer_bf16.py, which imports this module, so they are looked
+# up here only when asked for.
+_BF16_NAMES = ("make_bf16_forward", "make_bf16_forward_v2", "make_bf16_classifier_v4")
+
+
+def __getattr__(name: str):
+    if name in _BF16_NAMES:
+        from modulationdetectioncnn_torch.ops import infer_bf16
+
+        return getattr(infer_bf16, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

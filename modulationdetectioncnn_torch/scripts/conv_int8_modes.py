@@ -1,9 +1,9 @@
-"""The int8 conv stages that build conv1 on the chip (rows 1, 3, 4, 5, 6, 7
-and 10 of PERF.md's kernel table) on the card: a quick check of rows 3, 4,
-5, 6, 7 and 10, and diagnostic modes of rows 1 and 3.
+"""The int8 conv stages that build conv1 on the chip (rows 1 and 3 to 10 of
+PERF.md's kernel table) on the card: a quick check of rows 3 to 10, and
+diagnostic modes of rows 1 and 3.
 
   check  builds the package's kernels and prints ptxas's registers and
-         spills for rows 1, 3, 4, 5, 6, 7 and 10; holds rows 3 and 4 (v10, v9) to
+         spills for rows 1 and 3 to 10; holds rows 3 and 4 (v10, v9) to
          their plain version and to row 1's map (``chip_smoke.py::
          fold_stage_checks``: B = 1 .. 16384 on the artifact, a seeded
          model and the fold-edge model, conv1's whole map through conv2
@@ -11,18 +11,24 @@ and 10 of PERF.md's kernel table) on the card: a quick check of rows 3, 4,
          (``chip_smoke.py::v5_stage_checks``: the artifact, a seeded model
          and row 1's edge models), and rows 6 and 7 (v6, v4) the same way
          on the tap planes of those frames and on random planes
-         (``chip_smoke.py::v6_stage_checks``); then, with an earlier body at
+         (``chip_smoke.py::v6_stage_checks``), and rows 8 and 9 (v3, v2)
+         on their tap rows and on random rows
+         (``chip_smoke.py::v3_stage_checks``); then, with an earlier body at
          ``probe.OLD_CONV_FOLD_SRC``, old, new, new, old beside row 1 and
          ``_int_mm`` (``probe.conv_fold_old_vs_new``), with one at
          ``probe.OLD_CONV_V5_SRC`` the same for rows 5 and 10
          (``probe.conv_v5_old_vs_new``), with one at
          ``probe.OLD_CONV_V6_SRC`` the same for rows 6 and 7 beside row 5
-         too (``probe.conv_v6_old_vs_new``), and with one at
+         too (``probe.conv_v6_old_vs_new``), with one at
+         ``probe.OLD_CONV_V3_SRC`` the same for rows 8 and 9 beside row 6
+         (``probe.conv_v3_old_vs_new``), and with one at
          ``probe.OLD_CONV_V7_SRC`` the same for row 1
          (``probe.conv_v7_old_vs_new``).
-  sass   disassembles (``cuobjdump -sass``) the package's rows 1, 5 and 10
-         and their earlier bodies at ``probe.OLD_CONV_V7_SRC`` and
-         ``probe.OLD_CONV_V5_SRC`` (each built with the headers beside it)
+  sass   disassembles (``cuobjdump -sass``) the package's rows 1, 5 and 10,
+         6 and 7, 3 and 4, and 2 and 11 and their earlier bodies at
+         ``probe.OLD_CONV_V7_SRC``, ``probe.OLD_CONV_V5_SRC``,
+         ``probe.OLD_CONV_V6_SRC``, ``probe.OLD_CONV_FOLD_SRC`` and
+         ``probe.OLD_DENSE_SRC`` (each built with the headers beside it)
          and reports, per kernel, whether the instructions are the same:
          an edit to a shared header that should leave a kernel's machine
          code as it was is held to that.
@@ -78,7 +84,7 @@ ROWS = {"row3": ("conv_stage_int8_v10.cu", "conv_stage_int8_v10.cu", probe.CONV_
         "row1": ("conv_stage_int8.cu", "conv1_producer_s8.cuh", probe.CONV_V7_ENTRIES,
                  lambda lib, x, qw: probe._old_conv(lib, "conv_stage_int8_v7", x, qw))}
 KERNELS = ("conv_stage_folded_kernel", "conv_stage_int8_v7_kernel", "conv_stage_int8_v5_kernel",
-           "conv_stage_int8_v6_kernel")
+           "conv_stage_int8_v6_kernel", "conv_stage_int8_v3_kernel")
 PIN = "    for (int i = 0; i < C2 / 2; ++i) pin(acc[i]);\n"
 SINK = """    {
       int sink = 0;
@@ -291,6 +297,7 @@ def run_check() -> int:
     recs = smoke.fold_stage_checks(weights, {"artifact": art.tree(), "fold_edge": edge}, x)
     recs += smoke.v5_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x)
     recs += smoke.v6_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x)
+    recs += smoke.v3_stage_checks({k: weights[k] for k in ("artifact", "seeded")}, x)
     for rec in recs:
         bad += rec["mismatches"] + rec.get("maps_vs_v7", 0)
         _out(**rec)
@@ -301,6 +308,8 @@ def run_check() -> int:
                                probe.conv_v5_old_vs_new),
                               (probe.OLD_CONV_V6_SRC, probe.CONV_V6_ENTRIES,
                                probe.conv_v6_old_vs_new),
+                              (probe.OLD_CONV_V3_SRC, probe.CONV_V3_ENTRIES,
+                               probe.conv_v3_old_vs_new),
                               (probe.OLD_CONV_V7_SRC, probe.CONV_V7_ENTRIES,
                                probe.conv_v7_old_vs_new)):
         lib = probe.old_library(src, entries)
@@ -341,7 +350,14 @@ def run_sass() -> int:
     for src, entries, kernels in ((probe.OLD_CONV_V7_SRC, probe.CONV_V7_ENTRIES,
                                    ("conv_stage_int8_v7_kernel",)),
                                   (probe.OLD_CONV_V5_SRC, probe.CONV_V5_ENTRIES,
-                                   ("conv_stage_int8_v5_kernel",))):
+                                   ("conv_stage_int8_v5_kernel",)),
+                                  (probe.OLD_CONV_V6_SRC, probe.CONV_V6_ENTRIES,
+                                   ("conv_stage_int8_v6_kernel",)),
+                                  (probe.OLD_CONV_FOLD_SRC, probe.CONV_FOLD_ENTRIES,
+                                   ("conv_stage_folded_kernel",)),
+                                  (probe.OLD_DENSE_SRC, probe.DENSE_ENTRIES,
+                                   ("dense_argmax_int8_kernelILb1E",
+                                    "dense_argmax_int8_kernelILb0E"))):
         lib = probe.old_library(src, entries)
         if lib is None:
             _out(skipped=f"no earlier body at {src}")

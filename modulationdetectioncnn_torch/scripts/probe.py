@@ -28,6 +28,10 @@ a function that one of the port's kernels computes (PERF.md section 6).
   conv_v7_old row 1 (v7) against an earlier body of ``csrc/conv_stage_int8.cu``
             (a copy at ``OLD_CONV_V7_SRC``) the same way, beside ``_int_mm``
             on conv2's im2col, maps bit for bit
+  conv_fold_old rows 3 and 4 (v10, v9) against an earlier body of
+            ``csrc/conv_stage_int8_v10.cu`` (a copy at ``OLD_CONV_FOLD_SRC``)
+            the same way, beside row 1 and ``_int_mm`` on conv2's
+            lane-packed product, maps bit for bit
   conv_v5_old rows 5 and 10 (v5, v1) against an earlier body of
             ``csrc/conv_stage_int8_v5.cu`` (a copy at ``OLD_CONV_V5_SRC``)
             the same way, beside row 1 and ``_int_mm`` on conv2's
@@ -37,6 +41,11 @@ a function that one of the port's kernels computes (PERF.md section 6).
             with the header it includes beside it) the same way, on the tap
             planes of the same frames, beside row 5, row 1 and ``_int_mm``
             on conv2's lane-packed product, maps bit for bit
+  conv_v3_old rows 8 and 9 (v3, v2) against an earlier body of
+            ``csrc/conv_stage_int8_v3.cu`` (a copy at ``OLD_CONV_V3_SRC``,
+            with the header it includes beside it) the same way, on the tap
+            rows of the same frames, beside row 6, row 1 and ``_int_mm`` on
+            conv2's lane-packed product, maps bit for bit
   conv2_maps row 18 bf16 on the bench's conv1 map, a seeded map, its ReLU,
             zeros, and with one channel tile (Co 40), beside torch.matmul
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
@@ -63,7 +72,8 @@ bf16 conv stages (rows 15, 14, 12) against an earlier body at
 and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``, ``conv_v5_old_vs_new``
 rows 5 and 10 (v5, v1) against one at ``OLD_CONV_V5_SRC``,
 ``conv_v6_old_vs_new`` rows 6 and 7 (v6, v4) against one at
-``OLD_CONV_V6_SRC``. ``fold_edge_tree``
+``OLD_CONV_V6_SRC``, ``conv_v3_old_vs_new`` rows 8 and 9 (v3, v2) against
+one at ``OLD_CONV_V3_SRC``. ``fold_edge_tree``
 builds a model at the edge of the v9/v10 fold's contract and
 ``conv1_probe_trees`` turns conv2 into a pass-through, so that a conv
 stage's map shows its conv1 map: chip_smoke.py holds rows 3 and 4 to
@@ -552,18 +562,20 @@ OLD_CONV_FOLD_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v10_old.cu")
 CONV_FOLD_ENTRIES = ("conv_stage_int8_v10", "conv_stage_int8_v9")
 OLD_CONV_V5_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v5_old.cu")
 CONV_V5_ENTRIES = ("conv_stage_int8_v5", "conv_stage_int8_v1")
-# The tap-plane body that rows 6 and 7 ran first includes
-# conv_stage_int8_mma.cuh: a copy of the header of the same commit goes
-# beside OLD_CONV_V6_SRC.
+# The tap-plane and tap-row bodies that rows 6, 7 and 8, 9 ran first
+# include conv_stage_int8_mma.cuh, which the package no longer has: a copy
+# of it (c875d35's, the same as fcc11c4's) goes into _build/ beside them.
 OLD_CONV_V6_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v6_old.cu")
 CONV_V6_ENTRIES = ("conv_stage_int8_v6", "conv_stage_int8_v4")
+OLD_CONV_V3_SRC = os.path.join(_build.BUILD_DIR, "conv_stage_int8_v3_old.cu")
+CONV_V3_ENTRIES = ("conv_stage_int8_v3", "conv_stage_int8_v2")
 
 
 def _old_conv(lib: ctypes.CDLL, name: str, x: torch.Tensor, qw) -> torch.Tensor:
     """The old library's entry ``amc_<name>`` of an int8 conv stage on the
-    package wrapper's arguments (its input, frames or tap planes, then the
-    weights of ``ops/infer.py::_ENTRIES`` in their order, and inv_sx for
-    frames): the (B, 124, 80) int8 map."""
+    package wrapper's arguments (its input, frames, tap planes or tap
+    rows, then the weights of ``ops/infer.py::_ENTRIES`` in their order,
+    and inv_sx for frames): the (B, 124, 80) int8 map."""
     from modulationdetectioncnn_torch.ops import infer
 
     b = x.shape[0]
@@ -623,14 +635,15 @@ def probe_conv_v7_old() -> list[dict]:
 
 
 def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
-                     batches, with_v5: bool = False) -> list[dict]:
+                     batches, rows: tuple[tuple[int, str], ...] = ()) -> list[dict]:
     """The int8 conv stages ``entries``, the old body against the
-    package's, on seeded frames (0.7 N(0, 1)) or their tap planes (the
-    entries that take planes) under the full-width weights ``qw``: each
-    timed old, new, new, old (median of 5 runs of 20 calls between CUDA
-    events, then the profiler's device time per call, in the same order),
-    beside yardsticks timed in the same round: row 1 (the package's v7, the
-    same map), ``with_v5`` row 5 (v5, the same map from the frames) and
+    package's, on seeded frames (0.7 N(0, 1)), their tap planes or their
+    tap rows (each entry on the input it takes) under the full-width
+    weights ``qw``: each timed old, new, new, old (median of 5 runs of 20
+    calls between CUDA events, then the profiler's device time per call,
+    in the same order), beside yardsticks timed in the same round: row 1
+    (the package's v7, the same map), the rows of ``rows``, (row, version)
+    pairs such as (6, "v6") (each on the input it takes; the same map) and
     ``torch._int_mm`` on conv2's lane-packed product, (B*126, 512) x (512,
     240). ``ok``: the maps bit for bit."""
     from modulationdetectioncnn_torch.ops import infer
@@ -648,14 +661,18 @@ def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
         mm = lambda: torch._int_mm(a1, w_cm)  # noqa: E731
         v7 = lambda: infer.conv_stage_int8_v7(x, qw)  # noqa: E731
         yard = {"row1_v7_ms": ms(v7), "row1_v7_device_ms": device_ms_per_call(v7)}
-        if with_v5:
-            v5 = lambda: infer.conv_stage_int8_v5(x, qw)  # noqa: E731
-            yard.update(row5_v5_ms=ms(v5), row5_v5_device_ms=device_ms_per_call(v5))
+        inputs = {infer._FRAMES: x, infer._PLANES: infer.tap_planes(x, qw.inv_sx),
+                  infer._TAPS: infer.expand_taps(x, qw.inv_sx)}
+        for row, v in rows:
+            name = f"conv_stage_int8_{v}"
+            inp = inputs[infer._ENTRIES[name][1]]
+            fn = lambda: getattr(infer, name)(inp, qw)  # noqa: E731
+            yard.update({f"row{row}_{v}_ms": ms(fn), f"row{row}_{v}_device_ms":
+                         device_ms_per_call(fn)})
         yard.update(library_lane_packed_ms=ms(mm),
                     library_lane_packed_device_ms=device_ms_per_call(mm))
-        planes = infer.tap_planes(x, qw.inv_sx)
         for name in entries:
-            inp = planes if infer._ENTRIES[name][1] == infer._PLANES else x
+            inp = inputs[infer._ENTRIES[name][1]]
             new = lambda: getattr(infer, name)(inp, qw)  # noqa: E731
             old = lambda: _old_conv(lib, name, inp, qw)  # noqa: E731
             differ = int((new() != old()).sum())
@@ -666,7 +683,7 @@ def _conv_old_vs_new(lib: ctypes.CDLL, qw, entries: tuple[str, ...], tag: str,
                          "old_device_ms": [dev_ms[0], dev_ms[3]],
                          "new_device_ms": [dev_ms[1], dev_ms[2]], **yard,
                          "maps_differing": differ, "ok": differ == 0})
-        del x, a1, planes
+        del x, a1, inputs
     return recs
 
 
@@ -683,7 +700,20 @@ def conv_v5_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> lis
 def conv_v6_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
     """Rows 6 and 7 (v6, v4) against an earlier body (``_conv_old_vs_new``,
     beside row 5 too)."""
-    return _conv_old_vs_new(lib, qw, CONV_V6_ENTRIES, "conv_v6_old", batches, with_v5=True)
+    return _conv_old_vs_new(lib, qw, CONV_V6_ENTRIES, "conv_v6_old", batches, rows=((5, "v5"),))
+
+
+def conv_v3_old_vs_new(lib: ctypes.CDLL, qw, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Rows 8 and 9 (v3, v2) against an earlier body (``_conv_old_vs_new``,
+    beside row 6 too)."""
+    return _conv_old_vs_new(lib, qw, CONV_V3_ENTRIES, "conv_v3_old", batches, rows=((6, "v6"),))
+
+
+def probe_conv_fold_old() -> list[dict]:
+    """Rows 3 and 4 against an earlier body of ``csrc/conv_stage_int8_v10.cu``
+    (a copy at ``OLD_CONV_FOLD_SRC``) on the committed artifact's weights."""
+    return _conv_old("conv_fold_old", OLD_CONV_FOLD_SRC, CONV_FOLD_ENTRIES,
+                     conv_fold_old_vs_new)
 
 
 def probe_conv_v5_old() -> list[dict]:
@@ -696,6 +726,12 @@ def probe_conv_v6_old() -> list[dict]:
     """Rows 6 and 7 against an earlier body of ``csrc/conv_stage_int8_v6.cu``
     (a copy at ``OLD_CONV_V6_SRC``) on the committed artifact's weights."""
     return _conv_old("conv_v6_old", OLD_CONV_V6_SRC, CONV_V6_ENTRIES, conv_v6_old_vs_new)
+
+
+def probe_conv_v3_old() -> list[dict]:
+    """Rows 8 and 9 against an earlier body of ``csrc/conv_stage_int8_v3.cu``
+    (a copy at ``OLD_CONV_V3_SRC``) on the committed artifact's weights."""
+    return _conv_old("conv_v3_old", OLD_CONV_V3_SRC, CONV_V3_ENTRIES, conv_v3_old_vs_new)
 
 
 def _conv_old(tag: str, src: str, entries: tuple[str, ...], run) -> list[dict]:
@@ -1205,8 +1241,10 @@ PROBES = {
     "conv2_old": probe_conv2_old,
     "conv2_maps": probe_conv2_maps,
     "conv_v7_old": probe_conv_v7_old,
+    "conv_fold_old": probe_conv_fold_old,
     "conv_v5_old": probe_conv_v5_old,
     "conv_v6_old": probe_conv_v6_old,
+    "conv_v3_old": probe_conv_v3_old,
     "batch": probe_batch,
     "r3stream": probe_r3stream,
     "r5cfo": probe_r5cfo,

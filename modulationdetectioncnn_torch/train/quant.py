@@ -42,6 +42,9 @@ def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
     return v[lo] * w_lo.to(v.device) + v[hi] * w_hi.to(v.device)
 
 
+_percentile = percentile   # for the functions whose `percentile` keyword shadows it
+
+
 def _per_channel_scale(w: np.ndarray, reduce_axes: tuple[int, ...]) -> np.ndarray:
     s = np.abs(w).max(axis=reduce_axes) / 127.0
     return np.maximum(s, 1e-12)
@@ -77,7 +80,7 @@ def _pow2_requant(s_in, s_w, s_out, bias, significand_bits=None):
 
 @torch.no_grad()
 def calibrate_activations(model: VTCNN2, calib_x: np.ndarray,
-                          percentile_q: float = 99.99) -> dict[str, float]:
+                          percentile: float = 99.99) -> dict[str, float]:
     """Run the model (eval mode, its own device and compute dtype) on the
     calibration frames; return the input absmax scale and the percentile
     scales of the post-ReLU Conv1 / Conv2 / Dense1 activations."""
@@ -87,8 +90,8 @@ def calibrate_activations(model: VTCNN2, calib_x: np.ndarray,
     try:
         inter: dict[str, torch.Tensor] = {}
         model(torch.from_numpy(np.asarray(calib_x, np.float32)).to(dev), inter)
-        a = [float(percentile(inter[k].to(torch.float32).clamp_min(0.0),
-                              percentile_q))
+        a = [float(_percentile(inter[k].to(torch.float32).clamp_min(0.0),
+                               percentile))
              for k in ("Conv1", "Conv2", "Dense1")]
     finally:
         model.train(was_training)
@@ -140,7 +143,7 @@ def quantize_params(p: dict, scales: dict[str, float]) -> QuantizedModel:
 
 
 def quantize(model: VTCNN2, calib_x: np.ndarray,
-             percentile_q: float = 99.99) -> QuantizedModel:
+             percentile: float = 99.99) -> QuantizedModel:
     """Float torch model -> packed int8 deployment artifact."""
-    scales = calibrate_activations(model, calib_x, percentile_q)
+    scales = calibrate_activations(model, calib_x, percentile)
     return quantize_params(flax_params(model), scales)

@@ -142,7 +142,7 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
         "correct_timing.cu", "dense_argmax_bf16.cu", "dense_argmax_int8.cu",
         "probe_kernels.cu"]
     assert [os.path.basename(s) for s in _build._headers()] == [
-        "conv1_producer_s8.cuh", "conv2_wgmma.cuh", "conv_stage_int8_mma.cuh", "tma_wgmma.cuh"]
+        "conv1_producer_s8.cuh", "conv2_wgmma.cuh", "tma_wgmma.cuh"]
     for s in sources:
         with open(s) as f:
             cu = f.read()
@@ -159,7 +159,7 @@ def test_build_uses_nvcc_for_sm90a_without_cpp_extension():
     assert entries == set(_build._SIGNATURES)
 
 
-@pytest.mark.parametrize("edited", ["conv_stage_int8.cu", "conv_stage_int8_mma.cuh"])
+@pytest.mark.parametrize("edited", ["conv_stage_int8.cu", "conv1_producer_s8.cuh"])
 def test_library_path_tracks_sources(tmp_path, monkeypatch, edited):
     """The library is named by a hash of the sources and the headers they
     include: an edit to either rebuilds."""

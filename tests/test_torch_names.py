@@ -151,3 +151,91 @@ def test_bench_reads_a_bare_word_as_its_backend(monkeypatch):
     assert cfg.bench.backend == "pallas_int8_v9" and cfg.bench.calibrate is False
     assert cfg.bench.batch_size == 64 and cfg.device == "cpu"
     assert tbench.parse_args(["stream"]).bench.mode == "stream"
+
+
+def _small_configs():
+    """The port's and the JAX package's configs at 2 frames per class and
+    SNR (the port's on the CPU)."""
+    from modulationdetectioncnn_torch.config import apply_overrides as tapply
+    from modulationdetectioncnn_tpu.config import apply_overrides as japply
+
+    small = ["data.frames_per_class_per_snr=2"]
+    return (tapply(tpkg.AmcConfig(), [*small, "device=cpu"]),
+            japply(jpkg.AmcConfig(), small))
+
+
+def test_build_dataset_with_snrs_equals_jax():
+    """``_build_dataset(cfg, snrs)`` builds the synthetic dataset at those
+    SNRs alone in both CLIs: the same frames, labels, SNRs and classes."""
+    tcfg, jcfg = _small_configs()
+    got = tcli._build_dataset(tcfg, [0, 10, 18])
+    want = jcli._build_dataset(jcfg, [0, 10, 18])
+    assert tuple(got[3]) == tuple(want[3]) and len(got[3]) == 11
+    assert sorted(set(got[2].tolist())) == [0, 10, 18]
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_cmd_train_passes_snrs_as_jax_does(monkeypatch):
+    """``cmd_train(cfg, snrs=...)`` trains on the split of that dataset in
+    both CLIs (the training loop replaced by one that records its data)."""
+    from modulationdetectioncnn_torch.train import loop as tloop
+    from modulationdetectioncnn_tpu.train import loop as jloop
+
+    seen = {}
+
+    def recorder(side):
+        def train(cfg, tr, te):
+            seen[side] = (tr, te)
+            return None, []
+        return train
+
+    monkeypatch.setattr(tloop, "train", recorder("port"))
+    monkeypatch.setattr(jloop, "train", recorder("jax"))
+    tcfg, jcfg = _small_configs()
+    got = tcli.cmd_train(tcfg, snrs=[0, 10, 18])
+    want = jcli.cmd_train(jcfg, snrs=[0, 10, 18])
+    for (ta, tb), (ja, jb) in zip(seen["port"], seen["jax"]):
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tb, jb)
+    for a, b in zip(got[2], want[2]):            # the held-out (x, y, snr)
+        np.testing.assert_array_equal(a, b)
+    assert tuple(got[3]) == tuple(want[3])
+
+
+BF16_BUILDERS = ("make_bf16_forward", "make_bf16_forward_v2", "make_bf16_classifier_v4")
+
+
+@pytest.mark.parametrize("name", BF16_BUILDERS)
+def test_infer_exports_the_jax_bf16_builders(name):
+    """The JAX package's ``ops/infer.py`` holds its bf16 builders; the
+    port's gives the same names, its ``ops/infer_bf16.py`` builders (held
+    to the JAX ones by ``tests/test_torch_bf16*.py``), with the same first
+    parameter."""
+    import inspect
+
+    from modulationdetectioncnn_torch.ops import infer as tinfer
+    from modulationdetectioncnn_torch.ops import infer_bf16
+    from modulationdetectioncnn_tpu.ops import infer as jinfer
+
+    fn = getattr(tinfer, name)
+    assert fn is getattr(infer_bf16, name)
+    assert next(iter(inspect.signature(fn).parameters)) == next(
+        iter(inspect.signature(getattr(jinfer, name)).parameters)) == "params"
+    with pytest.raises(AttributeError):
+        tinfer.make_bf16_nothing
+
+
+def test_cmd_bench_returns_the_bench_run_as_jax_does(monkeypatch):
+    """``cli.cmd_bench(cfg)`` returns the benchmark's ``run(cfg)`` in both
+    CLIs (each ``run`` replaced by one that records its config)."""
+    import sys
+    import types
+
+    jbench = types.ModuleType("bench")
+    jbench.run = lambda cfg: {"jax": cfg}
+    monkeypatch.setitem(sys.modules, "bench", jbench)
+    monkeypatch.setattr(tbench, "run", lambda cfg: {"port": cfg})
+    tcfg, jcfg = tpkg.AmcConfig(), jpkg.AmcConfig()
+    assert tcli.cmd_bench(tcfg) == {"port": tcfg}
+    assert jcli.cmd_bench(jcfg) == {"jax": jcfg}

@@ -72,6 +72,34 @@ def test_quantize_equals_jax_given_the_same_scales(models, calib, monkeypatch):
         np.testing.assert_array_equal(got_t[k], v, err_msg=k)
 
 
+def test_quantize_takes_the_jax_percentile_keyword(models, calib, monkeypatch):
+    """``quantize(..., percentile=99.9)`` calibrates at that percentile as
+    the JAX quantizer does (its scales within 1e-5 relative of the JAX
+    package's, and not the default 99.99's), and from those scales gives
+    the JAX package's 13 arrays."""
+    model, params, tmodel = models
+    seen = {}
+    quantize_params = tquant.quantize_params
+
+    def recording(p, scales):
+        seen["scales"] = dict(scales)
+        return quantize_params(p, scales)
+
+    monkeypatch.setattr(tquant, "quantize_params", recording)
+    got = tquant.quantize(tmodel, calib, percentile=99.9).tree()
+    want_scales = jquant.calibrate_activations(model, params, calib, percentile=99.9)
+    default = jquant.calibrate_activations(model, params, calib)
+    assert any(want_scales[k] != default[k] for k in ("a1", "a2", "a3"))
+    for k, v in want_scales.items():
+        np.testing.assert_allclose(seen["scales"][k], v, rtol=1e-5, err_msg=k)
+    assert tquant.calibrate_activations(tmodel, calib, percentile=99.9) == seen["scales"]
+    monkeypatch.setattr(jquant, "calibrate_activations",
+                        lambda *a, **k: dict(seen["scales"]))
+    want = jquant.quantize(model, params, calib, percentile=99.9).tree()
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+
+
 def test_quantized_port_model_meets_the_fold_contract(models, calib):
     """A model quantized by the port carries to the v9/v10 layouts."""
     qm = tquant.quantize(models[2], calib)
