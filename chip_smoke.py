@@ -41,8 +41,17 @@ Phases, each printing JSON lines (``"phase": ...``):
                (``kernels.old_vs_new`` lines). The timing FIR against its
                plain version on the stream bench's 4096 normalized frames with their own timing
                estimates, on the demo's 1024 frames, at B=1, on a ragged
-               37-frame slice and at the wrap extremes of tau: 0 differing
-               floats. The five bf16 kernels (the v4, v2 and f32-conv1
+               37-frame slice, on the stream bench's 16384 frames and
+               4095 and 4097 of them, at the wrap extremes of tau, with 1,
+               3 and 9 taps (the window route), and on the general route
+               (T 40 with 17 and 3 taps, T 300, frames 4 bytes past a
+               16-byte boundary): 0 differing floats, each case on the
+               route its widths give, the stream's widths on the window
+               route alone. Where an earlier body of
+               ``csrc/correct_timing.cu`` was copied to
+               ``_build/correct_timing_old.cu`` (never committed), it is
+               timed against it, old, new, new, old, at B=4096, 2048 and
+               16384 beside the library call (``kernels.old_vs_new``). The five bf16 kernels (the v4, v2 and f32-conv1
                conv stages, the dense stage with labels and with logits)
                against their plain versions for three float weight sets
                (the bench's seeded model, the exported checkpoint, a
@@ -169,8 +178,8 @@ Phases, each printing JSON lines (``"phase": ...``):
                stream.normalize_timing=true``), whose moved carriers are
                reported, not checked. Every run: streamed labels equal
                whole-stream labels, the path's kernels launched (the timing
-               FIR where timing is on), and the labels agree with the CPU
-               plain path.
+               FIR where timing is on, on its window route alone), and the
+               labels agree with the CPU plain path.
 5. bench    -- the port's bench (``modulationdetectioncnn_torch.bench``) at
                its defaults: cnn mode at B=4096 with calibration over v7 and
                v10 and the stream_extra line; then stream mode, and stream
@@ -240,10 +249,18 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                conv2's launches per route (the default widths on the
                Hopper route in bf16 and int8, on the FFMA route in
                float32; float32 at T 40, C 33, Co 7 on the general route);
-               times at B=4096 beside bound, plain and library. Where an
+               row 19 also on ``scripts/probe.py::conv1_int8_edge_cases``
+               (x at -128 and +127 under taps of -128 and +127, shifts 0
+               .. 31, offsets at the clip's edges) at B = 1, 37, 4097 and
+               16384 with C 16, 48, 256 and 33, at T 3, and on frames 1
+               byte past a word, each on the route its widths give (the
+               dp4a route at C a multiple of 16, and at the default
+               widths; C 33 on the general route); times at B=4096
+               beside bound, plain and library, with the registers and
+               spills of rows 19 and 21's new bodies. Where an
                earlier body of ``csrc/cnn_kernels.cu`` was copied to
                ``_build/cnn_kernels_old.cu`` (never committed), rows 18
-               (bf16, float32) and 20 are timed against it, each against
+               (bf16, float32), 20 and 19 are timed against it, each against
                the copy's entry of its own route where the copy has one,
                else its general body, old, new, new, old, at B = 4096,
                2048 and 16384 (``cnn_kernels.old_vs_new`` lines).
@@ -253,8 +270,10 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                alone) against their plain versions bit for bit, on the
                probe's (4096, 16384) int8 and odd byte counts, and on the
                bench's, the demo's, B=1, 37 and T=40 frames and exact ties
-               past the clip; times beside bound, plain and library; 0
-               launches on the main path.
+               past the clip; times beside bound, plain and library (the
+               library call's device time too, on the kernel's clock, and
+               the two in turns, kernel, library, library, kernel, three
+               rounds); 0 launches on the main path.
 - parallel (after stream) -- world size 1 on NCCL: the sharded v7 stream
                equal to the single-process labels with rows 1-2 launched,
                ``dryrun_multichip(1)``, ``train`` on a 1x1x1 mesh.
@@ -290,6 +309,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -378,7 +398,8 @@ KERNEL_SYMBOLS = {
     "dense_logits_bf16": "dense_argmax_bf16_kernel<false>",
     "conv1_stacked": "conv1_f32_kernel<__nv_bfloat16>",
     "conv2_stacked": "conv2_wgmma_kernel<0",               # bf16, the Hopper route
-    "conv1_stacked_int8": "conv1_int8_kernel",
+    "conv1_stacked_int8": "conv1_int8_dp4a_kernel",        # the dp4a route
+    "correct_timing_fir": "correct_timing_fir_window_kernel<8>",   # the window route
     "conv2_stacked_int8": "conv2_wgmma_kernel<1",
     "copy_bytes": "copy_bytes_kernel",
     "quantize_tap_planes": "tap_planes_kernel",
@@ -415,6 +436,9 @@ V6_STAGES = ("conv_stage_int8_v6", "conv_stage_int8_v4")
 # and B = 2 (two blocks of one frame each).
 V3_STAGES = ("conv_stage_int8_v3", "conv_stage_int8_v2")
 V3_BATCHES = tuple(sorted((2, *FOLD_BATCHES)))
+# Row 19's edge batches (scripts/probe.py::conv1_int8_edge_cases): one
+# frame, a ragged few, the persistent grid's ragged edge, the largest.
+CONV1_EDGE_BATCHES = (1, 37, 4097, 16384)
 # The dense stage's edge batches (scripts/probe.py::dense_bf16_edge_cases).
 BF16_EDGE_BATCHES = (1, 37, 129, 2048, 4095, 4096, 4097, 16384)
 # The bf16 conv stages' cluster edges: 66 clusters of 2 expected on the
@@ -492,7 +516,8 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build() -> str:
+    """Build and load the kernels; returns ptxas's report."""
     from modulationdetectioncnn_torch.ops import _build
 
     res = _build.build(force=True)
@@ -502,6 +527,25 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": round(res["seconds"], 3),
           "nvcc": _build.find_nvcc(), "library": os.path.relpath(res["path"], REPO),
           "ptxas": usage})
+    return res["log"]
+
+
+def ptxas_usage(log: str, symbol: str) -> dict:
+    """The registers and spill bytes ptxas reported for the first entry
+    whose mangled name holds ``symbol``; {} when there is none."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and symbol in ln:
+            rec = {}
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry" in nxt:
+                    break
+                if m := re.search(r"Used (\d+) registers", nxt):
+                    rec["registers"] = int(m.group(1))
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt):
+                    rec["spill_stores"], rec["spill_loads"] = int(m.group(1)), int(m.group(2))
+            return rec
+    return {}
 
 
 def random_weights(art, rng: np.random.Generator):
@@ -546,15 +590,19 @@ def reset_counts() -> None:
 
     infer.reset_launch_counts()
     infer_bf16.reset_launch_counts()
-    normalize.correct_timing_fir.launches = 0
+    normalize.reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launches, and the timing FIR's per route (as
+    ``correct_timing_fir/<route>``)."""
     from modulationdetectioncnn_torch.dsp import normalize
     from modulationdetectioncnn_torch.ops import infer, infer_bf16
 
+    fir = normalize.correct_timing_fir
     return {**infer.launch_counts(), **infer_bf16.launch_counts(),
-            "correct_timing_fir": normalize.correct_timing_fir.launches}
+            "correct_timing_fir": fir.launches,
+            **{f"correct_timing_fir/{r}": n for r, n in fir.route_launches.items()}}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[int, float]:
@@ -757,41 +805,69 @@ def stream_bench_frames(n_frames: int) -> torch.Tensor:
 
 
 def timing_checks(demo: torch.Tensor, stream4096: torch.Tensor) -> tuple[list, dict]:
-    """The timing FIR against its plain version: on frames with their own
-    Oerder & Meyr estimates (the stream bench's 4096, the demo's 1024, B=1
-    and a ragged 37-frame slice), and on seeded frames at the wrap extremes
-    of tau. Returns the check lines and the kernel's stats."""
+    """The timing FIR against its plain version, bit for bit, on both
+    routes (``correct_timing_fir_route``): on frames with their own Oerder &
+    Meyr estimates (the stream bench's 4096, the demo's 1024, B=1, a ragged
+    37-frame slice, and the stream bench's 16384 frames whole, their first
+    4095 and 4097 of them from frame 1), on seeded frames at the wrap
+    extremes of tau (``probe.TIMING_TAU_EDGES``), with seeded filters of 1,
+    3 and 9 taps at T 128 (the window route's other widths), and on the
+    general route at T 40 (17 and 3 taps), T 300 and on frames that start
+    4 bytes past a 16-byte boundary. Each case must take the route its
+    widths give. Returns the check lines and the kernel's stats."""
     from modulationdetectioncnn_torch.config import StreamConfig
     from modulationdetectioncnn_torch.dsp import normalize
+    from modulationdetectioncnn_torch.scripts import probe
 
     sc = StreamConfig()
-    x_seed = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
-        (16, 2, 128)).astype(np.float32)).cuda()
-    # Both ends of the wrap to [-sps/2, sps/2), the rounding boundaries of
-    # tau_c * 32 next to them (x.5 goes to even), and 0.
-    eps = np.float32(1e-6)
-    tau_ext = torch.tensor([-4.0, -4.0 + eps, 4.0 - eps, 4.0, 0.0, -eps, 8.0 - eps,
-                            8.0, 12.0, -3.984375, 3.984375, 0.015625, -0.015625,
-                            4.015625, 7.984375, 0.046875], dtype=torch.float32).cuda()
-    cases = {"stream_bench_b4096": (stream4096, None), "stream_demo_b1024": (demo, None),
-             "stream_bench_b1": (stream4096[:1], None),
-             "stream_bench_b37_at3": (stream4096[3:40], None),
-             "seeded_b16_tau_extremes": (x_seed, tau_ext)}
+    r = np.random.default_rng(SEED + 2)
+
+    def seeded(*shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(np.float32)).cuda()
+
+    x_seed = seeded(16, 2, 128)
+    tau_ext = torch.tensor(probe.TIMING_TAU_EDGES, dtype=torch.float32).cuda()
+    s16k = stream_bench_frames(16384)
+    flat = seeded(37 * 256 + 1)
+    misaligned = flat[1:].view(37, 2, 128)             # 4 bytes past the boundary
+    # name: (frames, tau (None: their own estimate) or (B, taps) filters, route)
+    cases = {"stream_bench_b4096": (stream4096, None, "window"),
+             "stream_demo_b1024": (demo, None, "window"),
+             "stream_bench_b1": (stream4096[:1], None, "window"),
+             "stream_bench_b37_at3": (stream4096[3:40], None, "window"),
+             "stream_bench_b16384": (s16k, None, "window"),
+             "stream_bench_b4095": (s16k[:4095], None, "window"),
+             "stream_bench_b4097_at1": (s16k[1:4098], None, "window"),
+             "seeded_b16_tau_extremes": (x_seed, tau_ext, "window")}
+    for taps in (1, 3, 9):
+        cases[f"seeded_b37_taps{taps}"] = (seeded(37, 2, 128), seeded(37, taps), "window")
+    for t, taps in ((40, 17), (40, 3), (300, 17)):
+        cases[f"seeded_b37_t{t}_taps{taps}"] = (seeded(37, 2, t), seeded(37, taps), "general")
+    cases["misaligned_b37"] = (misaligned, None, "general")
     checks, st = [], {"mismatches": 0, "max_abs_err": 0.0, "checked": 0}
-    for name, (x, tau) in cases.items():
-        tau = normalize.estimate_timing(x, sc.sps) if tau is None else tau
-        c = normalize.timing_filters(tau, sc.sps, sc.timing_phases)
+    for name, (x, tau, route) in cases.items():
+        if tau is None:
+            tau = normalize.estimate_timing(x, sc.sps)
+        c = tau if tau.dim() == 2 else normalize.timing_filters(tau, sc.sps, sc.timing_phases)
+        want_route = normalize.correct_timing_fir_route(x.shape[-1], c.shape[1],
+                                                        x.data_ptr() % 16 == 0)
+        before = dict(normalize.correct_timing_fir.route_launches)
         got = normalize.correct_timing_fir(x, c)
         want = normalize.correct_timing_fir_plain(x, c)
         torch.cuda.synchronize()
+        routes = [k for k, v in normalize.correct_timing_fir.route_launches.items()
+                  if v != before[k]]
         mism, err = compare(name, got, want)
         st["mismatches"] += mism
         st["checked"] += 1
         st["max_abs_err"] = max(st["max_abs_err"], err)
         checks.append({"kernel": "correct_timing_fir", "input": name,
-                       "n": int(x.shape[0]), "mismatches": mism,
+                       "n": int(x.shape[0]), "t": int(x.shape[-1]), "taps": int(c.shape[1]),
+                       "route": routes, "mismatches": mism,
                        "finite": bool(torch.isfinite(got).all())})
         require(bool(torch.isfinite(got).all()), f"timing FIR {name}: non-finite output")
+        require(routes == [want_route] == [route],
+                f"timing FIR {name}: took {routes}, its widths give {want_route}, want {route}")
     return checks, st
 
 
@@ -1327,6 +1403,7 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
 
     from modulationdetectioncnn_torch.config import StreamConfig
     from modulationdetectioncnn_torch.dsp import normalize
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
 
     sc = StreamConfig()
     xt = stream_bench_frames(b)
@@ -1340,10 +1417,18 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
     # A launch of this kernel is shorter than the host's time to issue one
     # through the wrapper, so back-to-back CUDA events time the host: its
     # "ms" is the profiler's device time, the events' time is reported too.
+    # The stream's frames take the window route, and only it.
     fir = lambda: normalize.correct_timing_fir(xt, ct)  # noqa: E731
+    normalize.reset_launch_counts()
+    fir()
+    fir_route = dict(normalize.correct_timing_fir.route_launches)
+    require(fir_route == {"window": 1, "general": 0},
+            f"the timing FIR at the stream's widths did not take the window route: {fir_route}")
     events_ms = time_ms(fir, iters=20)
-    kernel_ms = device_ms(fir, "correct_timing_fir_kernel")
-    rows.append({"name": "correct_timing_fir", "route": "cuda",
+    kernel_ms = device_ms(fir, KERNEL_SYMBOLS["correct_timing_fir"])
+    fir_lib = lambda: torch.matmul(xpad.unfold(-1, taps, 1), c4)  # noqa: E731
+    rows.append({"name": "correct_timing_fir", "route": "cuda", "fir_route": "window",
+                 **ptxas_usage(dev_info["ptxas_log"], "correct_timing_fir_window_kernelILi8E"),
                  "source": SOURCES["correct_timing_fir"],
                  "replaces": TPU_KERNELS["correct_timing_fir"], "launches": None,
                  "max_abs_err": stats["correct_timing_fir"]["max_abs_err"],
@@ -1356,11 +1441,22 @@ def phase_kernels(dev_info: dict, demo_frames: torch.Tensor) -> list[dict]:
                  "bound_ms": t_bound,
                  "bound_by": ("operations" if t_ops / dev_info["f32_flops_per_s"]
                               >= t_bytes / bw_peak else "bytes"),
-                 "library_ms": time_ms(lambda: torch.matmul(xpad.unfold(-1, taps, 1), c4),
-                                       iters=20),
+                 "library_ms": time_ms(fir_lib, iters=20),
+                 "library_device_ms": device_ms_per_call(fir_lib),
                  "library_call": "torch.matmul, (B, 2, 128, 17) unfolded frames x "
                                  "(B, 1, 17, 1) filters",
                  "batch": b, "f32_ops": t_ops, "bytes": t_bytes})
+    # Row 21 against its earlier body, where a copy of it was put at
+    # probe.OLD_TIMING_SRC: old, new, new, old in this run, outputs bit for
+    # bit, beside the library call.
+    old_fir = probe.old_library(probe.OLD_TIMING_SRC, probe.TIMING_ENTRIES)
+    if old_fir is None:
+        emit({"phase": "kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_TIMING_SRC, REPO)}"})
+    else:
+        for rec in probe.timing_old_vs_new(old_fir):
+            emit({"phase": "kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     # The bf16 stages on the bench's seeded float weights (what its
     # pallas_bf16_v4 and pallas_bf16 backends serve), at B=4096: operations
     # over the peak for their type, bytes as for the int8 rows. The v4 and
@@ -1512,7 +1608,10 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         require(got.shape == want.shape and got.dtype == want.dtype,
                 f"{kname} {case}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
                 f"{want.dtype}")
-        g, w = got.double(), want.double()
+        # int8 maps in int32 (a B=16384 map is 1.06 G elements), floats in
+        # float64.
+        g, w = (got.double(), want.double()) if got.is_floating_point() \
+            else (got.to(torch.int32), want.to(torch.int32))
         diff = (g - w).abs()
         bad = int((diff > rtol * w.abs() + atol_of_max * float(w.abs().max())).sum()) \
             if rtol or atol_of_max else int((g != w).sum())
@@ -1523,7 +1622,7 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         checks.append({"kernel": kname, "case": case, "shape": list(got.shape),
                        "dtype": str(got.dtype), "outside_tolerance": bad,
                        "max_abs_diff": float(diff.max()) if diff.numel() else 0.0,
-                       "bit_equal_share": float((g == w).double().mean())})
+                       "bit_equal_share": float((g == w).sum()) / max(g.numel(), 1)})
         require(bool(torch.isfinite(g).all()), f"{kname} {case}: non-finite output")
 
     def float_pair(case, x, w1p, b1, w2p, b2):
@@ -1544,15 +1643,23 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
             else:
                 record("conv2_stacked", f"{case}/float32", got, want, 0.0, 1e-5)
 
-    def int8_pair(case, xq, w1p, m1, o1, w2p, m2, o2):
+    def conv1_int8_check(case, xq, w1p, m1, o1):
+        before = dict(ck.conv1_stacked_int8.route_launches)
         a1 = ck.conv1_stacked_int8(xq, w1p, m1, o1)
         record("conv1_stacked_int8", case, a1, ck.conv1_stacked_int8_plain(xq, w1p, m1, o1))
+        conv1_routes[case] = ([r for r, c in ck.conv1_stacked_int8.route_launches.items()
+                               if c != before[r]], ck.conv1_int8_route(xq.shape[-1], w1p.shape[1]))
+        return a1
+
+    def int8_pair(case, xq, w1p, m1, o1, w2p, m2, o2):
+        a1 = conv1_int8_check(case, xq, w1p, m1, o1)
         a2 = ck.conv2_stacked_int8(a1, w2p, m2, o2)
         record("conv2_stacked_int8", case, a2, ck.conv2_stacked_int8_plain(a1, w2p, m2, o2))
         return a2
 
     chain = {}
     f32_routes = {}      # case: the routes its float32 conv2 launch counted
+    conv1_routes = {}    # case: (the routes its int8 conv1 launch counted, its widths' route)
     for xname, x in inputs.items():
         for wname, fw in float_sets.items():
             float_pair(f"{wname}/{xname}", x, *fw)
@@ -1577,19 +1684,42 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
             record("conv2_stacked", name, ck.conv2_stacked(a1, w2p, *rest),
                    ck.conv2_stacked_plain(a1, w2p, *rest), probe.BF16_MAP_RTOL,
                    probe.BF16_MAP_ATOL_OF_MAX)
+    # Row 19's edges (probe.conv1_int8_edge_cases: x at -128 and +127 under
+    # taps of -128 and +127, shifts 0 .. 31, offsets at the clip's edges) at
+    # B = 1, 37, 4097 and 16384, C = 16, 48 and 256 on the dp4a route and 33
+    # on the general one; T 3; and frames that start 1 byte past a word (T
+    # 41: each frame's first byte lands on every offset in a word).
+    for nc in (16, 48, 256, 33):
+        for nb in CONV1_EDGE_BATCHES:
+            for kind, arrs in probe.conv1_int8_edge_cases(SEED + nc + nb, nb, 128, nc).items():
+                conv1_int8_check(f"edge_{kind}/b{nb}_c{nc}",
+                                 *(torch.from_numpy(a).cuda() for a in arrs))
+    for kind, (xe, *rest) in probe.conv1_int8_edge_cases(SEED + 7, 37, 3, 16).items():
+        conv1_int8_check(f"edge_{kind}/b37_t3_c16", torch.from_numpy(xe).cuda(),
+                         *(torch.from_numpy(a).cuda() for a in rest))
+    for kind, (xe, *rest) in probe.conv1_int8_edge_cases(SEED + 8, 37, 41, 48).items():
+        flat = torch.zeros(xe.size + 1, dtype=torch.int8, device="cuda")
+        flat[1:] = torch.from_numpy(xe.reshape(-1)).cuda()
+        conv1_int8_check(f"edge_{kind}/b37_t41_c48_offset1", flat[1:].view(xe.shape),
+                         *(torch.from_numpy(a).cuda() for a in rest))
     check_launches = ck.launch_counts()
     check_routes = ck.route_launch_counts()
     for c in checks:
         emit({"phase": "cnn_kernels.check", **c})
     emit({"phase": "cnn_kernels.chain", "row19_row20_vs_v7": chain})
     emit({"phase": "cnn_kernels.routes", "check_launches_per_route": check_routes,
-          "float32_routes": f32_routes})
+          "float32_routes": f32_routes, "conv1_int8_routes": conv1_routes})
     for kname, st in stats.items():
         require(st["mismatches"] == 0, f"{kname}: {st['mismatches']} elements outside "
                 "tolerance of the plain version")
     # float32 on both bodies: the FFMA route but at the narrow odd shape.
     require(all(r == (["general"] if c.startswith("t40_") else ["ffma"])
                 for c, r in f32_routes.items()), f"float32 conv2 routes: {f32_routes}")
+    # int8 conv1 on both bodies: the dp4a route at C a multiple of 16, the
+    # general one at C 33.
+    require(all(took == [want] == [("general" if "c33" in c else "dp4a")]
+                for c, (took, want) in conv1_routes.items()),
+            f"int8 conv1 routes: {conv1_routes}")
     require(all(c["map_vs_v7"] == 0 and c["labels_vs_v7"] == 0 for c in chain.values()),
             f"row 19 -> row 20 differs from v7: {chain}")
 
@@ -1643,9 +1773,14 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     ck.reset_launch_counts()
     plans[1][1]()
     plans[3][1]()
+    plans[2][1]()
     timed_routes = ck.route_launch_counts()
+    conv1_timed_route = timed_routes.pop("conv1_stacked_int8")
     require(all(timed_routes[k] == {"wgmma": 1, "ffma": 0, "general": 0} for k in timed_routes),
             f"conv2 at the default widths did not take the Hopper route: {timed_routes}")
+    # ... and int8 conv1 the dp4a route.
+    require(conv1_timed_route == {"dp4a": 1, "general": 0},
+            f"int8 conv1 at the default widths did not take the dp4a route: {conv1_timed_route}")
     ck.reset_launch_counts()
     ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32)
     f32_timed_route = ck.route_launch_counts()["conv2_stacked"]
@@ -1669,6 +1804,10 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                      "batch": b, f"{kind}_ops": ops, "bytes": nb})
         if kname in timed_routes:
             rows[-1]["conv2_route"] = "wgmma"
+        if kname == "conv1_stacked_int8":
+            rows[-1].update(conv1_int8_route="dp4a",
+                            **ptxas_usage(dev_info["ptxas_log"], KERNEL_SYMBOLS[kname]))
+        if kname != "conv1_stacked":
             require(rows[-1]["device_ms"] is not None,
                     f"{kname}: the profiler shows no {KERNEL_SYMBOLS[kname]}")
     # Row 18's float32 form (CUDA cores), beside its bf16 row.
@@ -1688,9 +1827,8 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     rows[0]["float32_out_ms"] = time_ms(
         lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32), iters=20)
     emit({"phase": "cnn_kernels", "timed": rows, "check_launches": check_launches})
-    # Rows 18 and 20 against an earlier body (conv2's tile body alone),
-    # where a copy of it was put at probe.OLD_CNN_SRC: old, new, new, old
-    # in this run.
+    # Rows 18, 20 and 19 against an earlier body, where a copy of it was
+    # put at probe.OLD_CNN_SRC: old, new, new, old in this run.
     old_lib = probe.old_library(probe.OLD_CNN_SRC, probe.CNN_ENTRIES)
     if old_lib is None:
         emit({"phase": "cnn_kernels.old_vs_new",
@@ -1700,6 +1838,10 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
             emit({"phase": "cnn_kernels.old_vs_new", **rec})
             require(rec["outputs_differing"] == 0,
                     f"{rec['name']} B={rec['batch']}: new vs old body differ")
+        # Row 19 against the copy's amc_conv1_stacked_int8, the same way.
+        for rec in probe.conv1_int8_old_vs_new(old_lib, *i8[:3], qw.inv_sx):
+            emit({"phase": "cnn_kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     ck.reset_launch_counts()          # from here on: the main path's launches
     return rows
 
@@ -1755,6 +1897,7 @@ def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     from modulationdetectioncnn_torch.ops import probe_kernels as pk
     from modulationdetectioncnn_torch.ops.infer import tap_planes
     from modulationdetectioncnn_torch.quant import load_int8
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
 
     pk.reset_launch_counts()
     qw = load_int8(device="cuda")
@@ -1817,7 +1960,16 @@ def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                      "plain_ms": time_ms(plain, iters=20),
                      "bound_ms": nb / bw * 1e3, "bound_by": "bytes",
                      "library_ms": time_ms(lib[0], iters=20) if lib else None,
+                     # the library call's device time, on the kernel's clock
+                     "library_device_ms": device_ms_per_call(lib[0]) if lib else None,
                      "library_call": lib[1] if lib else None, "bytes": nb})
+        if lib:
+            # The kernel and the library call in turns on that clock:
+            # kernel, library, library, kernel, three rounds.
+            rows[-1]["device_ms_turns"] = [
+                [device_ms(kernel, KERNEL_SYMBOLS[kname]), device_ms_per_call(lib[0]),
+                 device_ms_per_call(lib[0]), device_ms(kernel, KERNEL_SYMBOLS[kname])]
+                for _ in range(3)]
     emit({"phase": "probe_kernels", "timed": rows, "check_launches": check_launches})
     pk.reset_launch_counts()          # from here on: the main path's launches
     return rows
@@ -2171,8 +2323,11 @@ def phase_bench() -> dict[str, int]:
                           ("conv_stage_int8_v7", "dense_argmax_int8"))
     require(res["metric"] == "streamed_iq_samples_per_sec_per_chip",
             f"bench stream: {res}")
-    res, _, _ = run_bench("stream_timing", ["stream", "stream.normalize_timing=true"],
-                          ("conv_stage_int8_v7", "dense_argmax_int8", "correct_timing_fir"))
+    res, _, tb = run_bench("stream_timing", ["stream", "stream.normalize_timing=true"],
+                           ("conv_stage_int8_v7", "dense_argmax_int8", "correct_timing_fir",
+                            "correct_timing_fir/window"))
+    require(tb["correct_timing_fir/general"] == 0,
+            f"bench stream timing took the timing FIR's general route: {tb}")
     require(res["metric"] == "streamed_iq_samples_per_sec_per_chip",
             f"bench stream timing: {res}")
     res, _, v9 = run_bench("v9", ["pallas_int8_v9", "bench.stream_extra=false"],
@@ -2690,7 +2845,7 @@ def main() -> int:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             dev = phase_device()
-            phase_build()
+            dev["ptxas_log"] = phase_build()
             demo = demo_frames()
             rows = phase_kernels(dev, demo)
             # Rows 17-20: no product path calls them (0 launches on the main
@@ -2704,13 +2859,19 @@ def main() -> int:
             phase_stream("v10", ["eval.int8_kernel=v10"], ("conv_stage_int8_v10", *int8))
             phase_stream("v3", ["eval.int8_kernel=v3"], ("conv_stage_int8_v3", *int8))
             # The stream path with timing correction: the timing FIR.
-            timing = ("conv_stage_int8_v7", *int8, "correct_timing_fir")
-            launches["correct_timing_fir"] = phase_stream(
-                "timing", ["stream.normalize_timing=true"], timing,
-                check_tops=False)["correct_timing_fir"]
-            phase_stream("resample_timing", ["stream.resample_up=1", "stream.resample_down=2",
-                                             "stream.normalize_timing=true"],
-                         timing, check_tops=False)
+            # The stream's 128-sample frames and 17 taps take the window
+            # route alone.
+            timing = ("conv_stage_int8_v7", *int8, "correct_timing_fir",
+                      "correct_timing_fir/window")
+            tl = phase_stream("timing", ["stream.normalize_timing=true"], timing,
+                              check_tops=False)
+            launches["correct_timing_fir"] = tl["correct_timing_fir"]
+            rl = phase_stream("resample_timing", ["stream.resample_up=1",
+                                                  "stream.resample_down=2",
+                                                  "stream.normalize_timing=true"],
+                              timing, check_tops=False)
+            require(all(c["correct_timing_fir/general"] == 0 for c in (tl, rl)),
+                    f"stream timing took the general route: {tl} {rl}")
             # parallel/ at world size 1 (NCCL): the sharded stream, the
             # dryrun, train on a 1x1x1 mesh.
             phase_parallel()

@@ -1,5 +1,5 @@
 // The stand-alone conv kernels of the VT-CNN2 topology, for Hopper (sm_90a),
-// at widths given at run time (any B, T, C, Cin, Co). Six C entry points:
+// at widths given at run time (any B, T, C, Cin, Co). Eight C entry points:
 //
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv1_kernel
 //   (ops/cnn_kernels.py:78, reached by pl.pallas_call in conv1_stacked,
@@ -8,7 +8,8 @@
 //   (:129, conv2_stacked, :165) with amc_conv2_stacked,
 //   amc_conv2_stacked_wgmma and amc_conv2_stacked_ffma (three routes, below),
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv1_int8_kernel
-//   (:223, conv1_stacked_int8, :249) with amc_conv1_stacked_int8, and
+//   (:223, conv1_stacked_int8, :249) with amc_conv1_stacked_int8_dp4a and
+//   amc_conv1_stacked_int8 (two routes, below), and
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv2_int8_kernel
 //   (:268, conv2_stacked_int8, :300) with amc_conv2_stacked_int8 and
 //   amc_conv2_stacked_int8_wgmma.
@@ -46,10 +47,40 @@
 // TOP/s): all bound by bytes, except conv2 f32, whose 124.8 GFLOP on the
 // CUDA cores (67 TFLOP/s) take 1.86 ms.
 //
-// conv1: one warp per output row (b, t), lanes over channel pairs, so a warp
-// writes 128 contiguous bytes per step and the row's six inputs are read
-// once; the pair of two channels is one 4-byte (bf16), 8-byte (f32) or
-// 2-byte (int8) store, aligned because 2C is even.
+// conv1 (float, and int8's general route): one warp per output row (b, t),
+// lanes over channel pairs, so a warp writes 128 contiguous bytes per step
+// and the row's six inputs are read once; the pair of two channels is one
+// 4-byte (bf16), 8-byte (f32) or 2-byte (int8) store, aligned because 2C is
+// even. In int8 that body is bound by load and store issue: per 2 output
+// bytes it loads three weight bytes and each channel's shift and offset
+// (about 10 loads), so it wrote 264 MB at B = 4096 at ~0.59 TB/s.
+//
+// conv1 int8 has two bodies; ops/cnn_kernels.py::conv1_int8_route picks one
+// from the widths (a dispatch by shape, never a retry):
+//
+// - The dp4a route (amc_conv1_stacked_int8_dp4a; C a multiple of 16, 16 <=
+//   C <= 2048, 3 <= T <= 8192: the default widths always). A thread owns 16
+//   consecutive output channels of the stacked row (n0 .. n0+15, all of one
+//   plane since C % 16 == 0) for the whole launch, with their taps packed
+//   one word a channel, (w0, w1, w2, 0) as bytes, and their shifts and
+//   offsets in registers (48 registers, loaded once). A row of 2C channels
+//   is 2C / 16 threads (one warp at C = 256), and a 256-thread block works
+//   on 256 / (2C / 16) rows at once. Persistent blocks (as many as fit on
+//   the card) walk frames; each stages the next frame's 2T bytes into a
+//   second shared buffer by cp.async (4-byte words from the aligned word at
+//   or below its first byte, so any T and any offset of x; words past x's
+//   end arrive as zeros) while it computes the current one. Per row t a
+//   thread forms its plane's window x[t .. t+3] as one word (two aligned
+//   shared loads and a funnel shift), computes each channel with one
+//   __dp4a(window, taps, 0) (the fourth byte meets the weight's zero, so the
+//   int32 sum is exact), requantizes it (requant, conv2_wgmma.cuh), packs 16
+//   bytes with __byte_perm and issues one 16-byte streaming store (st.global
+//   .cs: the 264 MB output does not fit in L2): a warp writes 512 contiguous
+//   bytes a row. About 100 instructions a thread a row, so issue stays
+//   under the bytes (0.079 ms at B = 4096). The same layout (a thread's
+//   channels and their taps in registers, the frame staged once, one wide
+//   store a row) serves the float conv1.
+// - The general route (amc_conv1_stacked_int8; any width): the body above.
 //
 // conv2 has three bodies; ops/cnn_kernels.py::conv2_route picks one from the
 // widths, the dtype and the alignment (a dispatch by shape, never a retry):
@@ -244,6 +275,108 @@ conv1_int8_kernel(const int8_t* __restrict__ x, long long rows, int t_in, int c,
     *reinterpret_cast<uint16_t*>(orow + 2 * q) =
         static_cast<uint16_t>(v[0] | (v[1] << 8));
   }
+}
+
+// ------------------------------------------------------ conv1 int8, dp4a
+
+constexpr int DP_THREADS = 256;
+constexpr int DP_CH = 16;                    // output channels a thread owns
+constexpr int DP_MAX_C = DP_THREADS * DP_CH / 2;
+constexpr int DP_MAX_T = 8192;               // two frames' words in 32 KB
+
+// Words of shared memory a frame is staged in: its 2T bytes from the aligned
+// word at or below its first byte (up to 3 bytes before it), and the word
+// after its last window.
+__host__ __device__ constexpr int dp_frame_words(int t_in) { return (2 * t_in + 10) / 4; }
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage frame f of x (2 * t_in bytes) into buf: word i holds the 4 bytes at
+// (the frame's first byte rounded down to 4) + 4i, zeros past x_end.
+__device__ __forceinline__ void dp_stage(const int8_t* x, long long f, int t_in,
+                                         uintptr_t x_end, uint32_t* buf) {
+  const uintptr_t a0 = (reinterpret_cast<uintptr_t>(x) + f * 2 * t_in) & ~uintptr_t(3);
+  for (int i = threadIdx.x; i < dp_frame_words(t_in); i += DP_THREADS) {
+    const uintptr_t src = a0 + 4 * static_cast<uintptr_t>(i);
+    const bool in = src < x_end;
+    cp_async4(smem_u32(buf + i), in ? reinterpret_cast<const void*>(src) : x, in ? 4 : 0);
+  }
+}
+
+// x (b, 2, t_in) int8, w1p (3, c) int8, m, o (2c,) int32 -> out (b, t_in-2,
+// 2c) int8, 16-byte aligned; c % 16 == 0, c <= DP_MAX_C, t_in <= DP_MAX_T.
+__global__ void __launch_bounds__(DP_THREADS)
+conv1_int8_dp4a_kernel(const int8_t* __restrict__ x, long long b, int t_in, int c,
+                       const int8_t* __restrict__ w1p, const int* __restrict__ m,
+                       const int* __restrict__ o, int8_t* __restrict__ out) {
+  extern __shared__ uint32_t xs[];                    // two frames' words
+  const int words = dp_frame_words(t_in);
+  const int groups = 2 * c / DP_CH;                   // threads a row
+  const int slots = DP_THREADS / groups;              // rows a block does at once
+  const int g = threadIdx.x % groups, s = threadIdx.x / groups;
+  const int n0 = g * DP_CH, h = n0 >= c, c0 = n0 - h * c;
+  uint32_t wp[DP_CH];
+  int off[DP_CH], sh[DP_CH];
+#pragma unroll
+  for (int i = 0; i < DP_CH; ++i) {
+    wp[i] = static_cast<uint32_t>(static_cast<uint8_t>(__ldg(w1p + c0 + i))) |
+            static_cast<uint32_t>(static_cast<uint8_t>(__ldg(w1p + c + c0 + i))) << 8 |
+            static_cast<uint32_t>(static_cast<uint8_t>(__ldg(w1p + 2 * c + c0 + i))) << 16;
+    off[i] = __ldg(o + n0 + i);
+    sh[i] = __ldg(m + n0 + i);
+  }
+  const int t_out = t_in - 2;
+  const long long n2 = 2LL * c;
+  const uintptr_t x_end = reinterpret_cast<uintptr_t>(x) + b * 2 * t_in;
+  long long f = blockIdx.x;
+  if (f < b) dp_stage(x, f, t_in, x_end, xs);
+  cp_async_commit();
+  for (int k = 0; f < b; ++k, f += gridDim.x) {
+    const uint32_t* cur = xs + (k & 1) * words;
+    if (f + gridDim.x < b) dp_stage(x, f + gridDim.x, t_in, x_end, xs + ((k + 1) & 1) * words);
+    cp_async_commit();
+    cp_async_wait<1>();                               // frame f's words are in
+    __syncthreads();
+    if (s < slots) {
+      const int lead = static_cast<int>((reinterpret_cast<uintptr_t>(x) + f * 2 * t_in) & 3) +
+                       h * t_in;
+      int8_t* orow = out + f * t_out * n2 + n0;
+      for (int t = s; t < t_out; t += slots) {
+        const int idx = lead + t;
+        const int win = static_cast<int>(
+            __funnelshift_r(cur[idx >> 2], cur[(idx >> 2) + 1], 8 * (idx & 3)));
+        uint32_t pk[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          int r[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * q + e;
+            r[e] = requant(__dp4a(win, static_cast<int>(wp[i]), 0), off[i], sh[i]);
+          }
+          pk[q] = __byte_perm(__byte_perm(r[0], r[1], 0x0040), __byte_perm(r[2], r[3], 0x0040),
+                              0x5410);
+        }
+        __stcs(reinterpret_cast<int4*>(orow + t * n2),
+               make_int4(static_cast<int>(pk[0]), static_cast<int>(pk[1]),
+                         static_cast<int>(pk[2]), static_cast<int>(pk[3])));
+      }
+    }
+    __syncthreads();                                  // cur is staged again next round
+  }
+  cp_async_wait<0>();
 }
 
 // ------------------------------------------------------------------ conv2
@@ -932,6 +1065,33 @@ extern "C" int amc_conv1_stacked_int8(const void* x, long long b, int t_in, int 
       static_cast<const int8_t*>(x), b * (t_in - 2), t_in, c,
       static_cast<const int8_t*>(w1p), static_cast<const int*>(m),
       static_cast<const int*>(o), static_cast<int8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dp4a route of amc_conv1_stacked_int8, on the same arguments, for c a
+// multiple of 16 with 16 <= c <= DP_MAX_C, 3 <= t_in <= DP_MAX_T and out
+// 16-byte aligned (else cudaErrorInvalidValue, before any launch).
+extern "C" int amc_conv1_stacked_int8_dp4a(const void* x, long long b, int t_in, int c,
+                                           const void* w1p, const void* m, const void* o,
+                                           void* out, void* stream) {
+  if (c % DP_CH || c < DP_CH || c > DP_MAX_C || t_in < 3 || t_in > DP_MAX_T ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0) return 0;
+  const int smem = 2 * dp_frame_words(t_in) * static_cast<int>(sizeof(uint32_t));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv1_int8_dp4a_kernel,
+                                                        DP_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long grid = static_cast<long long>(sms) * (per_sm < 1 ? 1 : per_sm);
+  if (grid > b) grid = b;
+  conv1_int8_dp4a_kernel<<<static_cast<unsigned>(grid), DP_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), b, t_in, c, static_cast<const int8_t*>(w1p),
+      static_cast<const int*>(m), static_cast<const int*>(o), static_cast<int8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

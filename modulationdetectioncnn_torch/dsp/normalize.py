@@ -7,8 +7,10 @@ matmuls) with parabolic peak refinement; timing by the Oerder & Meyr
 square-law estimate and a polyphase fractional-delay correction (off by
 default, ``StreamConfig.normalize_timing``). The correction's per-frame
 17-tap FIR, a Pallas kernel in the JAX package, is the hand-written CUDA
-kernel ``csrc/correct_timing.cu`` on the card (``correct_timing_fir``), with
-its plain version beside it (``correct_timing_fir_plain``).
+kernel ``csrc/correct_timing.cu`` on the card (``correct_timing_fir``: a
+register-window body for the stream's 128-sample frames, a shared-memory
+body for other widths, ``correct_timing_fir_route``), with its plain
+version beside it (``correct_timing_fir_plain``).
 """
 from __future__ import annotations
 
@@ -179,16 +181,33 @@ def correct_timing_fir_plain(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-# The kernel keeps each row of the warp it runs on in 48 KB of static
-# shared memory at most: 8 warps x (T + 2*taps - 1) floats.
+# The general route keeps each row of the warp it runs on in 48 KB of
+# static shared memory at most: 8 warps x (T + 2*taps - 1) floats.
 _FIR_WARPS = 8
 _FIR_SMEM_LIMIT = 48 * 1024
+FIR_ROUTES = ("window", "general")
+WINDOW_T = 128            # the window route's frame length
+WINDOW_MAX_TAPS = 17      # its largest filter: (taps - 1) / 2 <= 8
+
+
+def correct_timing_fir_route(t_len: int, taps: int, aligned: bool = True) -> str:
+    """The timing FIR body a launch on the card takes, from the frame length,
+    the (odd) filter length and whether ``x`` starts on a 16-byte boundary
+    (B does not matter): ``"window"`` (``amc_correct_timing_fir_window``:
+    one warp a frame, the window and the taps in registers) for T = 128 and
+    taps <= 17, aligned, which covers the stream's frames and 17 taps;
+    ``"general"`` (``amc_correct_timing_fir``) otherwise."""
+    if aligned and t_len == WINDOW_T and taps % 2 == 1 and taps <= WINDOW_MAX_TAPS:
+        return "window"
+    return "general"
 
 
 def correct_timing_fir(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """The per-frame fractional-delay FIR of ``correct_timing``, (B, 2, T)
     f32 and (B, taps) f32 -> (B, 2, T) f32. Launches
-    ``csrc/correct_timing.cu`` on a CUDA tensor (counted in ``launches``),
+    ``csrc/correct_timing.cu`` on a CUDA tensor, the body of
+    ``correct_timing_fir_route`` (counted in ``launches`` and per route in
+    ``route_launches``; a failure raises, no route retries on another),
     bit-exact against ``correct_timing_fir_plain``; the plain version on a
     CPU tensor."""
     if x.device.type == "cpu":
@@ -205,23 +224,31 @@ def correct_timing_fir(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: expected (B, taps) float32 weights with odd "
                          f"taps, got {tuple(c.shape)} {c.dtype}")
     taps = c.shape[1]
-    if _FIR_WARPS * (t_len + 2 * taps - 1) * 4 > _FIR_SMEM_LIMIT:
-        raise ValueError(f"{name}: frame length {t_len} with {taps} taps "
-                         "exceeds the kernel's shared memory")
     for key, t in (("x", x), ("c", c)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous on {x.device}")
+    route = correct_timing_fir_route(t_len, taps, x.data_ptr() % 16 == 0)
+    if route == "general" and _FIR_WARPS * (t_len + 2 * taps - 1) * 4 > _FIR_SMEM_LIMIT:
+        raise ValueError(f"{name}: frame length {t_len} with {taps} taps "
+                         "exceeds the kernel's shared memory")
     out = torch.empty_like(x)
     if b == 0:
         return out
     lib = _build.load_library()
+    entry = lib.amc_correct_timing_fir_window if route == "window" else lib.amc_correct_timing_fir
     with torch.cuda.device(x.device):
-        code = lib.amc_correct_timing_fir(
-            x.data_ptr(), 2 * b, t_len, c.data_ptr(), taps, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        code = entry(x.data_ptr(), 2 * b, t_len, c.data_ptr(), taps, out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, name, code)
     correct_timing_fir.launches += 1
+    correct_timing_fir.route_launches[route] += 1
     return out
 
 
-correct_timing_fir.launches = 0
+def reset_launch_counts() -> None:
+    """The timing FIR's launch counts, in all and per route, to 0."""
+    correct_timing_fir.launches = 0
+    correct_timing_fir.route_launches = dict.fromkeys(FIR_ROUTES, 0)
+
+
+reset_launch_counts()

@@ -73,12 +73,16 @@ _SIGNATURES = {
     # x, rows, t_len, c, taps, out, stream
     "amc_correct_timing_fir": [_P, ctypes.c_longlong, ctypes.c_int, _P,
                                ctypes.c_int, _P, _P],
+    "amc_correct_timing_fir_window": [_P, ctypes.c_longlong, ctypes.c_int, _P,
+                                      ctypes.c_int, _P, _P],
     # x, n, t_in, c, w1p, b1, out_f32, out, stream
     "amc_conv1_stacked": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                           ctypes.c_int, _P, _P],
     # x, n, t_in, c, w1p, m, o, out, stream
     "amc_conv1_stacked_int8": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
                                _P, _P, _P, _P],
+    "amc_conv1_stacked_int8_dp4a": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+                                    _P, _P, _P, _P],
     # a1s, n, t_in, k, co, w2p, b2, in_f32, out_f32, vec, out, stream
     "amc_conv2_stacked": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,

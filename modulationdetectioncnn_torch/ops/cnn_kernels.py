@@ -23,7 +23,10 @@ conv2 has three bodies on the card, and ``conv2_route`` picks one from the
 widths, the dtype and the alignment (a dispatch by shape, not a fallback):
 the Hopper route for bf16 and int8 (TMA, ``wgmma``, the weight resident per
 block), the FFMA route for float32 (TMA, the weight streamed beside the
-map, outer products on the CUDA cores) or the general route. The two conv2
+map, outer products on the CUDA cores) or the general route. The int8
+conv1 has two, picked by ``conv1_int8_route`` from the widths: the dp4a
+route (a thread's 16 channels and their taps in registers, one ``__dp4a``
+a channel, one 16-byte store a row) or the general route. The routed
 wrappers count their launches per route in ``route_launches`` beside
 ``launches``.
 
@@ -200,6 +203,22 @@ def conv2_route(k: int, co: int, dtype: torch.dtype, aligned: bool = True) -> st
     return "wgmma" if k <= WGMMA_MAX_K else "general"
 
 
+CONV1_INT8_ROUTES = ("dp4a", "general")
+DP4A_MIN_C, DP4A_MAX_C = 16, 2048    # a thread's 16 channels; at most 256 threads a row
+DP4A_MAX_T = 8192                    # two frames staged in 32 KB of shared memory
+
+
+def conv1_int8_route(t: int, c: int) -> str:
+    """The int8 conv1 body a launch on the card takes, from the frame
+    length and the channels (B does not matter): ``"dp4a"``
+    (``amc_conv1_stacked_int8_dp4a``) when ``c`` is a multiple of 16 in
+    [16, 2048] and 3 <= ``t`` <= 8192, which covers the default widths (T
+    128, C 256); ``"general"`` (``amc_conv1_stacked_int8``) otherwise."""
+    if c % 16 == 0 and DP4A_MIN_C <= c <= DP4A_MAX_C and 3 <= t <= DP4A_MAX_T:
+        return "dp4a"
+    return "general"
+
+
 def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
@@ -320,8 +339,11 @@ def conv1_stacked_int8(x_i8: torch.Tensor, w1p_i8: torch.Tensor, mult: torch.Ten
     """int8 conv1, stacked int8 output: x (B, 2, T) int8, w1p (3, C) int8,
     shift and offset (2C,) int32 (duplicated over the planes, so each
     channel of each plane keeps its own) -> (B, T-2, 2C) int8. Launches
-    ``csrc/cnn_kernels.cu``'s int8 conv1 on a CUDA tensor; the plain
-    version on the CPU."""
+    ``csrc/cnn_kernels.cu``'s int8 conv1 on a CUDA tensor, the body of
+    ``conv1_int8_route(T, C)``: the dp4a route for C a multiple of 16 in
+    [16, 2048] and T <= 8192, the general route otherwise (a launch that
+    fails raises; no route retries on another); the plain version on the
+    CPU."""
     _check_block_b(block_b)
     if x_i8.device.type == "cpu":
         return conv1_stacked_int8_plain(x_i8, w1p_i8, mult, offset)
@@ -339,8 +361,10 @@ def conv1_stacked_int8(x_i8: torch.Tensor, w1p_i8: torch.Tensor, mult: torch.Ten
                                  f"{tuple(mult.shape)}, {tuple(offset.shape)}")
     out = torch.empty((b, t - 2, 2 * c), dtype=torch.int8, device=dev)
     if out.numel():
-        _call(conv1_stacked_int8, "amc_conv1_stacked_int8", dev, x_i8.data_ptr(), b, t,
-              c, w1p_i8.data_ptr(), mult.data_ptr(), offset.data_ptr(), out.data_ptr())
+        route = conv1_int8_route(t, c)
+        entry = "amc_conv1_stacked_int8_dp4a" if route == "dp4a" else "amc_conv1_stacked_int8"
+        _call(conv1_stacked_int8, entry, dev, x_i8.data_ptr(), b, t, c, w1p_i8.data_ptr(),
+              mult.data_ptr(), offset.data_ptr(), out.data_ptr(), route=route)
     return out
 
 
@@ -383,14 +407,15 @@ def conv2_stacked_int8(a1s_i8: torch.Tensor, w2p_i8: torch.Tensor, mult: torch.T
 
 
 KERNEL_WRAPPERS = (conv1_stacked, conv2_stacked, conv1_stacked_int8, conv2_stacked_int8)
-ROUTED_WRAPPERS = (conv2_stacked, conv2_stacked_int8)
+ROUTED_WRAPPERS = {conv2_stacked: CONV2_ROUTES, conv2_stacked_int8: CONV2_ROUTES,
+                   conv1_stacked_int8: CONV1_INT8_ROUTES}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-    for fn in ROUTED_WRAPPERS:
-        fn.route_launches = dict.fromkeys(CONV2_ROUTES, 0)
+    for fn, routes in ROUTED_WRAPPERS.items():
+        fn.route_launches = dict.fromkeys(routes, 0)
 
 
 reset_launch_counts()
@@ -401,5 +426,5 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
-    """{conv2 wrapper: {route: launches}}."""
+    """{routed wrapper (conv2 and int8 conv1): {route: launches}}."""
     return {fn.__name__: dict(fn.route_launches) for fn in ROUTED_WRAPPERS}

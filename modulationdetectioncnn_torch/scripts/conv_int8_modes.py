@@ -25,10 +25,12 @@ diagnostic modes of rows 1 and 3.
          ``probe.OLD_CONV_V7_SRC`` the same for row 1
          (``probe.conv_v7_old_vs_new``).
   sass   disassembles (``cuobjdump -sass``) the package's rows 1, 5 and 10,
-         6 and 7, 3 and 4, and 2 and 11 and their earlier bodies at
+         6 and 7, 3 and 4, 2 and 11, 17-20 (each instantiation; row 19's
+         general route) and 21's general route and their earlier bodies at
          ``probe.OLD_CONV_V7_SRC``, ``probe.OLD_CONV_V5_SRC``,
-         ``probe.OLD_CONV_V6_SRC``, ``probe.OLD_CONV_FOLD_SRC`` and
-         ``probe.OLD_DENSE_SRC`` (each built with the headers beside it)
+         ``probe.OLD_CONV_V6_SRC``, ``probe.OLD_CONV_FOLD_SRC``,
+         ``probe.OLD_DENSE_SRC``, ``probe.OLD_CNN_SRC`` and
+         ``probe.OLD_TIMING_SRC`` (each built with the headers beside it)
          and reports, per kernel, whether the instructions are the same:
          an edit to a shared header that should leave a kernel's machine
          code as it was is held to that.
@@ -323,6 +325,14 @@ def run_check() -> int:
     return bad
 
 
+def _unit_free(name: str) -> str:
+    """A mangled name without its anonymous namespace, which nvcc names
+    after the source file (``_ZN<n>_GLOBAL__N__<id>_<file>_cu_<id>``...),
+    so that a kernel compiled from a copy of a source keeps its name."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", name)
+    return name[m.end(1) + int(m.group(1)):] if m else name
+
+
 def _sass(lib_path: str) -> dict[str, list[str]]:
     """{mangled kernel name: its instructions} of the library ``lib_path``
     (``cuobjdump -sass``; addresses and encodings dropped)."""
@@ -357,21 +367,28 @@ def run_sass() -> int:
                                    ("conv_stage_folded_kernel",)),
                                   (probe.OLD_DENSE_SRC, probe.DENSE_ENTRIES,
                                    ("dense_argmax_int8_kernelILb1E",
-                                    "dense_argmax_int8_kernelILb0E"))):
+                                    "dense_argmax_int8_kernelILb0E")),
+                                  (probe.OLD_CNN_SRC, probe.CNN_ENTRIES,
+                                   ("conv1_f32_kernel", "conv2_kernel", "conv2_wgmma_kernel",
+                                    "conv2_ffma_kernel", "conv1_int8_kernel")),
+                                  (probe.OLD_TIMING_SRC, probe.TIMING_ENTRIES,
+                                   ("correct_timing_fir_kernel",))):
         lib = probe.old_library(src, entries)
         if lib is None:
             _out(skipped=f"no earlier body at {src}")
             continue
         old = _sass(lib._name)
+        new_by = {_unit_free(n): v for n, v in new.items()}
         for k in kernels:
-            (a,) = [v for n, v in old.items() if k in n]
-            (b,) = [v for n, v in new.items() if k in n]
-            same = a == b
-            differ += 0 if same else 1
-            _out(sass=k, old=os.path.relpath(src, _build.PKG_DIR), instructions=[len(a), len(b)],
-                 identical=same,
-                 first_difference=None if same else next(
-                     (i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b))))
+            for name in sorted(n for n in old if k in n):   # each instantiation
+                a, b = old[name], new_by.get(_unit_free(name), [])
+                same = a == b
+                differ += 0 if same else 1
+                _out(sass=_unit_free(name), old=os.path.relpath(src, _build.PKG_DIR),
+                     instructions=[len(a), len(b)], identical=same,
+                     first_difference=None if same else next(
+                         (i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b))))
     return differ
 
 

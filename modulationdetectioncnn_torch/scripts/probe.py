@@ -46,6 +46,13 @@ a function that one of the port's kernels computes (PERF.md section 6).
             with the header it includes beside it) the same way, on the tap
             rows of the same frames, beside row 6, row 1 and ``_int_mm`` on
             conv2's lane-packed product, maps bit for bit
+  conv1_int8_old row 19 against an earlier body of ``csrc/cnn_kernels.cu`` (a
+            copy at ``OLD_CNN_SRC``) the same way, on the quantized seeded
+            frames under the committed artifact's conv1, outputs bit for bit
+  timing_old row 21 (the timing FIR) against an earlier body of
+            ``csrc/correct_timing.cu`` (a copy at ``OLD_TIMING_SRC``) the same
+            way, on seeded frames with their own timing filters, beside the
+            library call (an unfolded ``torch.matmul``), outputs bit for bit
   conv2_maps row 18 bf16 on the bench's conv1 map, a seeded map, its ReLU,
             zeros, and with one channel tile (Co 40), beside torch.matmul
   batch     the v7, v10 and v2 classifiers over B = 2048 .. 16384
@@ -73,7 +80,12 @@ and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``, ``conv_v5_old_vs_new``
 rows 5 and 10 (v5, v1) against one at ``OLD_CONV_V5_SRC``,
 ``conv_v6_old_vs_new`` rows 6 and 7 (v6, v4) against one at
 ``OLD_CONV_V6_SRC``, ``conv_v3_old_vs_new`` rows 8 and 9 (v3, v2) against
-one at ``OLD_CONV_V3_SRC``. ``fold_edge_tree``
+one at ``OLD_CONV_V3_SRC``, ``conv1_int8_old_vs_new`` row 19 against one at
+``OLD_CNN_SRC`` and ``timing_old_vs_new`` row 21 against one at
+``OLD_TIMING_SRC``. ``conv1_int8_edge_cases`` builds row 19's edge inputs
+and ``TIMING_TAU_EDGES`` row 21's, which chip_smoke.py holds the kernels to
+on the card and ``tests/test_torch_fir_conv1_rows.py`` the plain versions
+to against the JAX package. ``fold_edge_tree``
 builds a model at the edge of the v9/v10 fold's contract and
 ``conv1_probe_trees`` turns conv2 into a pass-through, so that a conv
 stage's map shows its conv1 map: chip_smoke.py holds rows 3 and 4 to
@@ -216,7 +228,9 @@ OLD_DENSE_BF16_SRC = os.path.join(_build.BUILD_DIR, "dense_argmax_bf16_old.cu")
 DENSE_BF16_ENTRIES = ("dense_argmax_bf16", "dense_bf16")
 DENSE_BF16_STAGES = ("dense_argmax_bf16", "dense_logits_bf16")   # their wrappers
 OLD_CNN_SRC = os.path.join(_build.BUILD_DIR, "cnn_kernels_old.cu")
-CNN_ENTRIES = ("conv2_stacked", "conv2_stacked_int8")
+CNN_ENTRIES = ("conv2_stacked", "conv2_stacked_int8", "conv1_stacked_int8")
+OLD_TIMING_SRC = os.path.join(_build.BUILD_DIR, "correct_timing_old.cu")
+TIMING_ENTRIES = ("correct_timing_fir",)
 # The dense stages by wrapper: its C entry (without ``amc_``), the weights
 # the entry takes after the map and B, whether it takes the model's classes
 # next, and whether it writes logits (else labels).
@@ -1232,6 +1246,195 @@ def probe_r5cfo() -> list[dict]:
     return [_time(name, fn, device=True) for name, fn in cases]
 
 
+# Row 21's tau edges: both ends of the wrap to [-sps/2, sps/2), the
+# rounding boundaries of tau_c * 32 next to them (x.5 goes to even), 0 and
+# one period on: the integer delay d runs over 0 .. 8.
+TIMING_TAU_EDGES = (-4.0, -4.0 + 1e-6, 4.0 - 1e-6, 4.0, 0.0, -1e-6, 8.0 - 1e-6, 8.0, 12.0,
+                    -3.984375, 3.984375, 0.015625, -0.015625, 4.015625, 7.984375, 0.046875)
+# Int32 offsets kept this far inside int32, so acc + offset cannot wrap
+# (|acc| <= 3 * 128 * 128 < 2^16).
+_RQ_OFFSET_LIMIT = (1 << 31) - (1 << 17)
+
+
+def conv1_int8_edge_cases(seed: int, b: int, t: int, c: int
+                          ) -> dict[str, tuple[np.ndarray, ...]]:
+    """Row 19's edges as {kind: (x (b, 2, t) int8, w1p (3, c) int8, shift
+    (2c,) int32, offset (2c,) int32)}, for any b, t >= 3 and c:
+
+    - ``saturated``: frames of -128 alone, +127 alone, alternating -128 and
+      +127, a sign per plane, then seeded extremes; taps all -128 on
+      channels 0 mod 4, all +127 on 1 mod 4, a seeded mix of -128 and +127
+      on the rest, so the sums reach +-3 * 128^2 and 3 * 127 * 128; shifts
+      0 .. 31 (channel n: n % 32) with offset 0, so every shift meets sums
+      of both signs at their largest;
+    - ``clip_edges``: seeded frames and taps over all of int8 (-128 too),
+      shifts 0 .. 31 and offsets that put ``(acc + o) >> shift`` at -1, 0,
+      127 and 128 (channel n: n // 2 % 4) on frame 0's row 0 (clipped
+      inside int32 where the shift is too large to reach them), with
+      ``2^shift - 1`` added on odd channels, the other end of the floor.
+    """
+    r = np.random.default_rng(seed)
+    n = np.arange(2 * c)
+    shifts = (n % 32).astype(np.int32)
+    # saturated
+    ext = np.array([-128, 127], np.int8)
+    xs = ext[r.integers(0, 2, (b, 2, t))]
+    xs[0::5] = -128
+    xs[1::5] = 127
+    xs[2::5] = np.where(np.arange(t) % 2 == 0, -128, 127).astype(np.int8)
+    xs[3::5, 0], xs[3::5, 1] = -128, 127
+    ws = ext[r.integers(0, 2, (3, c))]
+    ws[:, 0::4], ws[:, 1::4] = -128, 127
+    sat = (xs, ws, shifts, np.zeros(2 * c, np.int32))
+    # clip_edges
+    xe = r.integers(-128, 128, (b, 2, t)).astype(np.int8)
+    we = r.integers(-128, 128, (3, c)).astype(np.int8)
+    acc0 = np.concatenate([xe[0, h, 0:3].astype(np.int64) @ we.astype(np.int64)
+                           for h in range(2)])
+    target = np.array([-1, 0, 127, 128], np.int64)[n // 2 % 4]
+    sh = shifts.astype(np.int64)
+    o = target * (np.int64(1) << sh) + (n % 2) * ((np.int64(1) << sh) - 1) - acc0
+    o = np.clip(o, -_RQ_OFFSET_LIMIT, _RQ_OFFSET_LIMIT).astype(np.int32)
+    return {"saturated": sat, "clip_edges": (xe, we, shifts, o)}
+
+
+def _old_timing(lib: ctypes.CDLL, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The old library's timing FIR (``amc_correct_timing_fir``) on the
+    package wrapper's arguments."""
+    out = torch.empty_like(x)
+    code = lib.amc_correct_timing_fir(x.data_ptr(), 2 * x.shape[0], x.shape[-1], c.data_ptr(),
+                                      c.shape[1], out.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"old amc_correct_timing_fir failed to launch: CUDA error {code}")
+    return out
+
+
+def timing_old_vs_new(lib: ctypes.CDLL, batches=(4096, 2048, 16384)) -> list[dict]:
+    """Row 21, the old body against the package's, on seeded frames (N(0,
+    1), T 128) with their own Oerder & Meyr filters (17 taps): each timed
+    old, new, new, old (median of 5 runs of 20 calls between CUDA events,
+    which time the host here, then the profiler's device time per call, in
+    the same order), beside ``torch.matmul`` on the unfolded frames (a
+    yardstick) in the same round. ``ok``: the outputs bit for bit."""
+    import torch.nn.functional as F
+
+    from modulationdetectioncnn_torch.config import StreamConfig
+    from modulationdetectioncnn_torch.dsp import normalize
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn):
+        return statistics.median(launch_ms_samples(fn))
+
+    sc = StreamConfig()
+    recs = []
+    for b in batches:
+        x = _seeded((b, 2, T_IN), "cuda", seed=b)
+        c = normalize.timing_filters(normalize.estimate_timing(x, sc.sps), sc.sps,
+                                     sc.timing_phases)
+        taps = c.shape[1]
+        xu = F.pad(x, ((taps - 1) // 2, (taps - 1) // 2)).unfold(-1, taps, 1)
+        c4 = c[:, None, :, None]
+        new = lambda: normalize.correct_timing_fir(x, c)  # noqa: E731
+        old = lambda: _old_timing(lib, x, c)  # noqa: E731
+        mm = lambda: torch.matmul(xu, c4)  # noqa: E731
+        before = normalize.correct_timing_fir.route_launches["window"]
+        got = new()
+        route = "window" if normalize.correct_timing_fir.route_launches["window"] > before \
+            else "general"
+        differ = int((got != old()).sum())
+        times = [ms(old), ms(new), ms(new), ms(old)]
+        dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+        recs.append({"probe": "timing_old", "name": "correct_timing_fir", "batch": b,
+                     "new_route": route,
+                     "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                     "old_device_ms": [dev_ms[0], dev_ms[3]],
+                     "new_device_ms": [dev_ms[1], dev_ms[2]],
+                     "library_ms": ms(mm), "library_device_ms": device_ms_per_call(mm),
+                     "outputs_differing": differ, "ok": differ == 0})
+        del x, c, xu
+    return recs
+
+
+def probe_timing_old() -> list[dict]:
+    """Row 21 against an earlier body of ``csrc/correct_timing.cu`` (a copy
+    at ``OLD_TIMING_SRC``)."""
+    _header("timing_old")
+    lib = old_library(OLD_TIMING_SRC, TIMING_ENTRIES)
+    if lib is None:
+        raise SystemExit(f"timing_old: no earlier body at {OLD_TIMING_SRC}")
+    recs = timing_old_vs_new(lib)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
+def conv1_int8_old_vs_new(lib: ctypes.CDLL, w1p: torch.Tensor, m1: torch.Tensor,
+                          o1: torch.Tensor, inv_sx: float,
+                          batches=(4096, 2048, 16384)) -> list[dict]:
+    """Row 19, the old body (its ``amc_conv1_stacked_int8``) against the
+    package's, on seeded frames (0.7 N(0, 1), T 128) quantized with
+    ``inv_sx``, under conv1's int8 weights (w1p (3, C), shift and offset
+    (2C,)): each timed old, new, new, old (median of 5 runs of 20 calls
+    between CUDA events, then the profiler's device time per call, in the
+    same order). ``ok``: the maps bit for bit."""
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+    from modulationdetectioncnn_torch.ops.requant import quantize_input
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    def ms(fn):
+        return statistics.median(launch_ms_samples(fn))
+
+    c = w1p.shape[1]
+
+    def old_call(xq):
+        b, _, t = xq.shape
+        out = torch.empty((b, t - 2, 2 * c), dtype=torch.int8, device=xq.device)
+        code = lib.amc_conv1_stacked_int8(xq.data_ptr(), b, t, c, w1p.data_ptr(),
+                                          m1.data_ptr(), o1.data_ptr(), out.data_ptr(),
+                                          torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"old amc_conv1_stacked_int8 failed to launch: CUDA error {code}")
+        return out
+
+    recs = []
+    for b in batches:
+        xq = quantize_input(0.7 * _seeded((b, 2, T_IN), w1p.device, seed=b), inv_sx)
+        new = lambda: ck.conv1_stacked_int8(xq, w1p, m1, o1)  # noqa: E731
+        old = lambda: old_call(xq)  # noqa: E731
+        differ = int((new() != old()).sum())
+        times = [ms(old), ms(new), ms(new), ms(old)]
+        dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+        recs.append({"probe": "conv1_int8_old", "name": "conv1_stacked_int8", "batch": b,
+                     "new_route": ck.conv1_int8_route(T_IN, c),
+                     "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                     "old_device_ms": [dev_ms[0], dev_ms[3]],
+                     "new_device_ms": [dev_ms[1], dev_ms[2]],
+                     "maps_differing": differ, "ok": differ == 0})
+        del xq
+    return recs
+
+
+def probe_conv1_int8_old() -> list[dict]:
+    """Row 19 against an earlier body of ``csrc/cnn_kernels.cu`` (a copy at
+    ``OLD_CNN_SRC``) under the committed artifact's conv1."""
+    from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, QuantizedModel, load_int8
+
+    dev = _header("conv1_int8_old")
+    lib = old_library(OLD_CNN_SRC, CNN_ENTRIES)
+    if lib is None:
+        raise SystemExit(f"conv1_int8_old: no earlier body at {OLD_CNN_SRC}")
+    art = QuantizedModel.from_npz(DEFAULT_ARTIFACT)
+    w1p, m1, o1 = (torch.from_numpy(np.asarray(getattr(art, k))).to(dev)
+                   for k in ("w1p", "m1", "o1"))
+    recs = conv1_int8_old_vs_new(lib, w1p, m1, o1, load_int8(device=dev).inv_sx)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
 PROBES = {
     "ceil": probe_ceil,
     "stage": probe_stage,
@@ -1240,6 +1443,8 @@ PROBES = {
     "dense_bf16_old": probe_dense_bf16_old,
     "conv2_old": probe_conv2_old,
     "conv2_maps": probe_conv2_maps,
+    "conv1_int8_old": probe_conv1_int8_old,
+    "timing_old": probe_timing_old,
     "conv_v7_old": probe_conv_v7_old,
     "conv_fold_old": probe_conv_fold_old,
     "conv_v5_old": probe_conv_v5_old,

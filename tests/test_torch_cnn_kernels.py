@@ -242,7 +242,8 @@ def test_conv2_route_counts_start_at_zero():
     tck.reset_launch_counts()
     assert tck.route_launch_counts() == {
         "conv2_stacked": {"wgmma": 0, "ffma": 0, "general": 0},
-        "conv2_stacked_int8": {"wgmma": 0, "ffma": 0, "general": 0}}
+        "conv2_stacked_int8": {"wgmma": 0, "ffma": 0, "general": 0},
+        "conv1_stacked_int8": {"dp4a": 0, "general": 0}}
 
 
 def test_conv2_int8_saturated_sums_equal_jax():
