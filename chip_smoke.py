@@ -255,15 +255,19 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                16384 with C 16, 48, 256 and 33, at T 3, and on frames 1
                byte past a word, each on the route its widths give (the
                dp4a route at C a multiple of 16, and at the default
-               widths; C 33 on the general route); times at B=4096
+               widths; C 33 on the general route); row 17 (bf16 and
+               float32 out) also at T 41 and on frames 4 bytes past a
+               16-byte boundary, each case on the route its widths give
+               (the register route but at T 40, C 33); times at B=4096
                beside bound, plain and library, with the registers and
-               spills of rows 19 and 21's new bodies. Where an
+               spills of rows 17, 19 and 21's new bodies and row 17's
+               float32-out device time and bound. Where an
                earlier body of ``csrc/cnn_kernels.cu`` was copied to
                ``_build/cnn_kernels_old.cu`` (never committed), rows 18
-               (bf16, float32), 20 and 19 are timed against it, each against
-               the copy's entry of its own route where the copy has one,
-               else its general body, old, new, new, old, at B = 4096,
-               2048 and 16384 (``cnn_kernels.old_vs_new`` lines).
+               (bf16, float32), 20, 19 and 17 are timed against it, each
+               against the copy's entry of its own route where the copy
+               has one, else its general body, old, new, new, old, at B =
+               4096, 2048 and 16384 (``cnn_kernels.old_vs_new`` lines).
 - probe_kernels (after cnn_kernels) -- the two kernels of the JAX
                package's probe suite that no product kernel computes
                (``ops/probe_kernels.py``: the copy and the int8 prologue
@@ -273,7 +277,11 @@ The phases of ``parallel/`` and of rows 17-20 of the kernel table:
                past the clip; times beside bound, plain and library (the
                library call's device time too, on the kernel's clock, and
                the two in turns, kernel, library, library, kernel, three
-               rounds); 0 launches on the main path.
+               rounds); 0 launches on the main path. Where an earlier body
+               of ``csrc/probe_kernels.cu`` was copied to
+               ``_build/probe_kernels_old.cu`` (never committed), the copy
+               is timed against it, old, new, new, old, at B = 4096, 2048
+               and 16384 rows of 16384 bytes (``probe_kernels.old_vs_new``).
 - parallel (after stream) -- world size 1 on NCCL: the sharded v7 stream
                equal to the single-process labels with rows 1-2 launched,
                ``dryrun_multichip(1)``, ``train`` on a 1x1x1 mesh.
@@ -396,7 +404,7 @@ KERNEL_SYMBOLS = {
     "conv_stage_bf16": "conv_stage_bf16_kernel<2>",
     "dense_argmax_bf16": "dense_argmax_bf16_kernel<true>",
     "dense_logits_bf16": "dense_argmax_bf16_kernel<false>",
-    "conv1_stacked": "conv1_f32_kernel<__nv_bfloat16>",
+    "conv1_stacked": "conv1_regs_kernel<__nv_bfloat16>",   # bf16 out, the register route
     "conv2_stacked": "conv2_wgmma_kernel<0",               # bf16, the Hopper route
     "conv1_stacked_int8": "conv1_int8_dp4a_kernel",        # the dp4a route
     "correct_timing_fir": "correct_timing_fir_window_kernel<8>",   # the window route
@@ -405,6 +413,9 @@ KERNEL_SYMBOLS = {
     "quantize_tap_planes": "tap_planes_kernel",
 }
 F32_CONV2_SYMBOL = "conv2_ffma_kernel<float>"               # row 18 float32, the FFMA route
+F32_CONV1_SYMBOL = "conv1_regs_kernel<float>"               # row 17 float32 out, the register route
+# ptxas's mangled names of row 17's register route, bf16 and float32 out.
+CONV1_REGS_PTXAS = ("conv1_regs_kernelI13__nv_bfloat16E", "conv1_regs_kernelIfE")
 CNN_KERNELS = ("conv1_stacked", "conv2_stacked", "conv1_stacked_int8", "conv2_stacked_int8")
 PROBE_KERNELS = ("copy_bytes", "quantize_tap_planes")
 CONV_VERSIONS = ("v7", "v9", "v10", "v5", "v6", "v4", "v3", "v2", "v1")
@@ -1557,7 +1568,8 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     the bf16 map tolerance in bf16. Float weights: the bench's seeded model
     and the exported checkpoint; int8: the committed artifact. On the
     quantized frames row 19 -> row 20 must equal v7's map (row 1) bit for
-    bit and, through the int8 dense stage, v7's labels. Then times at
+    bit and, through the int8 dense stage, v7's labels. Each conv1 case
+    must take the route its widths give (rows 17 and 19). Then times at
     B=4096. Returns the rows of the kernels line."""
     from modulationdetectioncnn_torch import bench
     from modulationdetectioncnn_torch.config import AmcConfig, ModelConfig
@@ -1625,11 +1637,17 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                        "bit_equal_share": float((g == w).sum()) / max(g.numel(), 1)})
         require(bool(torch.isfinite(g).all()), f"{kname} {case}: non-finite output")
 
+    def conv1_check(case, x, w1p, b1, out):
+        before = dict(ck.conv1_stacked.route_launches)
+        a1 = ck.conv1_stacked(x, w1p, b1, out_dtype=out)
+        record("conv1_stacked", case, a1, ck.conv1_stacked_plain(x, w1p, b1, out))
+        conv1_f_routes[case] = ([r for r, c in ck.conv1_stacked.route_launches.items()
+                                 if c != before[r]], ck.conv1_route(x.shape[-1], w1p.shape[1], out))
+        return a1
+
     def float_pair(case, x, w1p, b1, w2p, b2):
         for out in (torch.bfloat16, torch.float32):
-            a1 = ck.conv1_stacked(x, w1p, b1, out_dtype=out)
-            record("conv1_stacked", f"{case}/{str(out)[6:]}", a1,
-                   ck.conv1_stacked_plain(x, w1p, b1, out))
+            a1 = conv1_check(f"{case}/{str(out)[6:]}", x, w1p, b1, out)
             w2 = w2p.to(out).contiguous()
             before = dict(ck.conv2_stacked.route_launches)
             got = ck.conv2_stacked(a1, w2, b2, out_dtype=out)
@@ -1660,6 +1678,7 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     chain = {}
     f32_routes = {}      # case: the routes its float32 conv2 launch counted
     conv1_routes = {}    # case: (the routes its int8 conv1 launch counted, its widths' route)
+    conv1_f_routes = {}  # case: the same for the float conv1 (row 17)
     for xname, x in inputs.items():
         for wname, fw in float_sets.items():
             float_pair(f"{wname}/{xname}", x, *fw)
@@ -1702,13 +1721,30 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         flat[1:] = torch.from_numpy(xe.reshape(-1)).cuda()
         conv1_int8_check(f"edge_{kind}/b37_t41_c48_offset1", flat[1:].view(xe.shape),
                          *(torch.from_numpy(a).cuda() for a in rest))
+    # Row 17 at T 41 (frames of 328 bytes: every other one starts 8 bytes
+    # past a 16-byte boundary) and on the same frames 4 bytes further on
+    # (starts 4 and 12 bytes past one), both on the register route, bf16
+    # and float32 out.
+    rf = np.random.default_rng(SEED + 9)
+    for nc in (48, 256):
+        xf = rf.standard_normal((37, 2, 41)).astype(np.float32)
+        w1f = torch.from_numpy((rf.standard_normal((3, nc)) / np.sqrt(3)).astype(np.float32)).cuda()
+        b1f = torch.from_numpy((0.1 * rf.standard_normal(nc)).astype(np.float32)).cuda()
+        flat = torch.zeros(xf.size + 1, dtype=torch.float32, device="cuda")
+        flat[1:] = torch.from_numpy(xf.reshape(-1)).cuda()
+        for out in (torch.bfloat16, torch.float32):
+            conv1_check(f"b37_t41_c{nc}/{str(out)[6:]}", torch.from_numpy(xf).cuda(), w1f, b1f,
+                        out)
+            conv1_check(f"b37_t41_c{nc}_offset1/{str(out)[6:]}", flat[1:].view(xf.shape), w1f,
+                        b1f, out)
     check_launches = ck.launch_counts()
     check_routes = ck.route_launch_counts()
     for c in checks:
         emit({"phase": "cnn_kernels.check", **c})
     emit({"phase": "cnn_kernels.chain", "row19_row20_vs_v7": chain})
     emit({"phase": "cnn_kernels.routes", "check_launches_per_route": check_routes,
-          "float32_routes": f32_routes, "conv1_int8_routes": conv1_routes})
+          "float32_routes": f32_routes, "conv1_int8_routes": conv1_routes,
+          "conv1_routes": conv1_f_routes})
     for kname, st in stats.items():
         require(st["mismatches"] == 0, f"{kname}: {st['mismatches']} elements outside "
                 "tolerance of the plain version")
@@ -1720,6 +1756,10 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     require(all(took == [want] == [("general" if "c33" in c else "dp4a")]
                 for c, (took, want) in conv1_routes.items()),
             f"int8 conv1 routes: {conv1_routes}")
+    # float conv1 on both bodies: the register route but at T 40, C 33.
+    require(all(took == [want] == [("general" if c.startswith("t40_c33") else "regs")]
+                for c, (took, want) in conv1_f_routes.items()),
+            f"float conv1 routes: {conv1_f_routes}")
     require(all(c["map_vs_v7"] == 0 and c["labels_vs_v7"] == 0 for c in chain.values()),
             f"row 19 -> row 20 differs from v7: {chain}")
 
@@ -1774,18 +1814,29 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     plans[1][1]()
     plans[3][1]()
     plans[2][1]()
+    plans[0][1]()
     timed_routes = ck.route_launch_counts()
     conv1_timed_route = timed_routes.pop("conv1_stacked_int8")
+    conv1_f_timed_route = timed_routes.pop("conv1_stacked")
     require(all(timed_routes[k] == {"wgmma": 1, "ffma": 0, "general": 0} for k in timed_routes),
             f"conv2 at the default widths did not take the Hopper route: {timed_routes}")
     # ... and int8 conv1 the dp4a route.
     require(conv1_timed_route == {"dp4a": 1, "general": 0},
             f"int8 conv1 at the default widths did not take the dp4a route: {conv1_timed_route}")
+    # ... and float conv1 the register route, bf16 out and float32 out.
+    require(conv1_f_timed_route == {"regs": 1, "general": 0},
+            f"conv1 (bf16 out) at the default widths did not take the register route: "
+            f"{conv1_f_timed_route}")
     ck.reset_launch_counts()
     ck.conv2_stacked(a1f, w2p, b2, out_dtype=torch.float32)
+    ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32)
     f32_timed_route = ck.route_launch_counts()["conv2_stacked"]
     require(f32_timed_route == {"wgmma": 0, "ffma": 1, "general": 0},
             f"float32 conv2 at the default widths did not take the FFMA route: {f32_timed_route}")
+    conv1_f32_timed_route = ck.route_launch_counts()["conv1_stacked"]
+    require(conv1_f32_timed_route == {"regs": 1, "general": 0},
+            f"conv1 (float32 out) at the default widths did not take the register route: "
+            f"{conv1_f32_timed_route}")
     rows = []
     for kname, kernel, plain, lib, (ops, kind), nb in plans:
         t_ops, t_bytes = ops / peaks[kind] * 1e3, nb / bw * 1e3
@@ -1807,9 +1858,11 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         if kname == "conv1_stacked_int8":
             rows[-1].update(conv1_int8_route="dp4a",
                             **ptxas_usage(dev_info["ptxas_log"], KERNEL_SYMBOLS[kname]))
-        if kname != "conv1_stacked":
-            require(rows[-1]["device_ms"] is not None,
-                    f"{kname}: the profiler shows no {KERNEL_SYMBOLS[kname]}")
+        if kname == "conv1_stacked":
+            rows[-1].update(conv1_route="regs",
+                            **ptxas_usage(dev_info["ptxas_log"], CONV1_REGS_PTXAS[0]))
+        require(rows[-1]["device_ms"] is not None,
+                f"{kname}: the profiler shows no {KERNEL_SYMBOLS[kname]}")
     # Row 18's float32 form (CUDA cores), beside its bf16 row.
     f32_ops_ms = conv2_ops / peaks["f32"] * 1e3
     f32_bytes = nbytes(a1f, w2p, b2) + b * (t1 - 2) * 80 * 4
@@ -1824,11 +1877,19 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
         "library_call": "torch.matmul f32 (TF32 off), z = (B*126, 512) x (512, 240)"}
     require(rows[1]["float32"]["device_ms"] is not None,
             f"conv2_stacked: the profiler shows no {F32_CONV2_SYMBOL}")
-    rows[0]["float32_out_ms"] = time_ms(
-        lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32), iters=20)
+    # Row 17's float32 out (the register route too), beside its bf16 row.
+    conv1_f32 = lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=torch.float32)  # noqa: E731
+    c1_ops_ms, c1_bytes_ms = conv1_ops / peaks["f32"] * 1e3, nbytes(x, w1p, b1, a1f) / bw * 1e3
+    rows[0].update(float32_out_ms=time_ms(conv1_f32, iters=20),
+                   float32_out_device_ms=device_ms(conv1_f32, F32_CONV1_SYMBOL),
+                   float32_out_bound_ms=max(c1_ops_ms, c1_bytes_ms),
+                   float32_out_bound_by="operations" if c1_ops_ms >= c1_bytes_ms else "bytes",
+                   float32_out_ptxas=ptxas_usage(dev_info["ptxas_log"], CONV1_REGS_PTXAS[1]))
+    require(rows[0]["float32_out_device_ms"] is not None,
+            f"conv1_stacked: the profiler shows no {F32_CONV1_SYMBOL}")
     emit({"phase": "cnn_kernels", "timed": rows, "check_launches": check_launches})
-    # Rows 18, 20 and 19 against an earlier body, where a copy of it was
-    # put at probe.OLD_CNN_SRC: old, new, new, old in this run.
+    # Rows 18, 20, 19 and 17 against an earlier body, where a copy of it
+    # was put at probe.OLD_CNN_SRC: old, new, new, old in this run.
     old_lib = probe.old_library(probe.OLD_CNN_SRC, probe.CNN_ENTRIES)
     if old_lib is None:
         emit({"phase": "cnn_kernels.old_vs_new",
@@ -1840,6 +1901,10 @@ def phase_cnn_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                     f"{rec['name']} B={rec['batch']}: new vs old body differ")
         # Row 19 against the copy's amc_conv1_stacked_int8, the same way.
         for rec in probe.conv1_int8_old_vs_new(old_lib, *i8[:3], qw.inv_sx):
+            emit({"phase": "cnn_kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
+        # Row 17 against the copy's amc_conv1_stacked, bf16 and float32 out.
+        for rec in probe.conv1_old_vs_new(old_lib, w1p, b1):
             emit({"phase": "cnn_kernels.old_vs_new", **rec})
             require(rec["ok"], f"{rec['name']} B={rec['batch']}: new vs old body differ")
     ck.reset_launch_counts()          # from here on: the main path's launches
@@ -1897,6 +1962,7 @@ def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
     from modulationdetectioncnn_torch.ops import probe_kernels as pk
     from modulationdetectioncnn_torch.ops.infer import tap_planes
     from modulationdetectioncnn_torch.quant import load_int8
+    from modulationdetectioncnn_torch.scripts import probe
     from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
 
     pk.reset_launch_counts()
@@ -1971,6 +2037,16 @@ def phase_probe_kernels(dev_info: dict, demo: torch.Tensor) -> list[dict]:
                  device_ms_per_call(lib[0]), device_ms(kernel, KERNEL_SYMBOLS[kname])]
                 for _ in range(3)]
     emit({"phase": "probe_kernels", "timed": rows, "check_launches": check_launches})
+    # Row 23 against an earlier body, where a copy of it was put at
+    # probe.OLD_PROBE_SRC: old, new, new, old in this run.
+    old_lib = probe.old_library(probe.OLD_PROBE_SRC, probe.PROBE_ENTRIES)
+    if old_lib is None:
+        emit({"phase": "probe_kernels.old_vs_new",
+              "skipped": f"no earlier body at {os.path.relpath(probe.OLD_PROBE_SRC, REPO)}"})
+    else:
+        for rec in probe.copy_old_vs_new(old_lib):
+            emit({"phase": "probe_kernels.old_vs_new", **rec})
+            require(rec["ok"], f"{rec['name']} B={rec['batch']}: a copy differs from its input")
     pk.reset_launch_counts()          # from here on: the main path's launches
     return rows
 

@@ -1,9 +1,10 @@
 // The stand-alone conv kernels of the VT-CNN2 topology, for Hopper (sm_90a),
-// at widths given at run time (any B, T, C, Cin, Co). Eight C entry points:
+// at widths given at run time (any B, T, C, Cin, Co). Nine C entry points:
 //
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv1_kernel
 //   (ops/cnn_kernels.py:78, reached by pl.pallas_call in conv1_stacked,
-//   ops/cnn_kernels.py:111) with amc_conv1_stacked,
+//   ops/cnn_kernels.py:111) with amc_conv1_stacked_regs and
+//   amc_conv1_stacked (two routes, below),
 // Replaces: modulationdetectioncnn_tpu/ops/cnn_kernels.py::_conv2_kernel
 //   (:129, conv2_stacked, :165) with amc_conv2_stacked,
 //   amc_conv2_stacked_wgmma and amc_conv2_stacked_ffma (three routes, below),
@@ -47,7 +48,7 @@
 // TOP/s): all bound by bytes, except conv2 f32, whose 124.8 GFLOP on the
 // CUDA cores (67 TFLOP/s) take 1.86 ms.
 //
-// conv1 (float, and int8's general route): one warp per output row (b, t),
+// conv1's general routes (float and int8): one warp per output row (b, t),
 // lanes over channel pairs, so a warp writes 128 contiguous bytes per step
 // and the row's six inputs are read once; the pair of two channels is one
 // 4-byte (bf16), 8-byte (f32) or 2-byte (int8) store, aligned because 2C is
@@ -77,10 +78,31 @@
 //   bytes with __byte_perm and issues one 16-byte streaming store (st.global
 //   .cs: the 264 MB output does not fit in L2): a warp writes 512 contiguous
 //   bytes a row. About 100 instructions a thread a row, so issue stays
-//   under the bytes (0.079 ms at B = 4096). The same layout (a thread's
-//   channels and their taps in registers, the frame staged once, one wide
-//   store a row) serves the float conv1.
+//   under the bytes (0.079 ms at B = 4096).
 // - The general route (amc_conv1_stacked_int8; any width): the body above.
+//
+// The float conv1 has two bodies too; ops/cnn_kernels.py::conv1_route picks
+// one from the widths and the out dtype (a dispatch by shape, never a retry):
+//
+// - The register route (amc_conv1_stacked_regs; C a multiple of 8, a row of
+//   2C channels in one 256-thread block: C <= 1024 in bf16, 512 in f32;
+//   3 <= T <= 2048: the default widths always). The dp4a route's layout: a
+//   thread owns the 16 bytes of a row's output, 8 consecutive channels in
+//   bf16 or 4 in f32, all of one plane, and keeps their three taps and bias
+//   in registers for the launch (32 or 16 floats). Persistent blocks walk
+//   frames; each stages the next frame's 2T floats into a second shared
+//   buffer by 4-byte cp.async (so a frame may start at any 4-byte offset)
+//   while it computes the current one. Per row t a thread reads its plane's
+//   x[t], x[t+1], x[t+2] from shared memory (one address for the whole
+//   plane: a broadcast), computes each channel in conv1_accumulate's order
+//   with each product and sum rounded on its own (bit for bit the plain
+//   version), packs the row's 16 bytes (__floats2bfloat162_rn in bf16) and
+//   issues one streaming store (st.global.cs: the 528.5 MB bf16 map does
+//   not fit in L2). The general body wrote 4 or 8 bytes a lane, loaded the
+//   taps and bias for every pair of channels it wrote and ran at 36 % of
+//   its bound (0.44 ms at B = 4096 in bf16).
+// - The general route (amc_conv1_stacked; any width): the warp-a-row body
+//   above.
 //
 // conv2 has three bodies; ops/cnn_kernels.py::conv2_route picks one from the
 // widths, the dtype and the alignment (a dispatch by shape, never a retry):
@@ -375,6 +397,85 @@ conv1_int8_dp4a_kernel(const int8_t* __restrict__ x, long long b, int t_in, int 
       }
     }
     __syncthreads();                                  // cur is staged again next round
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------------ conv1, registers
+
+constexpr int RG_THREADS = 256;
+constexpr int RG_MAX_T = 2048;               // two frames' 2T floats in 32 KB
+
+// Stage frame f of x (2 * t_in floats, 4-byte aligned at any offset) into buf.
+__device__ __forceinline__ void rg_stage(const float* x, long long f, int t_in, float* buf) {
+  const float* src = x + f * 2 * t_in;
+  for (int i = threadIdx.x; i < 2 * t_in; i += RG_THREADS) cp_async4(smem_u32(buf + i), src + i, 4);
+}
+
+__device__ __forceinline__ uint4 rg_pack(const float (&v)[8]) {
+  uint32_t p[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    p[q] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(p[0], p[1], p[2], p[3]);
+}
+__device__ __forceinline__ uint4 rg_pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+
+// x (b, 2, t_in) f32, w1p (3, c), b1 (c,) f32 -> out (b, t_in-2, 2c) OutT,
+// 16-byte aligned; a thread owns CH = 16 / sizeof(OutT) channels (one
+// 16-byte store a row); c % 8 == 0, 2c / CH <= RG_THREADS, t_in <= RG_MAX_T.
+template <typename OutT>
+__global__ void __launch_bounds__(RG_THREADS)
+conv1_regs_kernel(const float* __restrict__ x, long long b, int t_in, int c,
+                  const float* __restrict__ w1p, const float* __restrict__ b1,
+                  OutT* __restrict__ out) {
+  constexpr int CH = 16 / sizeof(OutT);
+  extern __shared__ float xf[];                       // two frames' floats
+  const int groups = 2 * c / CH;                      // threads a row
+  const int slots = RG_THREADS / groups;              // rows a block does at once
+  const int g = threadIdx.x % groups, s = threadIdx.x / groups;
+  const int n0 = g * CH, h = n0 >= c, c0 = n0 - h * c;
+  float w0[CH], w1[CH], w2[CH], bias[CH];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    w0[i] = __ldg(w1p + c0 + i);
+    w1[i] = __ldg(w1p + c + c0 + i);
+    w2[i] = __ldg(w1p + 2 * c + c0 + i);
+    bias[i] = __ldg(b1 + c0 + i);
+  }
+  const int t_out = t_in - 2;
+  const long long n2 = 2LL * c;
+  long long f = blockIdx.x;
+  if (f < b) rg_stage(x, f, t_in, xf);
+  cp_async_commit();
+  for (int k = 0; f < b; ++k, f += gridDim.x) {
+    const float* xp = xf + (k & 1) * 2 * t_in + h * t_in;   // this thread's plane
+    if (f + gridDim.x < b) rg_stage(x, f + gridDim.x, t_in, xf + ((k + 1) & 1) * 2 * t_in);
+    cp_async_commit();
+    cp_async_wait<1>();                               // frame f's floats are in
+    __syncthreads();
+    if (s < slots) {
+      OutT* orow = out + f * t_out * n2 + n0;
+      for (int t = s; t < t_out; t += slots) {
+        const float x0 = xp[t], x1 = xp[t + 1], x2 = xp[t + 2];   // a broadcast
+        float v[CH];
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {
+          float acc = 0.0f;
+          acc = __fadd_rn(acc, __fmul_rn(x0, w0[i]));
+          acc = __fadd_rn(acc, __fmul_rn(x1, w1[i]));
+          acc = __fadd_rn(acc, __fmul_rn(x2, w2[i]));
+          v[i] = fmaxf(__fadd_rn(acc, bias[i]), 0.0f);
+        }
+        __stcs(reinterpret_cast<uint4*>(orow + t * n2), rg_pack(v));
+      }
+    }
+    __syncthreads();                                  // this buffer is staged again next round
   }
   cp_async_wait<0>();
 }
@@ -1051,6 +1152,42 @@ extern "C" int amc_conv1_stacked(const void* x, long long b, int t_in, int c,
   else
     conv1_f32_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
         xf, b * (t_in - 2), t_in, c, w, bias, static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register route of amc_conv1_stacked, on the same arguments, for c a
+// multiple of 8 with 2c / (8 channels a thread in bf16, 4 in f32) <=
+// RG_THREADS (c <= 1024 in bf16, 512 in f32), 3 <= t_in <= RG_MAX_T and
+// out 16-byte aligned (else cudaErrorInvalidValue, before any launch).
+extern "C" int amc_conv1_stacked_regs(const void* x, long long b, int t_in, int c,
+                                      const void* w1p, const void* b1, int out_f32,
+                                      void* out, void* stream) {
+  const int ch = out_f32 ? 4 : 8;
+  if (c % 8 || c < 8 || 2 * c / ch > RG_THREADS || t_in < 3 || t_in > RG_MAX_T ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0) return 0;
+  const int smem = 2 * 2 * t_in * static_cast<int>(sizeof(float));
+  const void* kernel = out_f32 ? reinterpret_cast<const void*>(conv1_regs_kernel<float>)
+                               : reinterpret_cast<const void*>(conv1_regs_kernel<__nv_bfloat16>);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RG_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long grid = static_cast<long long>(sms) * (per_sm < 1 ? 1 : per_sm);
+  if (grid > b) grid = b;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(w1p);
+  const auto* bias = static_cast<const float*>(b1);
+  if (out_f32)
+    conv1_regs_kernel<float><<<static_cast<unsigned>(grid), RG_THREADS, smem, s>>>(
+        xf, b, t_in, c, w, bias, static_cast<float*>(out));
+  else
+    conv1_regs_kernel<__nv_bfloat16><<<static_cast<unsigned>(grid), RG_THREADS, smem, s>>>(
+        xf, b, t_in, c, w, bias, static_cast<__nv_bfloat16*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

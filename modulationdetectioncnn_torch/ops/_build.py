@@ -78,6 +78,8 @@ _SIGNATURES = {
     # x, n, t_in, c, w1p, b1, out_f32, out, stream
     "amc_conv1_stacked": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                           ctypes.c_int, _P, _P],
+    "amc_conv1_stacked_regs": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
+                               ctypes.c_int, _P, _P],
     # x, n, t_in, c, w1p, m, o, out, stream
     "amc_conv1_stacked_int8": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
                                _P, _P, _P, _P],

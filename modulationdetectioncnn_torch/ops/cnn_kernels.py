@@ -26,9 +26,12 @@ block), the FFMA route for float32 (TMA, the weight streamed beside the
 map, outer products on the CUDA cores) or the general route. The int8
 conv1 has two, picked by ``conv1_int8_route`` from the widths: the dp4a
 route (a thread's 16 channels and their taps in registers, one ``__dp4a``
-a channel, one 16-byte store a row) or the general route. The routed
-wrappers count their launches per route in ``route_launches`` beside
-``launches``.
+a channel, one 16-byte store a row) or the general route. The float conv1
+has two, picked by ``conv1_route`` from the widths and the out dtype: the
+register route (the dp4a route's layout in float32: a thread's 8 bf16 or
+4 float32 channels and their taps and bias in registers, one 16-byte
+store a row) or the general route. The routed wrappers count their
+launches per route in ``route_launches`` beside ``launches``.
 
 Unlike the classifiers' kernels, these take the widths at run time: any B,
 T, C, Cin and Co, and return the caller's own shape. ``block_b`` is the TPU
@@ -219,6 +222,25 @@ def conv1_int8_route(t: int, c: int) -> str:
     return "general"
 
 
+CONV1_ROUTES = ("regs", "general")
+REGS_MAX_T = 2048                    # two frames of 2T floats staged in 32 KB
+REGS_THREADS = 256                   # a row of 2C channels in one block
+
+
+def conv1_route(t: int, c: int, out_dtype: torch.dtype = torch.bfloat16) -> str:
+    """The float conv1 body a launch on the card takes, from the frame
+    length, the channels and the out dtype (B does not matter):
+    ``"regs"`` (``amc_conv1_stacked_regs``) when ``c`` is a multiple of 8,
+    a row of 2C channels fits one 256-thread block at 16 bytes a thread (C
+    <= 1024 in bf16, 512 in float32) and 3 <= ``t`` <= 2048, which covers
+    the default widths (T 128, C 256) in both; ``"general"``
+    (``amc_conv1_stacked``) otherwise."""
+    per_thread = 16 // (4 if out_dtype == torch.float32 else 2)
+    if c % 8 == 0 and 8 <= c and 2 * c <= REGS_THREADS * per_thread and 3 <= t <= REGS_MAX_T:
+        return "regs"
+    return "general"
+
+
 def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
@@ -270,7 +292,11 @@ def conv1_stacked(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor, *,
     """ReLU conv1, stacked output: x (B, 2, T) f32, w1p (3, C), b1 (C,) ->
     (B, T-2, 2C) ``out_dtype``, ``[b, t, h*C + c] = relu(conv1)[b, h, t, c]``.
     Launches ``csrc/cnn_kernels.cu``'s conv1 on a CUDA tensor (float32
-    inputs; bf16 or float32 out); the plain version on the CPU."""
+    inputs; bf16 or float32 out), the body of ``conv1_route(T, C,
+    out_dtype)``: the register route for C a multiple of 8 up to 1024 (bf16)
+    or 512 (float32) and T <= 2048, the general route otherwise (a launch
+    that fails raises; no route retries on another); the plain version on
+    the CPU."""
     _check_block_b(block_b)
     if x.device.type == "cpu":
         return conv1_stacked_plain(x, w1p, b1, out_dtype)
@@ -286,9 +312,10 @@ def conv1_stacked(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor, *,
                                  f"{tuple(x.shape)}, {tuple(w1p.shape)}, {tuple(b1.shape)}")
     out = torch.empty((b, t - 2, 2 * c), dtype=out_dtype, device=dev)
     if out.numel():
-        _call(conv1_stacked, "amc_conv1_stacked", dev, x.data_ptr(), b, t, c,
-              w1p.data_ptr(), b1.data_ptr(), int(out_dtype == torch.float32),
-              out.data_ptr())
+        route = conv1_route(t, c, out_dtype)
+        entry = "amc_conv1_stacked_regs" if route == "regs" else "amc_conv1_stacked"
+        _call(conv1_stacked, entry, dev, x.data_ptr(), b, t, c, w1p.data_ptr(),
+              b1.data_ptr(), int(out_dtype == torch.float32), out.data_ptr(), route=route)
     return out
 
 
@@ -408,7 +435,7 @@ def conv2_stacked_int8(a1s_i8: torch.Tensor, w2p_i8: torch.Tensor, mult: torch.T
 
 KERNEL_WRAPPERS = (conv1_stacked, conv2_stacked, conv1_stacked_int8, conv2_stacked_int8)
 ROUTED_WRAPPERS = {conv2_stacked: CONV2_ROUTES, conv2_stacked_int8: CONV2_ROUTES,
-                   conv1_stacked_int8: CONV1_INT8_ROUTES}
+                   conv1_stacked_int8: CONV1_INT8_ROUTES, conv1_stacked: CONV1_ROUTES}
 
 
 def reset_launch_counts() -> None:
@@ -426,5 +453,5 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
-    """{routed wrapper (conv2 and int8 conv1): {route: launches}}."""
+    """{routed wrapper (conv2, int8 conv1 and float conv1): {route: launches}}."""
     return {fn.__name__: dict(fn.route_launches) for fn in ROUTED_WRAPPERS}

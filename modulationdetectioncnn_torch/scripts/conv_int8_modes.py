@@ -25,12 +25,14 @@ diagnostic modes of rows 1 and 3.
          ``probe.OLD_CONV_V7_SRC`` the same for row 1
          (``probe.conv_v7_old_vs_new``).
   sass   disassembles (``cuobjdump -sass``) the package's rows 1, 5 and 10,
-         6 and 7, 3 and 4, 2 and 11, 17-20 (each instantiation; row 19's
-         general route) and 21's general route and their earlier bodies at
+         6 and 7, 3 and 4, 2 and 11, 17-20 (each instantiation; row 17's
+         general route, both of row 19's), 21's general route and 24 and
+         their earlier bodies at
          ``probe.OLD_CONV_V7_SRC``, ``probe.OLD_CONV_V5_SRC``,
          ``probe.OLD_CONV_V6_SRC``, ``probe.OLD_CONV_FOLD_SRC``,
-         ``probe.OLD_DENSE_SRC``, ``probe.OLD_CNN_SRC`` and
-         ``probe.OLD_TIMING_SRC`` (each built with the headers beside it)
+         ``probe.OLD_DENSE_SRC``, ``probe.OLD_CNN_SRC``,
+         ``probe.OLD_TIMING_SRC`` and ``probe.OLD_PROBE_SRC`` (each built
+         with the headers beside it)
          and reports, per kernel, whether the instructions are the same:
          an edit to a shared header that should leave a kernel's machine
          code as it was is held to that.
@@ -370,9 +372,12 @@ def run_sass() -> int:
                                     "dense_argmax_int8_kernelILb0E")),
                                   (probe.OLD_CNN_SRC, probe.CNN_ENTRIES,
                                    ("conv1_f32_kernel", "conv2_kernel", "conv2_wgmma_kernel",
-                                    "conv2_ffma_kernel", "conv1_int8_kernel")),
+                                    "conv2_ffma_kernel", "conv1_int8_kernel",
+                                    "conv1_int8_dp4a_kernel")),
                                   (probe.OLD_TIMING_SRC, probe.TIMING_ENTRIES,
-                                   ("correct_timing_fir_kernel",))):
+                                   ("correct_timing_fir_kernel",)),
+                                  (probe.OLD_PROBE_SRC, probe.PROBE_ENTRIES,
+                                   ("tap_planes_kernel",))):
         lib = probe.old_library(src, entries)
         if lib is None:
             _out(skipped=f"no earlier body at {src}")

@@ -49,6 +49,14 @@ a function that one of the port's kernels computes (PERF.md section 6).
   conv1_int8_old row 19 against an earlier body of ``csrc/cnn_kernels.cu`` (a
             copy at ``OLD_CNN_SRC``) the same way, on the quantized seeded
             frames under the committed artifact's conv1, outputs bit for bit
+  conv1_old row 17 (bf16 and float32 out) against an earlier body of
+            ``csrc/cnn_kernels.cu`` (a copy at ``OLD_CNN_SRC``), old, new,
+            new, old at B = 2048, 4096 and 16384, on seeded frames under the
+            bench's seeded conv1, outputs bit for bit
+  copy_old  row 23 (the byte copy) against an earlier body of
+            ``csrc/probe_kernels.cu`` (a copy at ``OLD_PROBE_SRC``) the same
+            way on (B, 16384) int8, beside ``Tensor.copy_`` into a
+            preallocated tensor, outputs bit for bit
   timing_old row 21 (the timing FIR) against an earlier body of
             ``csrc/correct_timing.cu`` (a copy at ``OLD_TIMING_SRC``) the same
             way, on seeded frames with their own timing filters, beside the
@@ -80,10 +88,12 @@ and 4 (v10, v9) against one at ``OLD_CONV_FOLD_SRC``, ``conv_v5_old_vs_new``
 rows 5 and 10 (v5, v1) against one at ``OLD_CONV_V5_SRC``,
 ``conv_v6_old_vs_new`` rows 6 and 7 (v6, v4) against one at
 ``OLD_CONV_V6_SRC``, ``conv_v3_old_vs_new`` rows 8 and 9 (v3, v2) against
-one at ``OLD_CONV_V3_SRC``, ``conv1_int8_old_vs_new`` row 19 against one at
-``OLD_CNN_SRC`` and ``timing_old_vs_new`` row 21 against one at
-``OLD_TIMING_SRC``. ``conv1_int8_edge_cases`` builds row 19's edge inputs
-and ``TIMING_TAU_EDGES`` row 21's, which chip_smoke.py holds the kernels to
+one at ``OLD_CONV_V3_SRC``, ``conv1_int8_old_vs_new`` row 19 and
+``conv1_old_vs_new`` row 17 against one at ``OLD_CNN_SRC``,
+``timing_old_vs_new`` row 21 against one at ``OLD_TIMING_SRC`` and
+``copy_old_vs_new`` row 23 against one at ``OLD_PROBE_SRC``.
+``conv1_int8_edge_cases`` builds row 19's edge inputs and
+``TIMING_TAU_EDGES`` row 21's, which chip_smoke.py holds the kernels to
 on the card and ``tests/test_torch_fir_conv1_rows.py`` the plain versions
 to against the JAX package. ``fold_edge_tree``
 builds a model at the edge of the v9/v10 fold's contract and
@@ -228,9 +238,11 @@ OLD_DENSE_BF16_SRC = os.path.join(_build.BUILD_DIR, "dense_argmax_bf16_old.cu")
 DENSE_BF16_ENTRIES = ("dense_argmax_bf16", "dense_bf16")
 DENSE_BF16_STAGES = ("dense_argmax_bf16", "dense_logits_bf16")   # their wrappers
 OLD_CNN_SRC = os.path.join(_build.BUILD_DIR, "cnn_kernels_old.cu")
-CNN_ENTRIES = ("conv2_stacked", "conv2_stacked_int8", "conv1_stacked_int8")
+CNN_ENTRIES = ("conv2_stacked", "conv2_stacked_int8", "conv1_stacked_int8", "conv1_stacked")
 OLD_TIMING_SRC = os.path.join(_build.BUILD_DIR, "correct_timing_old.cu")
 TIMING_ENTRIES = ("correct_timing_fir",)
+OLD_PROBE_SRC = os.path.join(_build.BUILD_DIR, "probe_kernels_old.cu")
+PROBE_ENTRIES = ("copy_bytes", "tap_planes")
 # The dense stages by wrapper: its C entry (without ``amc_``), the weights
 # the entry takes after the map and B, whether it takes the model's classes
 # next, and whether it writes logits (else labels).
@@ -1435,6 +1447,132 @@ def probe_conv1_int8_old() -> list[dict]:
     return recs
 
 
+def _old_ms(fn) -> float:
+    from modulationdetectioncnn_torch.utils.timing import launch_ms_samples
+
+    return statistics.median(launch_ms_samples(fn))
+
+
+def conv1_old_vs_new(lib: ctypes.CDLL, w1p: torch.Tensor, b1: torch.Tensor,
+                     batches=(2048, 4096, 16384)) -> list[dict]:
+    """Row 17, the old body (its ``amc_conv1_stacked``) against the
+    package's, on seeded frames (N(0, 1), T 128) under the float conv1
+    weights w1p (3, C) and b1 (C,), bf16 and float32 out: each timed old,
+    new, new, old (median of 5 runs of 20 calls between CUDA events, then
+    the profiler's device time per call, in the same order). ``ok``: the
+    maps bit for bit."""
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+
+    c = w1p.shape[1]
+
+    def old_call(x, out_dtype):
+        b, _, t = x.shape
+        out = torch.empty((b, t - 2, 2 * c), dtype=out_dtype, device=x.device)
+        code = lib.amc_conv1_stacked(x.data_ptr(), b, t, c, w1p.data_ptr(), b1.data_ptr(),
+                                     int(out_dtype == torch.float32), out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"old amc_conv1_stacked failed to launch: CUDA error {code}")
+        return out
+
+    recs = []
+    for b in batches:
+        x = _seeded((b, 2, T_IN), w1p.device, seed=b)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            new = lambda: ck.conv1_stacked(x, w1p, b1, out_dtype=out_dtype)  # noqa: E731
+            old = lambda: old_call(x, out_dtype)  # noqa: E731
+            differ = int((new() != old()).sum())
+            times = [_old_ms(old), _old_ms(new), _old_ms(new), _old_ms(old)]
+            dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+            recs.append({"probe": "conv1_old", "name": "conv1_stacked", "batch": b,
+                         "out_dtype": str(out_dtype)[6:],
+                         "new_route": ck.conv1_route(T_IN, c, out_dtype),
+                         "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                         "old_device_ms": [dev_ms[0], dev_ms[3]],
+                         "new_device_ms": [dev_ms[1], dev_ms[2]],
+                         "maps_differing": differ, "ok": differ == 0})
+        del x
+    return recs
+
+
+def probe_conv1_old() -> list[dict]:
+    """Row 17 against an earlier body of ``csrc/cnn_kernels.cu`` (a copy at
+    ``OLD_CNN_SRC``) under the bench's seeded float model's conv1."""
+    from modulationdetectioncnn_torch import bench
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.ops import cnn_kernels as ck
+
+    dev = _header("conv1_old")
+    lib = old_library(OLD_CNN_SRC, CNN_ENTRIES)
+    if lib is None:
+        raise SystemExit(f"conv1_old: no earlier body at {OLD_CNN_SRC}")
+    model = bench._frames_and_model(AmcConfig(), 1)[2]
+    w1p, b1 = ck.float_conv_weights(model.state_dict(), dev)[:2]
+    recs = conv1_old_vs_new(lib, w1p, b1)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
+COPY_ROW_BYTES = 16384          # probe_r3's (B, 16384) int8 intermediate
+
+
+def copy_old_vs_new(lib: ctypes.CDLL, batches=(2048, 4096, 16384)) -> list[dict]:
+    """Row 23, the old body (its ``amc_copy_bytes``) against the package's,
+    on seeded (B, 16384) int8: each timed old, new, new, old (median of 5
+    runs of 20 calls between CUDA events, then the profiler's device time
+    per call, in the same order), beside ``Tensor.copy_`` into a
+    preallocated tensor (a ``cudaMemcpyAsync``, the library call) timed
+    the same way in the same round. ``ok``: both copies equal the input."""
+    from modulationdetectioncnn_torch.ops import probe_kernels as pk
+    from modulationdetectioncnn_torch.utils.profiler import device_ms_per_call
+
+    def old_call(h):
+        out = torch.empty_like(h)
+        code = lib.amc_copy_bytes(h.data_ptr(), h.numel(), out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"old amc_copy_bytes failed to launch: CUDA error {code}")
+        return out
+
+    recs = []
+    for b in batches:
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        h = torch.randint(-128, 128, (b, COPY_ROW_BYTES), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        dst = torch.empty_like(h)
+        new = lambda: pk.copy_bytes(h)  # noqa: E731
+        old = lambda: old_call(h)  # noqa: E731
+        lib_call = lambda: dst.copy_(h)  # noqa: E731
+        differ = int((new() != h).sum()) + int((old() != h).sum())
+        times = [_old_ms(old), _old_ms(new), _old_ms(new), _old_ms(old)]
+        dev_ms = [device_ms_per_call(f) for f in (old, new, new, old)]
+        lib_dev = [device_ms_per_call(lib_call) for _ in range(2)]
+        recs.append({"probe": "copy_old", "name": "copy_bytes", "batch": b,
+                     "bytes_moved": 2 * h.numel(),
+                     "old_ms": [times[0], times[3]], "new_ms": [times[1], times[2]],
+                     "old_device_ms": [dev_ms[0], dev_ms[3]],
+                     "new_device_ms": [dev_ms[1], dev_ms[2]],
+                     "library_ms": _old_ms(lib_call), "library_device_ms": lib_dev,
+                     "bytes_differing": differ, "ok": differ == 0})
+        del h, dst
+    return recs
+
+
+def probe_copy_old() -> list[dict]:
+    """Row 23 against an earlier body of ``csrc/probe_kernels.cu`` (a copy
+    at ``OLD_PROBE_SRC``)."""
+    _header("copy_old")
+    lib = old_library(OLD_PROBE_SRC, PROBE_ENTRIES)
+    if lib is None:
+        raise SystemExit(f"copy_old: no earlier body at {OLD_PROBE_SRC}")
+    recs = copy_old_vs_new(lib)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
 PROBES = {
     "ceil": probe_ceil,
     "stage": probe_stage,
@@ -1444,6 +1582,8 @@ PROBES = {
     "conv2_old": probe_conv2_old,
     "conv2_maps": probe_conv2_maps,
     "conv1_int8_old": probe_conv1_int8_old,
+    "conv1_old": probe_conv1_old,
+    "copy_old": probe_copy_old,
     "timing_old": probe_timing_old,
     "conv_v7_old": probe_conv_v7_old,
     "conv_fold_old": probe_conv_fold_old,

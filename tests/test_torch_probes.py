@@ -87,7 +87,8 @@ def test_probe_names():
                                  "conv2_old", "conv2_maps", "conv_v7_old", "conv_fold_old",
                                  "conv_v5_old",
                                  "conv_v6_old", "conv_v3_old", "conv1_int8_old",
-                                 "timing_old", "batch", "r3stream", "r5cfo"}
+                                 "conv1_old", "copy_old", "timing_old", "batch", "r3stream",
+                                 "r5cfo"}
     with pytest.raises(SystemExit, match="unknown probe"):
         probe.main(["r4"])
 
