@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ``stream``, ``bench``, ``scaling``, ``eval``,
 ``quantize``, ``train`` and ``qat`` paths, its bf16 forwards, its
-``parallel/`` paths and its per-stage breakdown on one NVIDIA GPU and check
-them.
+``parallel/`` paths, its per-stage breakdown, its stream variants, its
+flagship pipeline and ``utils/profiler.py::trace`` on one NVIDIA GPU and
+check them.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -231,7 +232,36 @@ Phases, each printing JSON lines (``"phase": ...``):
                device's busy share, counting device work alone (kernels and
                copies; reported, not checked).
 
-The phases of ``parallel/`` and of rows 17-20 of the kernel table:
+The phases of ``parallel/``, of rows 17-20 of the kernel table and of the
+last three JAX modules ported:
+
+- trace (after build, in a process of its own: ``--trace-phase``, since
+               a trace exported in this process makes the later phases'
+               profiler sessions drop device records) --
+               ``utils/profiler.py::trace`` around the v7
+               classifier on the demo's frames, ``AMC_TRACE_DIR`` unset:
+               ``trace(None)`` runs no profiler and writes nothing into an
+               empty working directory; ``trace(<dir>)`` writes exactly one
+               file, a Chrome trace holding a kernel's event (no count
+               required: the profiler can drop records); labels equal to
+               the untraced run's. Reported: where a trace of 3 iterations
+               of the bench's stream chain (v7, B=4096) puts the host's
+               time (top-level operators, time outside them, CUDA runtime
+               calls, kernels).
+- stream_variants (after bench) -- ``scripts/bench_stream_variants.py`` at
+               the bench's defaults: the CNN-only rate and the six
+               variants (default, timing_on, resample_2_3,
+               cfo_off_timing_off, cfo_pad2, default_rerun), none failing,
+               each rate > 0 with ``pct_of_cnn_only`` as computed; rows 1,
+               2 and 21 (window route) launched; default / default_rerun
+               printed, not checked.
+- full (after trained_int8) -- ``scripts/train_eval_full.py`` at full width
+               on the train phase's cut (400 frames per class at 0 to 18
+               dB, 300 steps): the JAX summary's keys, agreement with the
+               plain chain 1.0, ``int8_on_chip`` true, rows 1 and 2 and
+               nothing else launched once per batch of the int8 sweep and
+               once for the agreement, its outputs in a temporary
+               directory and no file of the checkout touched.
 
 - cnn_kernels (after kernels) -- the four ``ops/cnn_kernels.py`` kernels
                against their plain versions on the bench's 4096 frames, the
@@ -2850,6 +2880,243 @@ def phase_trained_int8(tmp: str, ck: str) -> dict[str, int]:
     return counts
 
 
+def trace_summary(path: str) -> dict:
+    """Where a Chrome trace put the host's time: the span of the host's
+    events on the busiest thread, its top-level operators' time (top 8 by
+    name), the time outside any operator (Python, and the port's kernel
+    launches, which go through ctypes and not through an operator), the CUDA
+    runtime calls, and the kernels' count and device time."""
+    from collections import Counter
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+    tid = Counter(e["tid"] for e in host).most_common(1)[0][0]
+    ops = sorted((e for e in host if e["tid"] == tid and e["cat"] == "cpu_op"),
+                 key=lambda e: (e["ts"], -e["dur"]))
+    by_name, end = Counter(), float("-inf")
+    for e in ops:                                   # top level: not inside the last one
+        if e["ts"] >= end:
+            by_name[e["name"]] += e["dur"]
+            end = e["ts"] + e["dur"]
+    mine = [e for e in host if e["tid"] == tid]
+    span = max(e["ts"] + e["dur"] for e in mine) - min(e["ts"] for e in mine)
+    runtime = [e for e in host if e["cat"] == "cuda_runtime"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"host_span_ms": span / 1e3, "top_level_ops_ms": sum(by_name.values()) / 1e3,
+            "outside_ops_ms": (span - sum(by_name.values())) / 1e3,
+            "top_ops_ms": {k: v / 1e3 for k, v in by_name.most_common(8)},
+            "cuda_runtime_calls": len(runtime),
+            "cuda_runtime_ms": sum(e["dur"] for e in runtime) / 1e3,
+            "kernels": len(kernels), "kernel_ms": sum(e["dur"] for e in kernels) / 1e3}
+
+
+def phase_trace(tmp: str, demo: torch.Tensor) -> dict[str, int]:
+    """``utils/profiler.py::trace`` around the v7 classifier on the demo's
+    frames (after a warm-up), ``AMC_TRACE_DIR`` unset: under ``trace(None)``
+    no profiler runs and nothing is written into the empty working
+    directory; under ``trace(<dir>)`` exactly one file is written, which
+    parses as JSON and holds a kernel's event (``"cat": "kernel"``; no count
+    is required: the profiler can drop records). Then, reported only, where
+    a trace of 3 iterations of the bench's stream chain (v7, B=4096) puts
+    the host's time (``trace_summary``). Returns the counts of the traced
+    classify."""
+    from modulationdetectioncnn_torch.config import AmcConfig
+    from modulationdetectioncnn_torch.dsp import pipeline
+    from modulationdetectioncnn_torch.dsp.channelizer import design_prototype
+    from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+    from modulationdetectioncnn_torch.quant import load_int8
+    from modulationdetectioncnn_torch.utils.profiler import trace
+
+    classify = make_int8_predict(load_int8(device="cuda"), "v7")
+    want = classify(demo)
+    torch.cuda.synchronize()
+    env = os.environ.pop("AMC_TRACE_DIR", None)
+    empty, d, d_stream = (os.path.join(tmp, n) for n in ("trace_none", "trace", "trace_stream"))
+    os.makedirs(empty)
+    cwd = os.getcwd()
+    try:
+        os.chdir(empty)
+        try:
+            with trace(None):
+                profiling = torch.autograd._profiler_enabled()
+                got_none = classify(demo)
+                torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        reset_counts()
+        with trace(d):
+            got = classify(demo)
+        counts = launch_counts()
+        sc = AmcConfig().stream
+        h = design_prototype(sc.num_subbands, sc.taps_per_branch)
+        wide = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (2, BATCH * sc.frame_len)).astype(np.float32)).cuda()
+
+        def chain():
+            return classify(pipeline.subband_frames(wide, h, sc).reshape(-1, 2, sc.frame_len))
+
+        chain()
+        torch.cuda.synchronize()
+        with trace(d_stream):
+            for _ in range(3):
+                chain()
+    finally:
+        if env is not None:
+            os.environ["AMC_TRACE_DIR"] = env
+    files, none_files = sorted(os.listdir(d)), sorted(os.listdir(empty))
+    require(not profiling and none_files == [],
+            f"trace(None): profiler on {profiling}, files {none_files}")
+    require(len(files) == 1 and files[0].endswith(".pt.trace.json"), f"trace: files {files}")
+    try:
+        with open(os.path.join(d, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    except (ValueError, KeyError) as e:
+        raise CheckFailed(f"trace: {files[0]} is not a Chrome trace: {e!r}") from e
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    v7 = KERNEL_SYMBOLS["conv_stage_int8_v7"]
+    stream_files = os.listdir(d_stream)
+    emit({"phase": "trace", "file": files[0], "bytes": os.path.getsize(os.path.join(d, files[0])),
+          "events": len(events), "kernel_events": len(kernels),
+          "v7_kernel_events": sum(v7 in e.get("name", "") for e in kernels),
+          "launches": counts, "stream_chain_v7_3_iterations": trace_summary(
+              os.path.join(d_stream, stream_files[0])) if len(stream_files) == 1 else stream_files})
+    require(kernels, f"trace: no kernel event among {len(events)} events")
+    require(torch.equal(got, want) and torch.equal(got_none, want),
+            "trace: labels under trace differ from the untraced run")
+    require(counts["conv_stage_int8_v7"] == 1 and counts["dense_argmax_int8"] == 1,
+            f"trace: launches {counts}")
+    return counts
+
+
+TRACE_TIME_LIMIT_S = 300
+
+
+def phase_trace_process(tmp: str) -> None:
+    """Phase ``trace`` in a process of its own (``--trace-phase``): a
+    profiler session that exports a trace in this process makes the later
+    phases' sessions drop most device records (11 and 14 of phase kernels'
+    17 device times lost in two runs on the H100, against 1 without it;
+    phase cnn_kernels then fails). Prints the child's lines; requires its trace line and exit
+    code 0."""
+    code = _run_ranks([["--trace-phase", tmp]], tmp, "trace", TRACE_TIME_LIMIT_S)[0]
+    with open(os.path.join(tmp, "trace0.log")) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    require(code == 0 and any(ln.startswith('{"phase": "trace"') for ln in lines),
+            f"trace: its process exited {code}")
+
+
+def phase_stream_variants(tmp: str) -> dict[str, int]:
+    """``scripts/bench_stream_variants.py`` at the bench's defaults (v7,
+    B=4096, full width), written into ``tmp``, counters zeroed just before
+    it: the CNN-only rate and all six variants in the JAX script's order,
+    none with an error (the script's own keep-going stays; this check does
+    not swallow an error), each rate > 0 and ``pct_of_cnn_only`` as
+    computed; rows 1 and 2 launched, and row 21 on its window route alone
+    (``timing_on``). ``default`` / ``default_rerun`` is printed, not
+    checked: stream mode is host-noisy. Returns the counts."""
+    from modulationdetectioncnn_torch.scripts import bench_stream_variants as bsv
+
+    out = os.path.join(tmp, "bench_stream_variants.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    res, lines = quiet(bsv.main, [f"out={out}"])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for line in lines:
+        print(line, flush=True)
+    variants = res["variants"]
+    rate = {n: v.get("samples_per_sec") for n, v in variants.items()}
+    ratio = (rate["default"] / rate["default_rerun"]
+             if rate.get("default") and rate.get("default_rerun") else None)
+    emit({"phase": "stream_variants", "wall_s": wall, "backend": res["backend"],
+          "cnn_only_samples_per_sec": res["cnn_only_samples_per_sec"],
+          "samples_per_sec": rate,
+          "pct_of_cnn_only": {n: v.get("pct_of_cnn_only") for n, v in variants.items()},
+          "default_over_default_rerun": ratio, "launches": counts})
+    with open(out) as f:
+        require(json.load(f) == res, "stream_variants: the file differs from the result")
+    errors = {n: v["error"] for n, v in variants.items() if "error" in v}
+    require(not errors, f"stream_variants: failed variants {errors}")
+    cnn = res["cnn_only_samples_per_sec"]
+    require(list(variants) == [n for n, _ in bsv.VARIANTS] and res["backend"] == "pallas_int8_v7"
+            and cnn > 0, f"stream_variants: {res}")
+    require(all(v["samples_per_sec"] > 0
+                and v["pct_of_cnn_only"] == round(100 * v["samples_per_sec"] / cnn, 1)
+                for v in variants.values()), f"stream_variants: {variants}")
+    path = ("conv_stage_int8_v7", "dense_argmax_int8", "correct_timing_fir",
+            "correct_timing_fir/window")
+    require(all(counts[k] > 0 for k in path) and counts["correct_timing_fir/general"] == 0,
+            f"stream_variants: launches {counts}")
+    return counts
+
+
+# The keys of the JAX script's summary (scripts/train_eval_full.py:135-145),
+# for the default int8 kernel, v7.
+FULL_SUMMARY_KEYS = ["float_headline", "int8_headline", "int8_minus_float", "int8_kernel",
+                     "int8_on_chip", "pallas_v7_vs_golden_int8_agreement",
+                     "generator_version", "train_history_tail"]
+
+
+def repo_files(skip: str) -> dict[str, int]:
+    """Every file of the checkout with its mtime, but byte code, the kernel
+    build and anything under ``skip``."""
+    found = {}
+    for d, dirs, names in os.walk(REPO):
+        dirs[:] = [n for n in dirs if n not in ("__pycache__", "_build", ".git")
+                   and os.path.join(d, n) != skip]
+        for n in names:
+            path = os.path.join(d, n)
+            found[os.path.relpath(path, REPO)] = os.stat(path).st_mtime_ns
+    return found
+
+
+def phase_full(tmp: str) -> dict[str, int]:
+    """``scripts/train_eval_full.py`` at full width (conv1 256, conv2 80,
+    dense 256, 11 classes) on the train phase's cut (TRAIN_DATA,
+    TRAIN_STEPS), written into ``tmp``, counters zeroed just before it: the
+    summary's keys the JAX script's, agreement with the plain chain exactly
+    1.0, ``int8_on_chip`` true; rows 1 and 2 launched and nothing else,
+    once per batch of the int8 sweep and once for the agreement's 512
+    frames (no other stage launches a kernel of the port: training and the
+    float sweep run torch's ops); its seven outputs in ``tmp``; no file of
+    the checkout written or touched. Returns the counts."""
+    from modulationdetectioncnn_torch.config import EvalConfig
+    from modulationdetectioncnn_torch.scripts import train_eval_full as tef
+
+    out = os.path.join(tmp, "train_eval_full")
+    argv = [*TRAIN_DATA, f"train.num_steps={TRAIN_STEPS}", "train.eval_every=100", f"out={out}"]
+    before = repo_files(tmp)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary, lines = quiet(tef.main, argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    after = repo_files(tmp)
+    with open(os.path.join(out, "results_int8.json")) as f:
+        held_out = int(sum(np.sum(c) for c in json.load(f)["confusion"].values()))
+    calls = -(-held_out // EvalConfig().batch_size) + 1
+    agree = summary.get("pallas_v7_vs_golden_int8_agreement")
+    emit({"phase": "full", "argv": argv, "wall_s": wall, "outputs": sorted(os.listdir(out)),
+          "frames_held_out": held_out, "launches": counts, "summary": summary,
+          "printed_lines": len(lines)})
+    require(list(summary) == FULL_SUMMARY_KEYS, f"full: summary keys {list(summary)}")
+    require(agree == 1.0 and summary["int8_on_chip"] is True and summary["int8_kernel"] == "v7",
+            f"full: agreement {agree}, on chip {summary['int8_on_chip']}")
+    path = ("conv_stage_int8_v7", "dense_argmax_int8")
+    require(all(counts[k] == calls for k in path)
+            and sum(counts.values()) == 2 * calls, f"full: launches {counts}, want {calls} each")
+    outputs = sorted(os.listdir(out))
+    require(len(outputs) == 7 and {"results.json", "results_int8.json", "summary_rml11.json",
+                                   "train_rml11.jsonl", "ckpt_rml11", "ckpt_rml11_int8"}
+            < set(outputs), f"full: outputs {outputs}")
+    changed = sorted(k for k in set(before) | set(after) if before.get(k) != after.get(k))
+    require(not changed, f"full: wrote outside its directory: {changed[:20]}")
+    return counts
+
+
 def phase_qat(tmp: str) -> None:
     """``qat`` on a copy of the exported float checkpoint (40 steps of the
     default batch on the configured dataset cut to 50 frames per class and
@@ -2917,12 +3184,23 @@ def main() -> int:
         return gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--probe-rank"]:       # one process of its premises' probe
         return probe_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--trace-phase"]:      # phase trace, in a process of its own
+        try:
+            phase_trace(sys.argv[2], demo_frames())
+        except CheckFailed as e:
+            emit({"ok": False, "failed": str(e)})
+            return 1
+        return 0
     t_start = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             dev = phase_device()
             dev["ptxas_log"] = phase_build()
             demo = demo_frames()
+            # Before the phases that open many profiler sessions (the
+            # profiler drops records late in a long process), and in a
+            # process of its own, whose session leaves this one's intact.
+            phase_trace_process(tmp)
             rows = phase_kernels(dev, demo)
             # Rows 17-20: no product path calls them (0 launches on the main
             # path, read at the end); their checks count their own.
@@ -2952,6 +3230,7 @@ def main() -> int:
             # dryrun, train on a 1x1x1 mesh.
             phase_parallel()
             launches.update(phase_bench())          # the bench path: v9, v10, bf16
+            phase_stream_variants(tmp)              # the six front-end variants
             # This slice: the scaling command (rows 1, 3, 2 through the
             # bench's calibration) and the per-stage breakdown (rows 4, 2
             # on their own).
@@ -2967,6 +3246,7 @@ def main() -> int:
             ck = phase_train(tmp)
             phase_canary(tmp)
             launches["conv_stage_int8_v1"] = phase_trained_int8(tmp, ck)["conv_stage_int8_v1"]
+            phase_full(tmp)                         # the flagship pipeline, cut
             phase_qat(tmp)
             phase_parallel_gloo(tmp)                # two gloo ranks on the card
             phase_profile()

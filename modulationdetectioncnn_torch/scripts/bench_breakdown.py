@@ -33,6 +33,8 @@ import sys
 import numpy as np
 import torch
 
+from modulationdetectioncnn_torch.scripts import refuse_artifacts
+
 BATCH = 4096
 T_IN = 128
 ROUNDS = 5
@@ -166,9 +168,7 @@ def run() -> dict:
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     out_path = argv[0] if argv else os.path.join("chiprun_out", "bench_breakdown.json")
-    if "artifacts" in os.path.normpath(os.path.abspath(out_path)).split(os.sep):
-        raise SystemExit(f"{out_path}: artifacts/ holds the JAX package's records; "
-                         "write the breakdown elsewhere")
+    refuse_artifacts(out_path)
     result = run()
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as f:

@@ -1,12 +1,18 @@
-"""Roofline accounting for the port.
+"""Profiling hooks and roofline accounting for the port.
 
-Counterpart of ``modulationdetectioncnn_tpu/utils/profiler.py`` with the
-NVIDIA H100 SXM's data-sheet peaks (dense, no sparsity, at the 700 W power
-limit): 989 TFLOP/s bf16 and 1,979 TOP/s int8. A card set below 700 W
-(``nvidia-smi --query-gpu=power.limit``) runs below them.
+Counterpart of ``modulationdetectioncnn_tpu/utils/profiler.py``: ``trace()``
+writes a region's Chrome/Perfetto trace (``torch.profiler``), and
+``roofline()`` turns a rate into shares of the NVIDIA H100 SXM's data-sheet
+peaks (dense, no sparsity, at the 700 W power limit): 989 TFLOP/s bf16 and
+1,979 TOP/s int8. A card set below 700 W (``nvidia-smi
+--query-gpu=power.limit``) runs below them.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import socket
+import time
 from dataclasses import dataclass
 
 H100_PEAK_BF16_FLOPS = 989e12
@@ -16,6 +22,44 @@ H100_PEAK_INT8_OPS = 1979e12
 # 15.2M, dense1 2.54M, dense2 2.8K.
 MACS_PER_FRAME = 18_127_696
 SAMPLES_PER_FRAME = 128
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None = None):
+    """``with trace('/tmp/tb'):`` -> a Chrome/Perfetto trace of the region.
+
+    ``logdir or $AMC_TRACE_DIR`` decides, as in the JAX package. Without a
+    directory the region runs with no profiler and nothing is written.
+    With one, the directory is made and the region runs under
+    ``torch.profiler``: CPU activity, and CUDA activity when a card is
+    present (synchronised before the profiler stops, where the process
+    uses it, so the region's kernels are in the trace). On exit, also by an
+    exception, which propagates unchanged, one
+    ``<host>_<pid>.<time_ns>.pt.trace.json`` is written there, so two
+    regions never overwrite each other. A trace is one region and is not
+    taken again: where the profiler drops device records (late in a long
+    process, PERF.md section 7), the file holds fewer kernels than ran;
+    ``device_records`` retries for that reason."""
+    logdir = logdir or os.environ.get("AMC_TRACE_DIR")
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    prof = profile(activities=[ProfilerActivity.CPU]
+                   + ([ProfilerActivity.CUDA] if cuda else []))
+    prof.start()
+    try:
+        yield
+    finally:
+        if cuda and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
 @dataclass

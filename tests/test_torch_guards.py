@@ -10,6 +10,7 @@
 """
 import ast
 import glob
+import importlib
 import json
 import os
 import re
@@ -643,3 +644,62 @@ def test_scaling_raises_without_cuda():
     assert proc.returncode != 0
     assert "device=cpu" in proc.stderr
     assert not proc.stdout.strip()
+
+
+SCRIPT_BLOCKED_RUN = r"""
+import os, sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+from modulationdetectioncnn_torch.scripts import {script}
+from modulationdetectioncnn_torch.utils.profiler import trace
+with trace({trace_dir!r}):
+    {script}.main(["device=cpu", *{tiny!r}, "out=" + {out!r}])
+assert os.path.exists({out!r}) and len(os.listdir({trace_dir!r})) == 1
+print("NO_JAX_OK", sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r} and sys.modules[m]))
+"""
+SCRIPT_TINY = {
+    "bench_stream_variants": [
+        "bench.batch_size=16", "bench.warmup_iters=1", "bench.timed_iters=1",
+        "stream.num_subbands=4", "stream.taps_per_branch=4", "model.conv1_filters=32",
+        "model.conv2_filters=16", "model.dense_units=32"],
+    "train_eval_full": [
+        "data.classes=BPSK,QPSK", "model.num_classes=2", "model.conv1_filters=16",
+        "model.conv2_filters=8", "model.dense_units=16", "model.dtype=float32",
+        "data.frames_per_class_per_snr=4", "data.snr_db_min=10", "data.snr_db_step=8",
+        "train.batch_size=8", "train.num_steps=4", "train.warmup_steps=1",
+        "train.eval_every=2", "quant.calib_frames=12", "eval.batch_size=16"],
+}
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPT_TINY))
+def test_scripts_and_trace_run_with_jax_blocked(tmp_path, script):
+    """The stream variants and the flagship pipeline run on the CPU at a
+    tiny size under ``utils/profiler.py::trace`` (one trace file) with
+    every JAX module blocked."""
+    code = SCRIPT_BLOCKED_RUN.format(
+        forbidden=FORBIDDEN, repo=REPO, script=script, tiny=SCRIPT_TINY[script],
+        out=str(tmp_path / "out"), trace_dir=str(tmp_path / "trace"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK []" in proc.stdout
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPT_TINY))
+def test_scripts_raise_without_cuda(tmp_path, script):
+    """Both scripts run on the card unless given device=cpu: without one
+    they raise before writing anything, as a function and as a module."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the script would run on it")
+    mod = importlib.import_module(f"modulationdetectioncnn_torch.scripts.{script}")
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        mod.main([f"out={out}"])
+    proc = subprocess.run([sys.executable, "-m", mod.__name__, f"out={out}"],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode != 0
+    assert "device=cpu" in proc.stderr
+    assert not proc.stdout.strip()
+    assert not out.exists()
