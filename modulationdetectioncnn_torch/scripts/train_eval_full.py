@@ -6,7 +6,9 @@ Counterpart of the JAX package's ``scripts/train_eval_full.py``:
    .. +18 dB, 1000 frames per class and SNR), cached in ``DIR`` under the
    JAX script's name, then ``train_test_split(..., test_frac=0.2)``;
 2. ``train/loop.py::train`` (checkpoints in ``DIR/ckpt_rml11``, records in
-   ``DIR/train_rml11.jsonl``);
+   ``DIR/train_rml11.jsonl``); run again with the same ``DIR`` and
+   ``train.num_steps``, it reads the cached dataset and resumes from the
+   newest checkpoint;
 3. the float SNR sweep of the held-out split -> ``DIR/results.json``;
 4. PTQ on ``cli.calibration_frames`` -> ``DIR/ckpt_rml11_int8/int8.npz``;
 5. the int8 sweep through the kernels of ``eval.int8_kernel`` (default v7)
@@ -68,7 +70,12 @@ def load_or_build_dataset(cfg: AmcConfig, out_dir: str):
     else:
         x, y, s, classes = load_dataset(cfg.data)
         if not cfg.data.radioml_pickle:
-            np.savez(cache, x=x, y=y, s=s)
+            # Written beside the cache and renamed, so a run cut while
+            # writing (~0.9 GB at 4000 frames per class and SNR) leaves no
+            # torn file for the next run to load.
+            tmp = f"{cache}.tmp-{os.getpid()}.npz"
+            np.savez(tmp, x=x, y=y, s=s)
+            os.replace(tmp, cache)
         log.info("dataset %s built in %.1fs", x.shape, time.time() - t0)
     return x, y, s, classes
 
@@ -91,15 +98,18 @@ def evaluate_and_quantize(model, held_out, classes, cfg: AmcConfig, out_dir: str
     xte, yte, ste = held_out
     bs = cfg.eval.batch_size
     eval_step = loop.make_eval_step(model)
+    t0 = time.time()
     result = harness.snr_sweep(lambda xb: eval_step(xb).cpu().numpy(), xte, yte, ste,
                                classes, batch_size=bs)
     harness.save_results(result, os.path.join(out_dir, "results.json"))
+    log.info("float sweep of %d frames in %.1fs", len(xte), time.time() - t0)
     print(harness.format_curve(result))
     print("float headline:", json.dumps(result["headline"]), flush=True)
 
+    t0 = time.time()
     qm = quantize(model, calibration_frames(cfg), percentile=cfg.quant.act_percentile)
     qm.save(os.path.join(out_dir, "ckpt_rml11_int8"))
-    log.info("int8 artifact saved to %s/ckpt_rml11_int8", out_dir)
+    log.info("int8 artifact saved to %s/ckpt_rml11_int8 in %.1fs", out_dir, time.time() - t0)
 
     kernel = cfg.eval.int8_kernel
     classify = make_int8_predict(qm, kernel, device=dev)
@@ -107,14 +117,18 @@ def evaluate_and_quantize(model, held_out, classes, cfg: AmcConfig, out_dir: str
     def predict_q(xb: np.ndarray) -> np.ndarray:
         return classify(torch.from_numpy(xb)).cpu().numpy()
 
+    t0 = time.time()
     result_q = harness.snr_sweep(predict_q, xte, yte, ste, classes, batch_size=bs)
     harness.save_results(result_q, os.path.join(out_dir, "results_int8.json"))
+    log.info("int8 sweep (%s) of %d frames in %.1fs", kernel, len(xte), time.time() - t0)
     print(harness.format_curve(result_q))
     print("int8 headline:", json.dumps(result_q["headline"]), flush=True)
 
+    t0 = time.time()
     xs = xte[:AGREEMENT_FRAMES]
     plain = make_int8_predict(qm, kernel, device="cpu", interpret=True)
     agreement = float((predict_q(xs) == plain(torch.from_numpy(xs)).numpy()).mean())
+    log.info("agreement with the plain chain on %d frames in %.1fs", len(xs), time.time() - t0)
     deltas = {k: None if result["headline"][k] is None
               else round(result_q["headline"][k] - result["headline"][k], 5)
               for k in result["headline"]}
@@ -157,7 +171,12 @@ def main(argv: list[str] | None = None) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     x, y, s, classes = load_or_build_dataset(cfg, out_dir)
     (xtr, ytr, _), held_out = synthetic.train_test_split(x, y, s, test_frac=0.2)
+    t0 = time.time()
     model, history = loop.train(cfg, (xtr, ytr), held_out[:2])
+    log.info("training to step %d in %.1fs", cfg.train.num_steps, time.time() - t0)
+    # The whole run's records: a resumed run logs only its own steps, and
+    # none when the checkpoint already stands at num_steps.
+    history = loop.read_records(cfg.train.log_jsonl) or history
     return evaluate_and_quantize(model, held_out, classes, cfg, out_dir, history)
 
 
