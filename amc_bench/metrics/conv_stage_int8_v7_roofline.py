@@ -1,0 +1,9 @@
+"""The least time of one ``conv_stage_int8_v7`` call (``counts.py``: the larger of its
+operations at the int8 peak and its bytes at the HBM bandwidth, at the
+call's batch) over its measured device time per call, in percent
+(``shares.kernel_roofline``)."""
+from amc_bench.shares import kernel_roofline
+
+
+def read(ctx):
+    return kernel_roofline(ctx, "conv_stage_int8_v7")
