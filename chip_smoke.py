@@ -2975,7 +2975,7 @@ def phase_trace(tmp: str, demo: torch.Tensor) -> dict[str, int]:
         raise CheckFailed(f"trace: {files[0]} is not a Chrome trace: {e!r}") from e
     kernels = [e for e in events if e.get("cat") == "kernel"]
     v7 = KERNEL_SYMBOLS["conv_stage_int8_v7"]
-    stream_files = os.listdir(d_stream)
+    stream_files = [f for f in os.listdir(d_stream) if f.endswith(".pt.trace.json")]
     emit({"phase": "trace", "file": files[0], "bytes": os.path.getsize(os.path.join(d, files[0])),
           "events": len(events), "kernel_events": len(kernels),
           "v7_kernel_events": sum(v7 in e.get("name", "") for e in kernels),

@@ -25,7 +25,9 @@ Commands:
   int8-vs-float agreement printed as JSON;
 - ``stream``: the streaming demo through the int8 CUDA kernels (with
   ``stream.resample_up/down`` the wideband resampler in front, with
-  ``stream.normalize_timing=true`` the per-frame timing correction);
+  ``stream.normalize_timing=true`` the per-frame timing correction); with
+  ``AMC_TRACE_DIR=<dir>`` it runs under ``utils/profiler.py::trace`` and
+  writes the command's Chrome trace and span summary there;
 - ``bench``: the port's benchmark (``bench.py``: one JSON contract line on
   stdout, calibration and the stream chain's rate on stderr);
 - ``scaling``: the bench's measured one-card rate (quietly, by default the
@@ -251,9 +253,14 @@ def cmd_qat(cfg: AmcConfig) -> str:
 
 
 def cmd_stream(cfg: AmcConfig):
+    """The stream demo; with ``AMC_TRACE_DIR`` set, under ``trace()``: the
+    command's Chrome trace (the program's ``amc.*`` spans beside its device
+    work) and its span summary are written there."""
     from modulationdetectioncnn_torch.dsp import pipeline
+    from modulationdetectioncnn_torch.utils.profiler import trace
 
-    return pipeline.run_stream_demo(cfg)
+    with trace():
+        return pipeline.run_stream_demo(cfg)
 
 
 def cmd_bench(cfg: AmcConfig) -> dict:

@@ -3,7 +3,10 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
+
+from modulationdetectioncnn_torch.utils import profiler
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -33,3 +36,16 @@ def describe(dev: torch.device) -> str:
             timeout=60, check=True).stdout.strip()
     except (OSError, subprocess.SubprocessError):
         return f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
+def host_constant(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A front-end constant made on the host, on ``device``, in its own
+    dtype: ``a`` itself on the CPU; on a card, a blocking copy from pageable
+    memory (the host waits for the card's queue to drain), counted under the
+    profiler in ``amc.frontend.syncs``. The span ``amc.frontend.sync`` is the
+    host's time in it."""
+    with profiler.span("amc.frontend.sync"):
+        t = torch.as_tensor(a, device=device)
+        if t.device.type == "cuda":
+            profiler.count("amc.frontend.syncs")
+    return t

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from modulationdetectioncnn_torch.device import host_constant
+
 
 def design_prototype(num_subbands: int, taps_per_branch: int,
                      beta: float = 9.0) -> np.ndarray:
@@ -56,7 +58,7 @@ def dft_matrices(m: int) -> tuple[np.ndarray, np.ndarray]:
 def dft_iq(v: torch.Tensor) -> torch.Tensor:
     """M-point DFT over the last axis of I/Q planes: (..., 2, N, M) ->
     (..., 2, N, M), out[..., 0] + i*out[..., 1] = FFT(v[..., 0] + i*v[..., 1])."""
-    fr, fi = (torch.from_numpy(a).to(v.device) for a in dft_matrices(v.shape[-1]))
+    fr, fi = (host_constant(a, v.device) for a in dft_matrices(v.shape[-1]))
     vr, vi = v[..., 0, :, :], v[..., 1, :, :]
     zr = vr @ fr - vi @ fi
     zi = vr @ fi + vi @ fr
@@ -75,8 +77,7 @@ def channelize(x: torch.Tensor, h: np.ndarray, num_subbands: int) -> torch.Tenso
         raise ValueError(f"stream length {t_len} is not a multiple of {m}")
     n_blocks = t_len // m
     xp = x.reshape(x.shape[:-1] + (n_blocks, m))             # (..., 2, NB, M)
-    h_poly = torch.as_tensor(np.asarray(h, np.float32).reshape(taps, m),
-                             device=x.device)
+    h_poly = host_constant(np.asarray(h, np.float32).reshape(taps, m), x.device)
     # Causal FIR along the block axis: v[n, p] = sum_t h_poly[t, p] xp[n-t, p].
     xpad = F.pad(xp, (0, 0, taps - 1, 0))
     v = torch.zeros_like(xp)

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from scipy import signal as sp_signal
 
+from modulationdetectioncnn_torch.device import host_constant
+
 
 def design_lowpass(num_taps: int, cutoff: float, beta: float = 6.0) -> np.ndarray:
     """Kaiser-windowed sinc lowpass; cutoff in cycles/sample (0..0.5)."""
@@ -49,8 +51,8 @@ def _conv_iq(xiq: torch.Tensor, h: np.ndarray, up: int, down: int) -> torch.Tens
     stuffed = F.pad(stuffed, (taps - 1, pad_right))
     # conv1d is a cross-correlation: the reversed taps give the direct-form
     # convolution. cuDNN would run a float32 conv in TF32 by default.
-    w = torch.as_tensor(np.ascontiguousarray(np.asarray(h, np.float32)[::-1]),
-                        device=x.device).expand(2, 1, taps)
+    w = host_constant(np.ascontiguousarray(np.asarray(h, np.float32)[::-1]),
+                      x.device).expand(2, 1, taps)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -121,9 +123,9 @@ def fir_resample_iq(xiq: torch.Tensor, h: np.ndarray, up: int, down: int) -> tor
     w1 = x_pad[:, :n_tiles * s].reshape(b, n_tiles, s)
     w2 = x_pad[:, s:(n_tiles + 1) * s].reshape(b, n_tiles, s)[:, :, :k_pad - s]
     windows = torch.cat([w1, w2], dim=-1).reshape(b * n_tiles, k_pad)
-    wmat = torch.from_numpy(_resample_window_matrix(
+    wmat = host_constant(_resample_window_matrix(
         tuple(np.asarray(h, np.float64).tolist()), up, down, r_tile, k_pad,
-        halo)).to(x.device)
+        halo), x.device)
     y = torch.matmul(windows, wmat).reshape(b, n_tiles * r_tile * up)
     return y[:, :out_len].reshape(lead + (out_len,))
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from modulationdetectioncnn_torch.device import host_constant
 from modulationdetectioncnn_torch.dsp.channelizer import design_interp
 from modulationdetectioncnn_torch.ops import _build
 
@@ -61,8 +62,7 @@ def estimate_cfo(x: torch.Tensor, order: int = 4, pad_factor: int = 4) -> torch.
             br, bi = _cmul(br, bi, br, bi)
     t = x.shape[-1]
     n = t * pad_factor
-    cos_m, sin_m = (torch.from_numpy(a).to(x.device)
-                    for a in _padded_dft_matrices(t, n))
+    cos_m, sin_m = (host_constant(a, x.device) for a in _padded_dft_matrices(t, n))
     zr = pr @ cos_m - pi @ sin_m
     zi = pi @ cos_m + pr @ sin_m
     spec2 = zr * zr + zi * zi                     # |Z|^2: same argmax as |Z|
@@ -137,8 +137,8 @@ def timing_filters(tau: torch.Tensor, sps: int, n_phases: int = 32,
     s = torch.round(tau_c * p_n).to(torch.int32) + c   # half to even
     d = torch.div(s, p_n, rounding_mode="floor")[:, None]   # integer delay
     p = torch.remainder(s, p_n)                             # phase
-    grev = torch.from_numpy(np.ascontiguousarray(
-        _interp_bank(p_n, t_n)[:, ::-1])).to(tau.device)    # (P, taps+1)
+    grev = host_constant(np.ascontiguousarray(
+        _interp_bank(p_n, t_n)[:, ::-1]), tau.device)       # (P, taps+1)
     w = grev[p.long()]                                      # (frames, taps+1)
     n_big = 2 * t_n + 1
     jlane = torch.arange(n_big, dtype=torch.int32, device=tau.device)[None, :]

@@ -33,6 +33,7 @@ from modulationdetectioncnn_torch.config import (
 from modulationdetectioncnn_torch.device import resolve_device
 from modulationdetectioncnn_torch.dsp import channelizer, fir, framer, normalize
 from modulationdetectioncnn_torch.dsp.channelizer import design_prototype
+from modulationdetectioncnn_torch.utils.profiler import span
 
 Predictor = Callable[[torch.Tensor], torch.Tensor]
 
@@ -150,11 +151,13 @@ def _normalize_frames(fr: torch.Tensor, sc: StreamConfig) -> torch.Tensor:
     """Per-frame normalization chain: power -> CFO -> timing."""
     fr = normalize.power_normalize(fr)
     if sc.normalize_cfo:
-        fr = normalize.correct_cfo(
-            fr, normalize.estimate_cfo(fr, pad_factor=sc.cfo_pad_factor))
+        with span("amc.frontend.cfo"):
+            fr = normalize.correct_cfo(
+                fr, normalize.estimate_cfo(fr, pad_factor=sc.cfo_pad_factor))
     if sc.normalize_timing:
-        tau = normalize.estimate_timing(fr, sc.sps)
-        fr = normalize.correct_timing(fr, tau, sc.sps, sc.timing_phases)
+        with span("amc.frontend.timing"):
+            tau = normalize.estimate_timing(fr, sc.sps)
+            fr = normalize.correct_timing(fr, tau, sc.sps, sc.timing_phases)
     return fr
 
 
@@ -183,7 +186,8 @@ def block_frontend(xb: torch.Tensor, h: np.ndarray, hr: np.ndarray | None,
         if hr is None:
             raise ValueError("a resampling plan needs the resampler's filter")
         xb = fir.fir_resample_iq(xb, hr, plan.up, plan.down)[..., plan.trim_res:]
-    sub = channelizer.channelize(xb, h, plan.m)
+    with span("amc.frontend.channelize"):
+        sub = channelizer.channelize(xb, h, plan.m)
     sub = torch.movedim(sub, -1, -3)                   # (..., M, 2, hist + Bs)
     sub = framer.trim_halo(sub, sc.taps_per_branch - 1)
     fr = framer.frames_from_stream(sub, plan.frame_len, plan.hop)
@@ -206,24 +210,26 @@ def classify_stream_blocked(x: torch.Tensor, predict_fn: Predictor,
                             sc: StreamConfig,
                             h: np.ndarray | None = None) -> torch.Tensor:
     """Streamed classification via overlap-save blocks; label-exact against
-    ``classify_stream``. x: (2, T) I/Q planes. Returns (M, F) labels."""
-    h = h if h is not None else design_prototype(sc.num_subbands, sc.taps_per_branch)
-    plan = plan_frontend(sc)
-    m = sc.num_subbands
-    # The block floor between hosts is enforced here, not only documented.
-    block = effective_block_len(sc, n_hosts())
-    check_block_alignment(sc, block)
-    hr = design_resampler(sc) if (plan.up, plan.down) != (1, 1) else None
-    # (2, nb, halo+block) -> (nb, 2, halo+block)
-    blocks = framer.overlap_save_blocks(x, block, plan.halo_in).transpose(0, 1)
-    fr = block_frontend(blocks, h, hr, sc, plan)       # (nb, M, F_b, 2, f)
-    nb, _, fb = fr.shape[:3]
-    labels = predict_fn(fr.reshape(nb * m * fb, 2, fr.shape[-1]))
-    # (nb, M, F_b) -> (M, nb*F_b); drop the zero-history lead-in frames and
-    # any tail frames past the true stream end.
-    labels = labels.reshape(nb, m, fb).transpose(0, 1).reshape(m, nb * fb)
-    n_total = total_frames(sc, x.shape[-1])
-    return labels[:, plan.n_lead_frames:plan.n_lead_frames + n_total]
+    ``classify_stream``. x: (2, T) I/Q planes. Returns (M, F) labels. Under
+    a profiler the call is the root span ``amc.stream``."""
+    with span("amc.stream"):
+        h = h if h is not None else design_prototype(sc.num_subbands, sc.taps_per_branch)
+        plan = plan_frontend(sc)
+        m = sc.num_subbands
+        # The block floor between hosts is enforced here, not only documented.
+        block = effective_block_len(sc, n_hosts())
+        check_block_alignment(sc, block)
+        hr = design_resampler(sc) if (plan.up, plan.down) != (1, 1) else None
+        # (2, nb, halo+block) -> (nb, 2, halo+block)
+        blocks = framer.overlap_save_blocks(x, block, plan.halo_in).transpose(0, 1)
+        fr = block_frontend(blocks, h, hr, sc, plan)       # (nb, M, F_b, 2, f)
+        nb, _, fb = fr.shape[:3]
+        labels = predict_fn(fr.reshape(nb * m * fb, 2, fr.shape[-1]))
+        # (nb, M, F_b) -> (M, nb*F_b); drop the zero-history lead-in frames and
+        # any tail frames past the true stream end.
+        labels = labels.reshape(nb, m, fb).transpose(0, 1).reshape(m, nb * fb)
+        n_total = total_frames(sc, x.shape[-1])
+        return labels[:, plan.n_lead_frames:plan.n_lead_frames + n_total]
 
 
 # ------------------------------------------------------------------ demo
@@ -288,7 +294,8 @@ def _make_predictor(cfg: AmcConfig) -> Predictor:
        from it, with the JAX package's warning;
     3. else the committed int8 artifact (``assets/rml11_int8.npz``).
 
-    A named artifact or checkpoint that is missing raises."""
+    A named artifact or checkpoint that is missing raises. Under a profiler
+    each call is the span ``amc.classifier.predict``."""
     from modulationdetectioncnn_torch.ops.infer import make_int8_predict
     from modulationdetectioncnn_torch.quant import load_int8
 
@@ -307,11 +314,18 @@ def _make_predictor(cfg: AmcConfig) -> Predictor:
 
         @torch.no_grad()
         def predict(x: torch.Tensor) -> torch.Tensor:
-            return model(x.to(dev)).argmax(-1).to(torch.int32)
+            with span("amc.classifier.predict"):
+                return model(x.to(dev)).argmax(-1).to(torch.int32)
 
         return predict
     qw = load_int8(art, cfg.device)
-    return make_int8_predict(qw, cfg.eval.int8_kernel)
+    classify = make_int8_predict(qw, cfg.eval.int8_kernel)
+
+    def predict_int8(x: torch.Tensor) -> torch.Tensor:
+        with span("amc.classifier.predict"):
+            return classify(x)
+
+    return predict_int8
 
 
 def _sync(dev: torch.device) -> None:
