@@ -209,6 +209,14 @@ Phases, each printing JSON lines (``"phase": ...``):
                exported checkpoint, one call each with the counters zeroed
                just before: their two kernels launched once, labels against
                the torch float model's (>= 0.85, printed).
+7b. float_predictor -- the stream predictor's float route
+               (``_make_predictor`` on the exported checkpoint in bf16, as
+               the benchmark's bf16 cells run it) on 16,384 frames: route
+               ``bf16_v4``, the two bf16 v4 kernels launched once each a
+               call and nothing else, labels >= 99.2 % the bf16 module's and
+               at least as close as the bf16 module's to the float32
+               module's; then the stream demo on that checkpoint (phase
+               ``stream``'s checks, the occupied labels reported only).
 8. quantize -- ``quantize`` of the exported float checkpoint into a
                temporary directory: agreement_vs_float, and per array the
                elements that differ from the committed artifact (reported).
@@ -2644,6 +2652,69 @@ def phase_forwards() -> dict[str, int]:
     return counts["make_bf16_forward"]
 
 
+def phase_float_predictor() -> dict[str, int]:
+    """The product's float route: ``_make_predictor`` on the benchmark's
+    bf16 settings (the exported checkpoint, ``model.dtype=bfloat16``, no
+    int8 artifact) takes route ``bf16_v4``; on 16,384 frames of the dataset
+    across the SNR grid, two calls with the counters zeroed just before
+    launch ``conv_stage_bf16_v4`` and ``dense_argmax_bf16`` twice each and
+    nothing else, and give the same labels. Those agree with the bf16
+    module's on >= 99.2 % of the frames (99.29 % measured on an H100),
+    and with the float32 module's (TF32 off) on at least as many as the
+    bf16 module's do: the route rounds no
+    more than the module, whose own bf16 rounding parts it from float32 on
+    near-ties (printed, with each route's widest gap of its label's float32
+    logit below the best). Then the stream demo on the same checkpoint
+    (``phase_stream``). Returns the counts of the two calls."""
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+    from modulationdetectioncnn_torch.data.synthetic import make_dataset
+    from modulationdetectioncnn_torch.dsp import pipeline
+    from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+    overrides = [f"train.checkpoint_dir={FLOAT_CKPT}", "model.dtype=bfloat16"]
+    cfg = apply_overrides(AmcConfig(), overrides)
+    predict, said = quiet(pipeline._make_predictor, cfg)
+    require(predict.route == "bf16_v4", f"float_predictor: route {predict.route}")
+    x = make_dataset(cfg.data, frames_per_class_per_snr=75)[0][:16384]
+    x = torch.from_numpy(x).cuda()
+    reset_counts()
+    got = [predict(x) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    path = ("conv_stage_bf16_v4", "dense_argmax_bf16")
+    with torch.no_grad():
+        module = restore_model(FLOAT_CKPT, cfg.model, 128, "cuda")[0]
+        want = module(x).argmax(-1).to(torch.int32)
+        f32 = apply_overrides(cfg, ["model.dtype=float32"]).model
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            logits = restore_model(FLOAT_CKPT, f32, 128, "cuda")[0](x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    exact = logits.argmax(-1).to(torch.int32)
+
+    def gap(labels):
+        served = logits.gather(1, labels.long()[:, None])[:, 0]
+        return float((logits.max(-1).values - served).max())
+
+    agree = float((got[0] == want).float().mean())
+    route_f32, module_f32 = (float((lab == exact).float().mean()) for lab in (got[0], want))
+    emit({"phase": "float_predictor", "route": predict.route, "overrides": overrides,
+          "warning": said, "frames": len(x), "launches": counts,
+          "label_agreement_vs_bf16_module": agree,
+          "route_vs_float32_module": route_f32, "bf16_module_vs_float32_module": module_f32,
+          "route_logit_gap_max": gap(got[0]), "bf16_module_logit_gap_max": gap(want)})
+    require(torch.equal(got[0], got[1]), "float_predictor: two calls differ")
+    require(all(counts[k] == 2 for k in path) and sum(counts.values()) == 2 * len(path),
+            f"float_predictor: launches {counts}")
+    require(agree >= 0.992, f"float_predictor vs the bf16 module: agreement {agree}")
+    require(route_f32 >= module_f32, f"float_predictor vs the float32 module: {route_f32} "
+            f"against the bf16 module's {module_f32}")
+    phase_stream("float_bf16", overrides, path, check_tops=False)
+    return counts
+
+
 # The JAX package's scaling report's keys (eval/scaling.py); the port adds
 # the devices of its measured rates and the physical links.
 SCALING_KEYS = {"measured_1chip_samples_per_sec", "measured_inputs", "assumptions",
@@ -3240,6 +3311,7 @@ def main() -> int:
             launches.update(phase_eval(tmp))
             # The bf16 forwards: make_bf16_forward's conv stage.
             launches["conv_stage_bf16"] = phase_forwards()["conv_stage_bf16"]
+            phase_float_predictor()                 # the stream's float route
             phase_quantize(tmp)
             # This slice: train, the canary and resume, the trained
             # checkpoint through quantize and eval with v1, qat.

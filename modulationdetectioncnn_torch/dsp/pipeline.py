@@ -14,7 +14,8 @@ upsampled-rate inputs of history), the channelizer (its FIR history) and
 the framer (overlapping frames' reach).
 
 The classifier is the int8 artifact through the CUDA kernels, or the float
-model of a checkpoint that has no artifact yet (``_make_predictor``). The
+model of a checkpoint that has no artifact yet, in bf16 through the fused
+bf16 kernels where it fits them (``_make_predictor``). The
 time-sharded path across ranks is ``parallel/halo.py``.
 """
 from __future__ import annotations
@@ -267,7 +268,7 @@ def make_demo_signal(cfg: AmcConfig) -> tuple[np.ndarray, dict[int, str]]:
 
 FLOAT_FALLBACK_WARNING = (
     "WARNING: no int8 artifact (eval.int8_artifact or <checkpoint_dir>_int8) "
-    "-- streaming with the FLOAT torch forward, not the int8 kernels; run "
+    "-- streaming with the FLOAT model, not the int8 kernels; run "
     "`quantize` to deploy.")
 
 
@@ -291,12 +292,20 @@ def _make_predictor(cfg: AmcConfig) -> Predictor:
        ``<train.checkpoint_dir>_int8`` when it exists, through the kernels
        that ``eval.int8_kernel`` names (default v7);
     2. else, with ``train.checkpoint_dir`` set, the float model restored
-       from it, with the JAX package's warning;
+       from it, with the JAX package's warning: a model that computes in
+       bf16 at widths the bf16 kernels fit (``fits_kernels``) through the
+       fused bf16 classifier (``make_bf16_classifier_v4``; route
+       ``"bf16_v4"``), any other through the module's forward (route
+       ``"module"``), which keeps a float32 model's precision and a wider
+       model's widths;
     3. else the committed int8 artifact (``assets/rml11_int8.npz``).
 
     A named artifact or checkpoint that is missing raises. Under a profiler
-    each call is the span ``amc.classifier.predict``."""
+    each call is the span ``amc.classifier.predict``. The float predictor
+    names its route in its ``route`` attribute."""
     from modulationdetectioncnn_torch.ops.infer import make_int8_predict
+    from modulationdetectioncnn_torch.ops.infer_bf16 import (
+        fits_kernels, make_bf16_classifier_v4)
     from modulationdetectioncnn_torch.quant import load_int8
 
     art = int8_artifact_for(cfg)
@@ -311,12 +320,23 @@ def _make_predictor(cfg: AmcConfig) -> Predictor:
             raise FileNotFoundError(
                 f"no checkpoint found in {cfg.train.checkpoint_dir!r}")
         model = restored[0]
+        state = model.state_dict()
+        if model.dtype == torch.bfloat16 and fits_kernels(state):
+            classify = make_bf16_classifier_v4(state, dev)
+
+            def predict(x: torch.Tensor) -> torch.Tensor:
+                with span("amc.classifier.predict"):
+                    return classify(x)
+
+            predict.route = "bf16_v4"
+            return predict
 
         @torch.no_grad()
         def predict(x: torch.Tensor) -> torch.Tensor:
             with span("amc.classifier.predict"):
                 return model(x.to(dev)).argmax(-1).to(torch.int32)
 
+        predict.route = "module"
         return predict
     qw = load_int8(art, cfg.device)
     classify = make_int8_predict(qw, cfg.eval.int8_kernel)

@@ -90,6 +90,18 @@ def _flax_tree(params: Any) -> Mapping[str, Mapping[str, np.ndarray]]:
             for layer in ("Conv1", "Conv2", "Dense1", "Dense2")}
 
 
+def fits_kernels(params: Any) -> bool:
+    """Whether a float VT-CNN2 (state dict or Flax tree) fits the widths the
+    kernels are compiled for: T2 = 124 (128-sample frames), conv1 <= 256,
+    conv2 <= 80, dense <= 256, classes <= 11. Such a model is zero-padded
+    to them; a wider one runs on the CPU only."""
+    p = _flax_tree(params)
+    c1, c2 = p["Conv1"]["kernel"].shape[-1], p["Conv2"]["kernel"].shape[-1]
+    d, nc = p["Dense2"]["kernel"].shape
+    return (p["Dense1"]["kernel"].shape[0] // c2 == T2 and c1 <= C1 and c2 <= C2
+            and d <= DENSE and nc <= N_CLASSES)
+
+
 def make_bf16_weights(params: Any, device: str | torch.device = "cuda") -> Bf16Weights:
     """Pack a float VT-CNN2 (state dict or Flax tree) for the bf16 stages, as
     the JAX package's ``make_bf16_classifier_v4``, ``make_bf16_forward_v2``
@@ -111,7 +123,7 @@ def make_bf16_weights(params: Any, device: str | torch.device = "cuda") -> Bf16W
     b4 = np.asarray(p["Dense2"]["bias"], np.float32)
     c1, c2, d, nc = w1.shape[1], w2.shape[3], w3.shape[1], w4.shape[1]
     t2 = w3.shape[0] // c2
-    if (t2 == T2 and c1 <= C1 and c2 <= C2 and d <= DENSE and nc <= N_CLASSES):
+    if fits_kernels(p):
         c1p, c2p, dp, ncp = C1, C2, DENSE, N_CLASSES
     else:
         c1p, c2p, dp, ncp = c1, c2, d, nc      # runs on the CPU only
