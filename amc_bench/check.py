@@ -5,11 +5,12 @@ answer the window produced is judged, the one that came after the close
 too. The numbers, each beside its limit in ``workloads/<cell>.json``:
 
 - ``label_mismatch`` (int8 configurations): labels that differ from the
-  integer chain's (``reference/vtcnn2.py::Int8Model``) on the frames the
+  plain reference's (the integer chain of the configuration's
+  architecture, ``arch/<architecture>.py::reference``) on the frames the
   classifier was handed. Exact: limit 0.
 - ``logit_gap_max`` (float configurations): the widest gap by which the
-  logit of a served label lies below the best logit of the float32
-  reference (``reference/vtcnn2.py::FloatModel``) on those frames.
+  logit of a served label lies below the best logit of the architecture's
+  float32 reference on those frames.
 - ``frames_err_p99`` (stream cells): the 99th percentile over frames of the
   largest absolute difference between the program's front-end frames and
   the float64 reference's (``reference/frontend.py``) from the raw capture.
@@ -26,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from amc_bench import spec
 from amc_bench.reference import frontend as ref_frontend
-from amc_bench.reference.vtcnn2 import FloatModel, Int8Model
 
 
 def stream_geometry(sc, t_len: int, n_frames: int) -> tuple[int, int, int, int]:
@@ -58,11 +59,10 @@ def front_end_settings(sc) -> dict:
 
 
 def reference_model(cell, device):
-    """The plain reference of the cell's configuration."""
+    """The plain reference of the cell's configuration, from its
+    architecture's module."""
     c = cell.config
-    if c["precision"] == "int8":
-        return Int8Model(cell.path(c["weights"]), device)
-    return FloatModel(cell.path(c["weights"]), device)
+    return spec.architecture(c).reference(c, cell.path(c["weights"]), device)
 
 
 def frames_error(program_frames: torch.Tensor, ref_frames: torch.Tensor) -> torch.Tensor:
@@ -70,11 +70,12 @@ def frames_error(program_frames: torch.Tensor, ref_frames: torch.Tensor) -> torc
     return (program_frames.double() - ref_frames.double()).abs().amax(dim=(-1, -2)).reshape(-1)
 
 
-def judge_labels(model, inputs: dict, pool_index: list, labels: list) -> dict:
+def judge_labels(model, precision: str, inputs: dict, pool_index: list, labels: list) -> dict:
     """``inputs[j]``: the frames the classifier was handed for pool item j,
-    shaped as item j's labels plus (2, T). Int8: mismatches against the
-    integer chain; float: the widest logit gap."""
-    if isinstance(model, Int8Model):
+    shaped as item j's labels plus (2, T). An int8 ``precision``:
+    mismatches against the reference's labels; any other: the widest gap
+    below the reference's best logit."""
+    if precision == "int8":
         ref = {j: model.labels(x.reshape((-1,) + x.shape[-2:])).reshape(x.shape[:-2]).cpu().numpy()
                for j, x in inputs.items()}
         bad = 0
@@ -101,9 +102,10 @@ def judge_labels(model, inputs: dict, pool_index: list, labels: list) -> dict:
 def numbers(cell, sc, items: list, tally, device) -> dict:
     """The cell's compared numbers for one window's tally."""
     model = reference_model(cell, device)
+    precision = cell.config["precision"]
     if cell.traffic["kind"] == "frames":
         inputs = {j: items[j] for j in set(tally.pool_index)}
-        return judge_labels(model, inputs, tally.pool_index, tally.labels)
+        return judge_labels(model, precision, inputs, tally.pool_index, tally.labels)
     out, errs, inputs = {}, [], {}
     settings = front_end_settings(sc)
     for j, x in tally.kept.items():
@@ -113,7 +115,7 @@ def numbers(cell, sc, items: list, tally, device) -> dict:
         inputs[j] = prog
     out["frames_err_p99"] = (float(torch.quantile(torch.cat(errs).float(), 0.99))
                              if errs else float("inf"))
-    out.update(judge_labels(model, inputs, tally.pool_index, tally.labels))
+    out.update(judge_labels(model, precision, inputs, tally.pool_index, tally.labels))
     return out
 
 

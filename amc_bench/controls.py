@@ -7,10 +7,11 @@ small size. Each takes a built ``System`` and changes it in place:
 Controls (the nearest precision below the configuration's, in the
 program's place):
 
-- ``int4`` (int8 configurations): the integer chain with every weight
-  rounded to 4 bits, as the classifier;
-- ``int8_path`` (bfloat16 configurations): the program's own int8 path
-  (the committed artifact on the v7 kernels), as the classifier;
+- the classifier's: those that the configuration's architecture lists for
+  the configuration's precision (``arch/<architecture>.py::CONTROLS``;
+  VT-CNN2's: ``int4``, the integer chain with every weight rounded to 4
+  bits, for int8; ``int8_path``, the program's own int8 path, for
+  bfloat16), as the classifier;
 - ``tf32`` (stream cells): the reference front end in float32 with TF32 on
   (the front end's precision is float32 with TF32 off), as the front end.
 
@@ -25,17 +26,24 @@ from __future__ import annotations
 
 import torch
 
+from amc_bench import spec
 from amc_bench.reference import frontend as ref_frontend
-from amc_bench.reference.vtcnn2 import Int8Model, tf32
+from amc_bench.reference.common import tf32
 
-CONTROLS = ("int4", "int8_path", "tf32")
 FAULTS = ("half", "alter", "no_cfo")
 
 
+def classifier_controls(cell) -> dict:
+    """The lower-precision controls of the cell's configuration: its
+    architecture's for its precision, name -> ``fn(system, cell)``."""
+    cfg = cell.config
+    return spec.architecture(cfg).CONTROLS.get(cfg["precision"], {})
+
+
 def applies(cell, mode: str) -> bool:
-    stream = cell.traffic["kind"] == "stream"
-    int8 = cell.config["precision"] == "int8"
-    return {"int4": int8, "int8_path": not int8, "tf32": stream, "no_cfo": stream}.get(mode, True)
+    if mode in ("tf32", "no_cfo"):
+        return cell.traffic["kind"] == "stream"
+    return mode == "sound" or mode in FAULTS or mode in classifier_controls(cell)
 
 
 def _reference_stream(x: torch.Tensor, predict_fn, sc, settings: dict) -> torch.Tensor:
@@ -61,14 +69,9 @@ def apply(system, cell, mode: str, restore: list) -> None:
     predict, entry = system.predict, system.stream_entry
     restore.append(lambda: (setattr(system, "predict", predict),
                             setattr(system, "stream_entry", entry)))
-    if mode == "int4":
-        model = Int8Model(cell.path(cell.config["weights"]), system.cfg.device, weight_bits=4)
-        system.predict = lambda x: model.labels(x).to(torch.int32)
-    elif mode == "int8_path":
-        from modulationdetectioncnn_torch.ops.infer import make_int8_predict
-        from modulationdetectioncnn_torch.quant import DEFAULT_ARTIFACT, load_int8
-
-        system.predict = make_int8_predict(load_int8(DEFAULT_ARTIFACT, system.cfg.device), "v7")
+    lower = classifier_controls(cell)
+    if mode in lower:
+        system.predict = lower[mode](system, cell)
     elif mode == "tf32":
         settings = check.front_end_settings(system.cfg.stream)
         system.stream_entry = lambda x, fn, sc: _reference_stream(x, fn, sc, settings)
@@ -90,4 +93,4 @@ def apply(system, cell, mode: str, restore: list) -> None:
         normalize.correct_cfo = lambda x, cfo: x
         restore.append(lambda: setattr(normalize, "correct_cfo", correct_cfo))
     else:
-        raise ValueError(f"unknown control or fault {mode!r}")
+        raise ValueError(f"no control or fault {mode!r} for {cell.name!r}")

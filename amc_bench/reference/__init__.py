@@ -1,2 +1,4 @@
-"""The plain reference: the front end and VT-CNN2 in plain torch and NumPy,
-importing nothing of the program."""
+"""The plain reference: the front end (``frontend.py``) and each
+architecture's classifier (``<architecture>.py``) in plain torch and NumPy,
+with the helpers they share (``common.py``), importing nothing of the
+program."""

@@ -17,31 +17,12 @@ Plain torch and NumPy only.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
+from amc_bench.reference.common import first_argmax, tf32
+
 BLOCK = 2048            # frames a block: bounds the reference's own memory
-
-
-@contextlib.contextmanager
-def tf32(enabled: bool):
-    """TF32 in cuBLAS and cuDNN on or off inside the block, as it was after."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = enabled
-    torch.backends.cudnn.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
-
-
-def first_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """The index of the largest value, ties to the lowest index."""
-    mx = logits.max(dim=-1, keepdim=True).values
-    lane = torch.arange(logits.shape[-1], device=logits.device)
-    return torch.where(logits >= mx, lane, logits.shape[-1]).min(dim=-1).values
 
 
 def _requant(acc: torch.Tensor, shift: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,8 @@ import sys
 import tempfile
 import time
 
+import torch
+
 from amc_bench import spec
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "modulationdetectioncnn_tpu")
@@ -67,17 +69,17 @@ class Context:
             self.samples_in_window = len(done) * cell.traffic["capture_samples"]
 
 
+@torch.no_grad()
 def run(cell, seed: int, seconds: float, trace: bool, device: str, t0: float,
-        system_factory=None) -> dict:
-    """One run; returns the result line as a dict (``checks`` last).
+        system_factory=None, calls: int | None = None) -> dict:
+    """One run, without autograd (the caller's grad mode is restored after);
+    returns the result line as a dict (``checks`` last).
     ``system_factory(cell, device)`` builds the system under test
-    (default ``System``)."""
-    import torch
-
+    (default ``System``); ``calls`` ends the window after that many calls
+    if ``seconds`` have not passed before (``System.window``)."""
     from amc_bench import check, gen
     from amc_bench.system import SPAN_CLASSIFIER, SPAN_FRONTEND, SPAN_LABELS, SPAN_WINDOW, System
 
-    torch.set_grad_enabled(False)
     system = (system_factory or System)(cell, device)
     items = gen.make(cell.traffic, seed, device)
     system.warm_up(items)
@@ -95,7 +97,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t0: float,
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
         with profile(activities=acts) as prof:
-            system.window(items, seconds, keep_first=keep)
+            system.window(items, seconds, keep_first=keep, calls=calls)
             if device == "cuda":
                 torch.cuda.synchronize()
         path = os.path.join(tempfile.gettempdir(),
@@ -108,7 +110,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t0: float,
         finally:
             os.remove(path)
     else:
-        system.window(items, seconds, keep_first=keep)
+        system.window(items, seconds, keep_first=keep, calls=calls)
     tally, sc = system.tally, system.cfg.stream
     dev_info = {"platform": "gpu" if device == "cuda" else "cpu",
                 "kind": torch.cuda.get_device_name(0) if device == "cuda" else "cpu",
@@ -157,8 +159,6 @@ def main(argv=None, t0: float | None = None) -> int:
     t0 = time.perf_counter() if t0 is None else t0
     args = _args(argv)
     cell = spec.load(args.workload)
-    import torch
-
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"amc_bench: {cell.name} needs {cell.chips} CUDA device(s); "
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",

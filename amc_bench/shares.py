@@ -3,11 +3,11 @@
 
 def model_flops_share(ctx):
     """Model operations of every frame classified in the traced window
-    (counts.py, at the configuration's widths) over the window's seconds
-    times the configuration's data-sheet peak, in percent."""
+    (``counts.ops_per_frame``, at the configuration's widths) over the
+    window's seconds times the configuration's data-sheet peak, in percent."""
     if ctx.summary is None or ctx.frames_classified == 0:
         return None
-    ops = ctx.counts.model_ops_per_frame(ctx.cell.config) * ctx.frames_classified
+    ops = ctx.counts.ops_per_frame(ctx.cell.config) * ctx.frames_classified
     peak = ctx.counts.PEAK_OPS_PER_S[ctx.cell.config["precision"]]
     return 100.0 * ops / (ctx.summary.window_s * peak)
 
@@ -19,13 +19,17 @@ def idle_share(ctx):
     return 100.0 * (1.0 - ctx.summary.busy_s / ctx.summary.window_s)
 
 
-def kernel_roofline(ctx, kernel: str):
-    """The least time of one call of ``kernel`` over its device time per
-    call in the traced window, in percent; None when no call was traced."""
+def kernel_roofline(ctx, kernel: str, traced_as: str | None = None):
+    """The least time of one call of the architecture's ``kernel``, at the
+    configuration's precision, over its device time per call in the traced
+    window, in percent; None when no call was traced. ``traced_as``: the
+    part of the device op's name that marks the kernel (default
+    ``<kernel>_kernel``)."""
     if ctx.summary is None:
         return None
-    s, n = ctx.summary.device_s(name_has=f"{kernel}_kernel")
+    s, n = ctx.summary.device_s(name_has=traced_as or f"{kernel}_kernel")
     if n == 0 or s <= 0:
         return None
-    ops, nbytes = ctx.counts.KERNEL_COUNTS[kernel](ctx.cell.config, ctx.frames_classified // n)
-    return 100.0 * ctx.counts.roofline_ms(ops, nbytes) * 1e-3 / (s / n)
+    cfg = ctx.cell.config
+    ops, nbytes = ctx.counts.kernel(cfg, kernel, ctx.frames_classified // n)
+    return 100.0 * ctx.counts.roofline_ms(ops, nbytes, cfg["precision"]) * 1e-3 / (s / n)

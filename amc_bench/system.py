@@ -109,12 +109,14 @@ class System:
             self.call(items[0]).cpu()
         self.tally = Tally()
 
-    def window(self, items: list, seconds: float, keep_first: bool = True) -> tuple[float, float]:
+    def window(self, items: list, seconds: float, keep_first: bool = True,
+               calls: int | None = None) -> tuple[float, float]:
         """The closed loop: hand over item i % len(items), wait for its
         labels on the host, hand over the next, until ``seconds`` have
-        passed. The first time each pool item comes, the frames the
-        classifier is handed are kept. Returns the window's start and end
-        on the host clock."""
+        passed or, with ``calls``, that many items have been handed over.
+        The first time each pool item comes, the frames the classifier is
+        handed are kept. Returns the window's start and end on the host
+        clock."""
         tally = self.tally
         seen = set()
         with self._range(SPAN_WINDOW):
@@ -123,7 +125,7 @@ class System:
             i = 0
             while True:
                 t0 = time.perf_counter()
-                if t0 >= end:
+                if t0 >= end or i == calls:
                     break
                 j = i % len(items)
                 i += 1

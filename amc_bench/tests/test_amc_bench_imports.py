@@ -2,15 +2,23 @@
 and the reference loads nothing of the program: checked in fresh
 processes, by whole top-level module names."""
 import json
+import os
 import subprocess
 import sys
 
 from amc_bench import spec
 
+
+def _modules(sub: str) -> tuple:
+    """Every module under ``amc_bench/<sub>/``, found by listing it."""
+    return tuple(sorted(f"amc_bench.{sub}.{f[:-3]}" for f in os.listdir(os.path.join(spec.HERE, sub))
+                        if f.endswith(".py") and f != "__init__.py"))
+
+
 HARNESS = ("amc_bench.run", "amc_bench.system", "amc_bench.check", "amc_bench.gen",
            "amc_bench.trace", "amc_bench.counts", "amc_bench.shares", "amc_bench.controls",
-           "amc_bench.calibrate", "amc_bench.spec")
-REFERENCE = ("amc_bench.reference.frontend", "amc_bench.reference.vtcnn2")
+           "amc_bench.calibrate", "amc_bench.spec") + _modules("arch")
+REFERENCE = _modules("reference")
 
 TOP = "import json, sys; print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))"
 
@@ -22,6 +30,7 @@ def _loaded(code: str) -> set:
 
 
 def test_reference_loads_nothing_of_the_program():
+    assert {"amc_bench.reference.frontend", "amc_bench.reference.vtcnn2"} <= set(REFERENCE)
     top = _loaded("\n".join(f"import {m}" for m in REFERENCE))
     assert not top & {"jax", "jaxlib", "flax", "modulationdetectioncnn_tpu",
                       "modulationdetectioncnn_torch"}

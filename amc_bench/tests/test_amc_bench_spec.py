@@ -68,12 +68,32 @@ def test_cell_files_found_by_name(cell):
         assert callable(spec.reader(m["name"]))
 
 
-def test_configs_state_published_widths():
-    for c in B["configs"]:
-        cfg = json.load(open(os.path.join(spec.ROOT, c["file"])))
-        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert (cfg["frame_len"], cfg["conv1_filters"], cfg["conv2_filters"],
-                cfg["dense_units"], cfg["num_classes"]) == (128, 256, 80, 256, 11)
+@pytest.mark.parametrize("c", B["configs"], ids=lambda c: c["name"])
+def test_configs_state_published_widths(c):
+    """Each configuration states its architecture's published widths, but
+    for the keys its ``reduced`` lists."""
+    cfg = spec.load_config(os.path.join(spec.ROOT, c["file"]))
+    assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
+    published = spec.architecture(cfg).PUBLISHED
+    assert published and set(c["reduced"]) <= set(cfg)
+    for key, value in published.items():
+        if key not in c["reduced"]:
+            assert cfg[key] == value, (key, cfg[key], value)
+
+
+@pytest.mark.parametrize("change", [{"architecture": None}, {"architecture": "nosuch"},
+                                    {"precision": None}])
+def test_config_without_architecture_or_key_is_refused(tmp_path, change):
+    """A configuration that names no architecture, one with no module, or
+    lacks a key every configuration states, is refused by name."""
+    cfg = json.load(open(os.path.join(spec.HERE, "configs", "vtcnn2_rml11_int8.json")))
+    for key, value in change.items():
+        cfg.pop(key) if value is None else cfg.update({key: value})
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(KeyError) as err:
+        spec.load_config(str(path))
+    assert ("vtcnn2" if "architecture" in change else "precision") in str(err.value)
 
 
 def test_traffic_and_cells_are_data():
