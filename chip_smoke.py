@@ -217,6 +217,23 @@ Phases, each printing JSON lines (``"phase": ...``):
                at least as close as the bf16 module's to the float32
                module's; then the stream demo on that checkpoint (phase
                ``stream``'s checks, the occupied labels reported only).
+7c. resnet_chain -- row 25, the residual classifier's fused chain
+               (``ops/residual_chain_bf16.py``), against its plain version
+               on the card, for a seeded model at the published widths and
+               the committed checkpoint (``assets/ckpt_resnet_rml18``), on
+               seeded frames at B = 1, 37 (also from frame 3), 133, 4095,
+               4096, 4097 and 16384: every map element within ``MAP_TOL``
+               of the plain map's largest magnitude, the head's labels on
+               either map printed. Then the predictor on the benchmark's
+               settings (``amc_bench/configs/resnet_rml18_bf16.json``):
+               route ``resnet_chain_bf16``; two calls on 4096 frames under
+               a profiler, with the counters zeroed just before, launch
+               the chain once each and no other kernel of the port's,
+               count ``amc.classifier.launches`` 2, give the same labels,
+               and the labels of the chain and the head called directly;
+               agreement with the bf16 and float32 modules (TF32 off)
+               printed. Times at B = 4096 beside bound, plain and the bf16
+               module's stacks on cuDNN, with ptxas's registers and spills.
 8. quantize -- ``quantize`` of the exported float checkpoint into a
                temporary directory: agreement_vs_float, and per array the
                elements that differ from the committed artifact (reported).
@@ -344,7 +361,7 @@ last three JAX modules ported:
                (``--probe-rank``).
 
 Then one ``{"kernels": [...]}`` line (rows 1-21 of PERF.md's kernel
-table and the two probe kernels of row 22) and, last, the contract line
+table, the two probe kernels of row 22 and row 25) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before the
 last line. With no CUDA device, or outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -423,6 +440,7 @@ SOURCES = {
     "conv2_stacked_int8": _CSRC + "cnn_kernels.cu",
     "copy_bytes": _CSRC + "probe_kernels.cu",
     "quantize_tap_planes": _CSRC + "probe_kernels.cu",
+    "residual_chain_bf16": _CSRC + "residual_chain_bf16.cu",
 }
 # The kernel each wrapper launches, as the profiler names it.
 KERNEL_SYMBOLS = {
@@ -449,6 +467,7 @@ KERNEL_SYMBOLS = {
     "conv2_stacked_int8": "conv2_wgmma_kernel<1",
     "copy_bytes": "copy_bytes_kernel",
     "quantize_tap_planes": "tap_planes_kernel",
+    "residual_chain_bf16": "residual_chain_bf16_kernel",
 }
 F32_CONV2_SYMBOL = "conv2_ffma_kernel<float>"               # row 18 float32, the FFMA route
 F32_CONV1_SYMBOL = "conv1_regs_kernel<float>"               # row 17 float32 out, the register route
@@ -503,6 +522,10 @@ EVAL_DATA = ("data.frames_per_class_per_snr=16",)
 TRAIN_DATA = ("data.frames_per_class_per_snr=400", "data.snr_db_min=0")
 TRAIN_STEPS = 300
 FLOAT_CKPT = os.path.join(REPO, "modulationdetectioncnn_torch", "assets", "ckpt_rml11_r5")
+RESNET_CKPT = os.path.join(REPO, "modulationdetectioncnn_torch", "assets", "ckpt_resnet_rml18")
+# Row 25's batches: one frame, a ragged few, ragged against the persistent
+# grid of one block an SM, around the benchmark cell's batch, four times it.
+RESNET_BATCHES = (1, 37, 133, 4095, 4096, 4097, 16384)
 CONTRACT_KEYS = {"metric", "value", "unit", "vs_baseline", "backend", "fallback"}
 
 
@@ -636,10 +659,12 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from modulationdetectioncnn_torch.dsp import normalize
     from modulationdetectioncnn_torch.ops import infer, infer_bf16
+    from modulationdetectioncnn_torch.ops.residual_chain_bf16 import residual_chain_bf16
 
     infer.reset_launch_counts()
     infer_bf16.reset_launch_counts()
     normalize.reset_launch_counts()
+    residual_chain_bf16.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -647,9 +672,11 @@ def launch_counts() -> dict[str, int]:
     ``correct_timing_fir/<route>``)."""
     from modulationdetectioncnn_torch.dsp import normalize
     from modulationdetectioncnn_torch.ops import infer, infer_bf16
+    from modulationdetectioncnn_torch.ops.residual_chain_bf16 import residual_chain_bf16
 
     fir = normalize.correct_timing_fir
     return {**infer.launch_counts(), **infer_bf16.launch_counts(),
+            "residual_chain_bf16": residual_chain_bf16.launches,
             "correct_timing_fir": fir.launches,
             **{f"correct_timing_fir/{r}": n for r, n in fir.route_launches.items()}}
 
@@ -2822,6 +2849,134 @@ def phase_quantize(tmp: str) -> None:
     require(set(line) == {"int8_artifact", "agreement_vs_float"}, f"quantize printed {line}")
 
 
+def phase_resnet_chain(dev_info: dict) -> tuple[dict, int]:
+    """Row 25: the fused residual chain against its plain version on the
+    card, the predictor's route ``resnet_chain_bf16`` and its launches,
+    then times (phase 7c of the docstring). Returns (the row of the kernels
+    line, the route's launches of the chain)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modulationdetectioncnn_torch.config import AmcConfig, apply_overrides
+    from modulationdetectioncnn_torch.dsp import pipeline
+    from modulationdetectioncnn_torch.models.resnet_rml18 import ResNetRML18, macs_per_frame
+    from modulationdetectioncnn_torch.ops import residual_chain_bf16 as rc
+    from modulationdetectioncnn_torch.utils import profiler
+    from modulationdetectioncnn_torch.utils.checkpoint import restore_model
+
+    kname = "residual_chain_bf16"
+    overrides = ["model.arch=resnet_rml18", "model.num_classes=24", "data.frame_len=1024",
+                 "stream.frame_len=1024", "stream.frame_hop=1024",
+                 f"train.checkpoint_dir={RESNET_CKPT}", "model.dtype=bfloat16"]
+    cfg = apply_overrides(AmcConfig(), overrides)
+    module = restore_model(RESNET_CKPT, cfg.model, rc.FRAME_LEN, "cuda")[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    x = torch.randn((max(RESNET_BATCHES), 2, rc.FRAME_LEN), generator=g, device="cuda")
+    states = {"seeded": ResNetRML18(generator=torch.Generator().manual_seed(SEED)).state_dict(),
+              "checkpoint": module.state_dict()}
+    inputs = {f"b{b}": x[:b] for b in RESNET_BATCHES}
+    inputs["b37_at3"] = x[3:40]
+    rc.residual_chain_bf16.launches = 0
+    worst, unequal, outside = 0.0, 0, 0
+    for wname, state in states.items():
+        cw, hw = rc.make_chain_weights(state, "cuda"), rc.make_head_weights(state, "cuda")
+        for xname, xb in inputs.items():
+            got, want = rc.residual_chain_bf16(xb, cw), rc.residual_chain_bf16_plain(xb, cw)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and got.dtype == want.dtype,
+                    f"{kname} {wname}/{xname}: {tuple(got.shape)} {got.dtype} vs "
+                    f"{tuple(want.shape)} {want.dtype}")
+            diff = (got.float() - want.float()).abs()
+            scale = float(want.float().abs().max())
+            err = float(diff.max()) / scale
+            labels_equal = int((rc.head_labels(got, hw) == rc.head_labels(want, hw)).sum())
+            emit({"phase": "resnet_chain.check", "weights": wname, "input": xname,
+                  "frames": len(xb), "max_abs_diff": float(diff.max()), "map_absmax": scale,
+                  "unequal": int((diff > 0).sum()), "elements": diff.numel(),
+                  "labels_equal": labels_equal})
+            require(err <= rc.MAP_TOL, f"{kname} {wname}/{xname}: map differs by {err} of its "
+                    f"largest magnitude (tolerance {rc.MAP_TOL})")
+            worst, unequal = max(worst, float(diff.max())), unequal + int((diff > 0).sum())
+            outside += int((diff > rc.MAP_TOL * scale).sum())
+    check_launches = rc.residual_chain_bf16.launches
+    require(check_launches == len(states) * len(inputs),
+            f"{kname}: {check_launches} launches for {len(states) * len(inputs)} checks")
+
+    # The product's route on the benchmark's settings: one launch of the
+    # chain a call, counted at the launch site and in the program's counter.
+    predict, said = quiet(pipeline._make_predictor, cfg)
+    require(predict.route == "resnet_chain_bf16", f"resnet_chain: route {predict.route}")
+    xb = x[:BATCH]
+    predict(xb)
+    torch.cuda.synchronize()
+    reset_counts()
+    profiler.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [predict(xb) for _ in range(2)]
+        torch.cuda.synchronize()
+    counts, counters = launch_counts(), profiler.counters()
+    cw, hw = rc.make_chain_weights(states["checkpoint"], "cuda"), rc.make_head_weights(
+        states["checkpoint"], "cuda")
+    direct = rc.head_labels(rc.residual_chain_bf16(xb, cw), hw)
+    plain = rc.head_labels(rc.residual_chain_bf16_plain(xb, cw), hw)
+    with torch.no_grad():
+        bf16_module = module(xb).argmax(-1).to(torch.int32)
+        f32 = restore_model(RESNET_CKPT, apply_overrides(cfg, ["model.dtype=float32"]).model,
+                            rc.FRAME_LEN, "cuda")[0]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            logits = f32(xb)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    def gap(labels):
+        served = logits.gather(1, labels.long()[:, None])[:, 0]
+        return float((logits.max(-1).values - served).max())
+
+    exact = logits.argmax(-1).to(torch.int32)
+    emit({"phase": "resnet_chain", "route": predict.route, "overrides": overrides,
+          "warning": said, "frames": len(xb), "launches": counts,
+          "counters": counters,
+          "labels_equal_plain_chain": int((got[0] == plain).sum()),
+          "labels_equal_bf16_module": int((got[0] == bf16_module).sum()),
+          "route_vs_float32_module": float((got[0] == exact).float().mean()),
+          "bf16_module_vs_float32_module": float((bf16_module == exact).float().mean()),
+          "route_logit_gap_max": gap(got[0]), "bf16_module_logit_gap_max": gap(bf16_module)})
+    require(counts[kname] == 2 and sum(counts.values()) == 2,
+            f"resnet_chain: launches {counts}, one chain a call expected")
+    require(counters.get("amc.classifier.launches") == 2,
+            f"resnet_chain: counters {counters}, amc.classifier.launches 2 expected")
+    require(torch.equal(got[0], got[1]), "resnet_chain: two calls differ")
+    require(torch.equal(got[0], direct), "resnet_chain: the route's labels differ from the "
+            "chain's and the head's called directly")
+
+    part, _, bw, _, bf16_peak = peaks_for(dev_info["name"])
+    ops = 2 * macs_per_frame()["stacks"] * BATCH
+    nb = xb.numel() * 4 + BATCH * rc.MAP_LEN * rc.FILTERS * 2 + cw.blob.numel()
+    t_ops, t_bytes = ops / bf16_peak * 1e3, nb / bw * 1e3
+    with torch.no_grad():
+        cudnn = lambda: module.features(xb)  # noqa: E731
+        row = {"name": kname, "route": "cuda", "source": SOURCES[kname],
+               "replaces": None, "launches": None, "check_launches": check_launches,
+               "max_abs_err": worst, "mismatches": outside, "unequal": unequal,
+               "map_tol_of_max": rc.MAP_TOL,
+               "ms": time_ms(lambda: rc.residual_chain_bf16(xb, cw), iters=20),
+               "device_ms": device_ms(lambda: rc.residual_chain_bf16(xb, cw),
+                                      KERNEL_SYMBOLS[kname]),
+               "plain_ms": time_ms(lambda: rc.residual_chain_bf16_plain(xb, cw), iters=2,
+                                   warmup=1, reps=3),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": time_ms(cudnn, iters=5),
+               "library_call": "the bf16 module's six stacks, F.conv1d (cuDNN) and max_pool1d",
+               "batch": BATCH, "bf16_ops": ops, "bytes": nb,
+               **ptxas_usage(dev_info["ptxas_log"], KERNEL_SYMBOLS[kname])}
+    require(row["device_ms"] is not None, f"{kname}: the profiler shows no "
+            f"{KERNEL_SYMBOLS[kname]}")
+    emit({"phase": "resnet_chain.time", **row})
+    return row, counts[kname]
+
+
 def quiet(fn, *args, **kw):
     """``fn(*args, **kw)`` with its stdout captured; returns (result, the
     stdout lines)."""
@@ -3312,6 +3467,9 @@ def main() -> int:
             # The bf16 forwards: make_bf16_forward's conv stage.
             launches["conv_stage_bf16"] = phase_forwards()["conv_stage_bf16"]
             phase_float_predictor()                 # the stream's float route
+            # Row 25: the residual classifier's chain and its route.
+            row, launches["residual_chain_bf16"] = phase_resnet_chain(dev)
+            rows.append(row)
             phase_quantize(tmp)
             # This slice: train, the canary and resume, the trained
             # checkpoint through quantize and eval with v1, qat.

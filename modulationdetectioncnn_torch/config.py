@@ -59,7 +59,12 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """VT-CNN2-family conv-conv-dense topology."""
+    """The classifier: ``arch`` names the architecture, ``"vtcnn2"`` (the
+    VT-CNN2-family conv-conv-dense topology, ``models/vtcnn2.py``) or
+    ``"resnet_rml18"`` (the residual classifier of O'Shea, Roy and Clancy
+    2018, ``models/resnet_rml18.py``). The widths below are VT-CNN2's; the
+    residual classifier takes its published widths from its constructor."""
+    arch: str = "vtcnn2"
     num_classes: int = 11
     conv1_filters: int = 256
     conv2_filters: int = 80

@@ -285,19 +285,34 @@ def int8_artifact_for(cfg: AmcConfig) -> str | None:
     return None
 
 
+def resnet_route(model, dev: torch.device) -> str:
+    """The route of a restored ``ResNetRML18`` on ``dev``:
+    ``"resnet_chain_bf16"`` (``ops/residual_chain_bf16.py``: the fused
+    chain on the card, then the head) for a model that computes in bf16 at
+    the kernel's widths on a card; ``"module"`` (its own forward) for any
+    other, on the CPU, in float32 or at other widths."""
+    from modulationdetectioncnn_torch.ops.residual_chain_bf16 import fits_kernel
+
+    if dev.type == "cuda" and model.dtype == torch.bfloat16 and fits_kernel(model.state_dict()):
+        return "resnet_chain_bf16"
+    return "module"
+
+
 def _make_predictor(cfg: AmcConfig) -> Predictor:
     """The product stream classifier, chosen as the JAX package chooses it:
 
     1. the int8 artifact ``eval.int8_artifact``, else
        ``<train.checkpoint_dir>_int8`` when it exists, through the kernels
        that ``eval.int8_kernel`` names (default v7);
-    2. else, with ``train.checkpoint_dir`` set, the float model restored
-       from it, with the JAX package's warning: a model that computes in
-       bf16 at widths the bf16 kernels fit (``fits_kernels``) through the
-       fused bf16 classifier (``make_bf16_classifier_v4``; route
-       ``"bf16_v4"``), any other through the module's forward (route
-       ``"module"``), which keeps a float32 model's precision and a wider
-       model's widths;
+    2. else, with ``train.checkpoint_dir`` set, the float model of
+       ``model.arch`` restored from it, with the JAX package's warning: a
+       VT-CNN2 that computes in bf16 at widths the bf16 kernels fit
+       (``fits_kernels``) through the fused bf16 classifier
+       (``make_bf16_classifier_v4``; route ``"bf16_v4"``), a residual model
+       as ``resnet_route`` picks (route ``"resnet_chain_bf16"``, the fused
+       chain and the head, or ``"module"``), any other through the module's
+       forward (route ``"module"``), which keeps a float32 model's precision
+       and a wider model's widths;
     3. else the committed int8 artifact (``assets/rml11_int8.npz``).
 
     A named artifact or checkpoint that is missing raises. Under a profiler
@@ -321,14 +336,22 @@ def _make_predictor(cfg: AmcConfig) -> Predictor:
                 f"no checkpoint found in {cfg.train.checkpoint_dir!r}")
         model = restored[0]
         state = model.state_dict()
-        if model.dtype == torch.bfloat16 and fits_kernels(state):
-            classify = make_bf16_classifier_v4(state, dev)
+        classify, route = None, "module"
+        if cfg.model.arch != "vtcnn2":
+            route = resnet_route(model, dev)
+            if route == "resnet_chain_bf16":
+                from modulationdetectioncnn_torch.ops.residual_chain_bf16 import (
+                    make_resnet_classifier)
 
+                classify = make_resnet_classifier(state, dev)
+        elif model.dtype == torch.bfloat16 and fits_kernels(state):
+            classify, route = make_bf16_classifier_v4(state, dev), "bf16_v4"
+        if classify is not None:
             def predict(x: torch.Tensor) -> torch.Tensor:
                 with span("amc.classifier.predict"):
                     return classify(x)
 
-            predict.route = "bf16_v4"
+            predict.route = route
             return predict
 
         @torch.no_grad()
@@ -375,7 +398,8 @@ def run_stream_demo(cfg: AmcConfig) -> np.ndarray:
     for k in range(m):
         top = Counter(labels[k].tolist()).most_common(1)[0][0]
         mark = "*" if k in occupied else " "
-        print(f"  {k:3d}{mark}   {power[k]:8.4f}  {top} ({RML_CLASSES[top]})")
+        name = RML_CLASSES[top] if top < len(RML_CLASSES) else f"class {top}"
+        print(f"  {k:3d}{mark}   {power[k]:8.4f}  {top} ({name})")
     print(f"classified {labels.size} frames ({wide.size} wideband samples) "
           f"in {dt:.3f}s wall on {dev.type} (a first run on cuda includes "
           "building the kernels)")

@@ -68,6 +68,12 @@ class VTCNN2(nn.Module):
     @classmethod
     def from_config(cls, cfg: ModelConfig, frame_len: int = 128,
                     generator: torch.Generator | None = None) -> "VTCNN2":
+        """The VT-CNN2 of ``cfg``; ValueError for a configuration of another
+        architecture (``cfg.arch``), which is not trained, quantized or
+        measured as a VT-CNN2 in its place."""
+        if cfg.arch != "vtcnn2":
+            raise ValueError(f"model.arch={cfg.arch!r}: this path builds a VT-CNN2 "
+                             "(model.arch=vtcnn2) only")
         return cls(num_classes=cfg.num_classes, conv1_filters=cfg.conv1_filters,
                    conv2_filters=cfg.conv2_filters, dense_units=cfg.dense_units,
                    dropout_rate=cfg.dropout_rate, dtype=cfg.dtype,

@@ -103,6 +103,8 @@ _SIGNATURES = {
                                      ctypes.c_int, _P, _P, _P, _P, _P],
     # in, n_bytes, out, stream
     "amc_copy_bytes": [_P, ctypes.c_longlong, _P, _P],
+    # x, n, w (the packed stacks), out, stream
+    "amc_residual_chain_bf16": [_P, ctypes.c_longlong, _P, _P, _P],
     # x, b, t_len, inv_sx, out, stream
     "amc_tap_planes": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _P, _P],
 }

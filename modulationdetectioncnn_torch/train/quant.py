@@ -83,7 +83,11 @@ def calibrate_activations(model: VTCNN2, calib_x: np.ndarray,
                           percentile: float = 99.99) -> dict[str, float]:
     """Run the model (eval mode, its own device and compute dtype) on the
     calibration frames; return the input absmax scale and the percentile
-    scales of the post-ReLU Conv1 / Conv2 / Dense1 activations."""
+    scales of the post-ReLU Conv1 / Conv2 / Dense1 activations. The
+    quantizer is VT-CNN2's: another model raises ValueError."""
+    if not isinstance(model, VTCNN2):
+        raise ValueError(f"the int8 quantizer takes a VT-CNN2 (model.arch=vtcnn2), "
+                         f"not a {type(model).__name__}")
     dev = next(model.parameters()).device
     was_training = model.training
     model.eval()

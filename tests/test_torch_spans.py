@@ -184,7 +184,7 @@ def test_bench_readers_report_in_exactly_their_cells():
     new = {m["name"]: m["workloads"] for m in spec.benchmark()["per_layer"]
            if m["source"] in ("program_span", "program_counter")
            and m["name"] != "frontend_host_ms.stream"}
-    assert len(new) == 6
+    assert len(new) == 8
     for cell in ("int8_stream", "bf16_stream_timing", "int8_frames", "bf16_frames"):
         line = run.run(small_cell(cell), 3000000123, 0.2, True, "cpu", time.perf_counter())
         assert line["correct"], line
